@@ -1,0 +1,192 @@
+"""The port's layers and gemma2 model against the JAX reference, on the CPU.
+
+Weights come from ``repro.models.init_lm`` through ``params_from_jax``;
+inputs are made with numpy from a seed.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import forward_with_cache as jax_forward_with_cache
+from repro.models import init_lm as jax_init_lm
+from repro.models import layers as jax_layers
+from repro_torch.configs import get_config
+from repro_torch.models import (decode_step, forward, forward_with_cache,
+                                init_lm, layers, params_from_jax)
+from repro_torch.models.model import layer_specs
+
+
+def _rand(*shape, seed=0, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)) \
+        .astype(np.float32)
+
+
+def _close(got, want, tol=1e-5):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# layers one by one
+# ---------------------------------------------------------------------------
+def test_rms_norm():
+    x, w = _rand(2, 5, 32), _rand(32, seed=1, scale=0.1)
+    _close(layers.rms_norm(torch.from_numpy(x), torch.from_numpy(w)),
+           jax_layers.rms_norm(jnp.asarray(x), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_softcap(cap):
+    x = _rand(4, 64, scale=40.0)
+    _close(layers.softcap(torch.from_numpy(x), cap),
+           jax_layers.softcap(jnp.asarray(x), cap))
+
+
+def test_swiglu():
+    x, w1, w3, w2 = _rand(2, 3, 16), _rand(16, 24, seed=1), \
+        _rand(16, 24, seed=2), _rand(24, 16, seed=3)
+    got = layers.swiglu(*(torch.from_numpy(a) for a in (x, w1, w3, w2)))
+    want = jax_layers.swiglu(*(jnp.asarray(a) for a in (x, w1, w3, w2)))
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("positions", [np.arange(7)[None, :],
+                                       np.arange(4000, 4007)[None, :]])
+def test_apply_rope(positions):
+    x = _rand(2, 7, 3, 32)
+    got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(positions))
+    want = jax_layers.apply_rope(jnp.asarray(x), jnp.asarray(positions))
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("tie", [True, False])
+def test_embed_and_logits(tie):
+    emb, head = _rand(50, 16), _rand(16, 50, seed=1)
+    jp = {"embedding": jnp.asarray(emb)}
+    p = {"embedding": torch.from_numpy(emb)}
+    if not tie:
+        jp["head"], p["head"] = jnp.asarray(head), torch.from_numpy(head)
+    tokens = np.array([[3, 0, 49], [7, 7, 1]])
+    x = jax_layers.embed_tokens(jp, jnp.asarray(tokens), 16)
+    _close(layers.embed_tokens(p, torch.from_numpy(tokens)), x)
+    _close(layers.lm_logits(p, torch.from_numpy(np.array(x)), 3.0),
+           jax_layers.lm_logits(jp, x, 3.0))
+
+
+@pytest.mark.parametrize("shape,fan_in", [((256, 64), 256),
+                                          ((64, 8, 128), 8)])
+def test_dense_init_fan_in_rule(shape, fan_in):
+    """Truncated normal at ±2σ scaled by 1/sqrt(fan_in), where a 3-D weight
+    takes shape[-2] as its fan-in, as in the reference."""
+    gen = torch.Generator().manual_seed(0)
+    w = layers.dense_init(gen, shape)
+    std = 1.0 / fan_in ** 0.5
+    assert w.shape == shape and w.dtype == torch.float32
+    assert w.abs().max().item() <= 2 * std
+    # a standard normal truncated at ±2 has std 0.8796
+    assert abs(w.std().item() / std - 0.8796) < 0.02
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+def _configs(padded_heads):
+    kw = dict(dtype="float32", padded_heads=padded_heads)
+    return (dataclasses.replace(jax_config("gemma2-2b", smoke=True), **kw),
+            dataclasses.replace(get_config("gemma2-2b", smoke=True), **kw))
+
+
+def _weights(jcfg, cfg):
+    jp, _ = jax_init_lm(jax.random.PRNGKey(0), jcfg)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                               device="cpu")
+
+
+def _check_caches(caches, jax_caches, pattern_len):
+    """Port caches are per layer; the reference's per pattern position,
+    stacked over groups."""
+    for layer, c in enumerate(caches):
+        g, pos = divmod(layer, pattern_len)
+        for n in "kv":
+            _close(c[n], jax_caches[pos][n][g], 1e-4)
+
+
+@pytest.mark.parametrize("padded_heads", [0, 8])
+def test_forward_prefill_decode_match_jax(padded_heads):
+    jcfg, cfg = _configs(padded_heads)
+    jp, p = _weights(jcfg, cfg)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    max_seq = 64
+
+    want, _ = jax_forward(jp, jnp.asarray(tokens), jcfg, remat=False)
+    got, aux = forward(p, torch.from_numpy(tokens), cfg)
+    _close(got, want, 1e-4)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+
+    want, jcache, _ = jax_forward_with_cache(jp, jnp.asarray(tokens), jcfg,
+                                             max_seq=max_seq)
+    got, cache, _ = forward_with_cache(p, torch.from_numpy(tokens), cfg,
+                                       max_seq=max_seq)
+    _close(got, want, 1e-4)
+    pattern_len = len(cfg.pattern())
+    _check_caches(cache, jcache, pattern_len)
+
+    tok = np.array(jnp.argmax(want[:, -1], axis=-1))
+    for step in range(6):
+        pos = tokens.shape[1] + step
+        want, jcache = jax_decode_step(jp, jcache, jnp.asarray(tok, jnp.int32),
+                                       jnp.int32(pos), jcfg)
+        got, cache = decode_step(p, cache, torch.from_numpy(tok), pos, cfg)
+        _close(got, want, 1e-4)
+        tok = np.array(jnp.argmax(want, axis=-1))
+    _check_caches(cache, jcache, pattern_len)
+
+
+def test_init_lm_layout_matches_converted():
+    jcfg, cfg = _configs(8)
+    _, converted = _weights(jcfg, cfg)
+    fresh = init_lm(cfg, seed=0, device="cpu")
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [shapes(v) for v in tree]
+        return (tuple(tree.shape), tree.dtype)
+
+    assert shapes(fresh) == shapes(converted)
+    for bp in fresh["blocks"]:        # pad heads are zero at init
+        assert not bp["mixer"]["wq"][:, cfg.num_heads:].any()
+        assert not bp["mixer"]["wo"][cfg.num_heads:].any()
+        assert bp["mixer"]["wq"][:, :cfg.num_heads].any()
+
+
+def test_params_from_jax_bfloat16_bit_exact():
+    jcfg = jax_config("gemma2-2b", smoke=True)       # bfloat16 weights
+    cfg = get_config("gemma2-2b", smoke=True)
+    jp, _ = jax_init_lm(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jp)
+    p = params_from_jax(tree, cfg, device="cpu")
+    wq = tree["blocks"][1]["mixer"]["wq"][0]          # group 0, position 1
+    assert wq.dtype == ml_dtypes.bfloat16
+    got = p["blocks"][1]["mixer"]["wq"]
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.view(torch.int16).numpy(), wq.view(np.int16))
+
+
+def test_unported_blocks_raise():
+    cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True),
+                              num_experts=2, experts_per_token=1)
+    with pytest.raises(NotImplementedError):
+        layer_specs(cfg)
+    with pytest.raises(NotImplementedError):
+        init_lm(cfg, device="cpu")
