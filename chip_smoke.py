@@ -10,7 +10,9 @@ any phase fails:
 1. build   — compile the flash attention kernel from ``src/repro_torch``
              and print what ``nvcc -Xptxas -v`` reports for it;
 2. kernel  — the kernel against its plain PyTorch version at gemma2-2b's
-             attention widths, with kernel, plain, library and bound times;
+             attention widths and at every (B, S) the serve phase gives it,
+             with a softcap-off control that must fail the same check, and
+             kernel, plain, library and bound times;
 3. serve   — a small model on the card against the same model on the CPU,
              then gemma2-2b at full width (random weights from seed 0) in
              two engines: a batch of short prompts, and one 4352-token
@@ -31,22 +33,47 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-B, H, KV, HD, SOFTCAP = 1, 16, 4, 256, 50.0      # gemma2-2b attention
+H, KV, HD, SOFTCAP = 16, 4, 256, 50.0      # gemma2-2b attention
+# q at 4x unit scale gives scores of std 4, where the softcap bends the
+# top scores (50·tanh(16/50) is 15.47); the model's own q and k are larger
+Q_SCALE = 4.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
-# (label, S, window, dtype): the serve path's shapes and the edge cases
-KERNEL_CASES = [
-    ("S1024 causal", 1024, 0, "bfloat16"),
-    ("S1024 causal", 1024, 0, "float32"),
-    ("S4352 window4096", 4352, 4096, "bfloat16"),
-    ("S4352 causal", 4352, 0, "bfloat16"),      # engine B's global layers
-    ("S96 ragged", 96, 0, "bfloat16"),
-    ("S96 ragged", 96, 0, "float32"),
-    ("S512 window64", 512, 64, "bfloat16"),
-]
-MAIN_CASE = "S4352 window4096 bfloat16"   # engine B's sliding-window layers
+TOLERANCE = {"bfloat16": "2^-7·|want| + 1e-3 (one bf16 ulp)",
+             "float32": "1e-4"}
+ENGINE_A_BATCH = 4
+MAIN_CASE = "B1 S4352 window4096 bfloat16"   # engine B's windowed layers
 REPLACES = "src/repro/kernels/flash_attention.py:27"
+
+
+def engine_a_lengths(rng):
+    """Engine A's 8 prompt lengths, the first draw from its generator."""
+    return rng.integers(64, 257, size=8)
+
+
+def kernel_cases():
+    """(B, S, window, dtype): every shape the serve phase gives the kernel
+    in bf16 (engine A's two waves, engine B's windowed and global layers),
+    then edge cases."""
+    import numpy as np
+    lengths = engine_a_lengths(np.random.default_rng(0))
+    waves = [int(lengths[i:i + ENGINE_A_BATCH].max())
+             for i in range(0, len(lengths), ENGINE_A_BATCH)]
+    return [
+        *[(ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
+        (1, 4352, 4096, "bfloat16"),
+        (1, 4352, 0, "bfloat16"),
+        (1, 1024, 0, "bfloat16"),
+        (1, 1024, 0, "float32"),
+        (1, 96, 0, "bfloat16"),            # ragged
+        (1, 96, 0, "float32"),
+        (1, 512, 64, "bfloat16"),
+    ]
+
+
+def case_name(b: int, s: int, window: int, dtype: str) -> str:
+    band = f"window{window}" if window else "causal"
+    return f"B{b} S{s} {band} {dtype}"
 
 
 def card_label() -> str:
@@ -92,21 +119,25 @@ def phase_build(card: str) -> None:
         card)
 
 
-def _bound(s: int, window: int, dtype: str, nbytes: int):
+def _bound(b: int, s: int, window: int, dtype: str, nbytes: int):
     """Least time for the work this input needs: the larger of its
     matrix-product FLOPs (valid (row, column) pairs only) over the type's
     peak and its bytes (q, k, v read once, o written once) over HBM."""
     rows = range(s)
     pairs = sum(r - (max(0, r - window + 1) if window else 0) + 1
                 for r in rows)
-    flops = 4 * B * H * HD * pairs
+    flops = 4 * b * H * HD * pairs
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_kernel(card: str, cases=KERNEL_CASES) -> dict:
+def phase_kernel(card: str) -> dict:
+    """Each case: the kernel against the plain version within the stated
+    tolerance, and a control (the kernel with the softcap off, against the
+    plain version with it on) that must fall outside it, so the check is
+    known to see the softcap."""
     import torch
     import torch.nn.functional as F
 
@@ -115,28 +146,35 @@ def phase_kernel(card: str, cases=KERNEL_CASES) -> dict:
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, s, window, dtype_name in cases:
+    for b, s, window, dtype_name in kernel_cases():
         dtype = getattr(torch, dtype_name)
 
         def rand(*shape, scale=1.0):
             return (scale * torch.randn(shape, generator=gen, device="cuda")
                     ).to(dtype)
-        # f32: scores of std 4 reach the softcap's curve; bf16: unit scale,
-        # so outputs stay below 4, where one bf16 ulp (a rounding tie the
-        # two versions may break apart) is under the tolerance
-        q_scale = 4.0 if dtype_name == "float32" else 1.0
-        q, k, v = rand(B, s, H, HD, scale=q_scale), rand(B, s, KV, HD), \
-            rand(B, s, KV, HD)
+        q, k, v = rand(b, s, H, HD, scale=Q_SCALE), rand(b, s, KV, HD), \
+            rand(b, s, KV, HD)
         kw = dict(causal=True, window=window, softcap=SOFTCAP)
         got = KERNEL(q, k, v, **kw)
+        control = KERNEL(q, k, v, causal=True, window=window, softcap=0.0)
         want = ref.attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        name = case_name(b, s, window, dtype_name)
+        if got.dtype != dtype or got.shape != q.shape:
+            raise AssertionError(f"kernel {name}: got {got.dtype} "
+                                 f"{tuple(got.shape)}")
         err = (got.float() - want.float()).abs().max().item()
+        ratio = ref.err_over_tolerance(got, want)
+        control_ratio = ref.err_over_tolerance(control, want)
         tol = TOLERANCE[dtype_name]
-        name = f"{label} {dtype_name}"
-        if not (err <= tol):
-            raise AssertionError(f"kernel {name}: max_abs_err {err} > {tol}")
-        iters = max(20, min(200, int(2e10 // (s * s * H * HD))))
+        if not ratio <= 1.0:
+            raise AssertionError(f"kernel {name}: error {ratio} times the "
+                                 f"tolerance {tol} (max_abs_err {err})")
+        if not control_ratio > 1.0:
+            raise AssertionError(f"kernel {name}: the softcap-off control is "
+                                 f"within tolerance ({control_ratio}); the "
+                                 f"check cannot see the softcap")
+        iters = max(20, min(200, int(2e10 // (b * s * s * H * HD))))
         kernel_ms = time_ms(lambda: KERNEL(q, k, v, **kw), iters)
         plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, **kw),
                            max(2, iters // 4))
@@ -144,15 +182,19 @@ def phase_kernel(card: str, cases=KERNEL_CASES) -> dict:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
         nbytes = 2 * (q.nbytes + k.nbytes)           # q, k, v, o
-        bound_ms, bound_by = _bound(s, window, dtype_name, nbytes)
-        results[name] = dict(max_abs_err=err, ms=kernel_ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        say(f"kernel {name}: max_abs_err={err:.3e} (tol {tol}) "
+        bound_ms, bound_by = _bound(b, s, window, dtype_name, nbytes)
+        results[name] = dict(b=b, s=s, window=window, dtype=dtype_name,
+                             max_abs_err=err, err_over_tol=ratio,
+                             control_err_over_tol=control_ratio,
+                             ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+        say(f"kernel {name}: max_abs_err={err:.3e} err/tol={ratio:.3f} "
+            f"softcap-off control err/tol={control_ratio:.3f} (tol {tol}) "
             f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (sdpa causal, softcap 0) "
             f"bound_ms={bound_ms:.4f} ({bound_by})", card)
-        del q, k, v, got, want, qt, kt, vt
+        del q, k, v, got, control, want, qt, kt, vt
         torch.cuda.empty_cache()
     return results
 
@@ -209,12 +251,14 @@ def _check_small_model(card: str) -> None:
 
 
 class _Probe:
-    """Times an engine's prefill waves and checks every logit it samples
-    from is finite."""
+    """Times an engine's prefill waves, records their (B, S), times each
+    attention call inside them with CUDA events, and checks every logit it
+    samples from is finite."""
 
     def __init__(self, engine) -> None:
         self.prefill_s = 0.0
-        self.waves = 0
+        self.wave_shapes = []
+        self.attention_events = []
         prefill, sample = engine._prefill_batch, engine._sample
 
         def timed_prefill(prompts):
@@ -224,7 +268,7 @@ class _Probe:
             last, cache = prefill(prompts)
             torch.cuda.synchronize()
             self.prefill_s += time.perf_counter() - t0
-            self.waves += 1
+            self.wave_shapes.append(tuple(prompts.shape))
             return last, cache
 
         def checked_sample(logits):
@@ -238,25 +282,57 @@ class _Probe:
         engine._prefill_batch = timed_prefill
         engine._sample = checked_sample
 
+    def timed_attention(self, dispatch):
+        """``dispatch`` with CUDA events recorded on the stream around
+        each call."""
+        import torch
 
-def _drive(name: str, engine, requests, card: str) -> None:
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = dispatch(*args, **kw)
+            end.record()
+            self.attention_events.append((start, end))
+            return out
+        return timed
+
+    def attention_ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.attention_events)
+
+
+def _drive(name: str, engine, requests, checked: dict, card: str) -> None:
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import KERNEL
     cfg = engine.cfg
     probe = _Probe(engine)
+    dispatch = ops.flash_attention
+    ops.flash_attention = probe.timed_attention(dispatch)
     torch.cuda.synchronize()
     before = KERNEL.launches
     t0 = time.perf_counter()
-    engine.generate(requests)
-    torch.cuda.synchronize()
+    try:
+        engine.generate(requests)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = dispatch
     wall = time.perf_counter() - t0
     launches = KERNEL.launches - before
     st = engine.stats
-    if launches != cfg.num_layers * probe.waves:
+    waves = len(probe.wave_shapes)
+    if launches != cfg.num_layers * waves:
         raise AssertionError(f"engine {name}: {launches} flash launches for "
-                             f"{probe.waves} prefill waves of "
+                             f"{waves} prefill waves of "
                              f"{cfg.num_layers} layers")
+    for b, s in probe.wave_shapes:      # every shape was held to the plain
+        for window in {0, cfg.sliding_window if cfg.sliding_window < s
+                       else 0}:
+            if case_name(b, s, window, cfg.dtype) not in checked:
+                raise AssertionError(
+                    f"engine {name}: wave shape B{b} S{s} window{window} "
+                    f"was not checked against the plain version")
     for r in requests:
         if not (r.done and 1 <= len(r.output) <= r.max_new_tokens and
                 all(0 <= t < cfg.vocab_size for t in r.output)):
@@ -264,16 +340,20 @@ def _drive(name: str, engine, requests, card: str) -> None:
                                  f"{r.output}")
     tokens = sum(len(r.output) for r in requests)
     decode_s = wall - probe.prefill_s
-    say(f"engine {name}: prefills={st.prefills} waves={probe.waves} "
+    attention_ms = probe.attention_ms()
+    say(f"engine {name}: prefills={st.prefills} waves={waves} "
+        f"wave_shapes={probe.wave_shapes} "
         f"decode_steps={st.decode_steps} tokens_out={st.tokens_out} "
         f"flash_launches={launches} "
-        f"ms_per_prefill_wave={1e3 * probe.prefill_s / probe.waves:.2f} "
+        f"ms_per_prefill_wave={1e3 * probe.prefill_s / waves:.2f} "
+        f"flash_ms_per_wave={attention_ms / waves:.2f} (CUDA events, "
+        f"{100 * attention_ms / (1e3 * probe.prefill_s):.1f}% of prefill) "
         f"ms_per_decode_step="
         f"{1e3 * decode_s / max(st.decode_steps, 1):.2f} "
         f"tokens_per_s={tokens / wall:.2f} wall_s={wall:.2f}", card)
 
 
-def phase_serve(card: str) -> int:
+def phase_serve(card: str, checked: dict) -> int:
     import numpy as np
     import torch
 
@@ -298,12 +378,13 @@ def phase_serve(card: str) -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) "
         f"init_s={time.perf_counter() - t0:.1f}", card)
 
-    engine_a = ServeEngine(cfg, params, batch_size=4, max_seq=512)
+    engine_a = ServeEngine(cfg, params, batch_size=ENGINE_A_BATCH,
+                           max_seq=512)
     engine_b = ServeEngine(cfg, params, batch_size=1, max_seq=4608)
     rng = np.random.default_rng(0)
     reqs_a = [Request(i, rng.integers(0, cfg.vocab_size, int(n)),
                       max_new_tokens=32)
-              for i, n in enumerate(rng.integers(64, 257, size=8))]
+              for i, n in enumerate(engine_a_lengths(rng))]
     reqs_b = [Request(100, rng.integers(0, cfg.vocab_size, 4352),
                       max_new_tokens=8)]
     # warm-up (cuBLAS handles, allocator), outside the counted run
@@ -312,9 +393,9 @@ def phase_serve(card: str) -> int:
 
     KERNEL.launches = 0                      # the main path starts here
     _drive("A (batch 4, max_seq 512, 8 prompts of 64-256)", engine_a,
-           reqs_a, card)
+           reqs_a, checked, card)
     _drive("B (batch 1, max_seq 4608, one prompt of 4352)", engine_b,
-           reqs_b, card)
+           reqs_b, checked, card)
     launches = KERNEL.launches               # ... and ends here
     say(f"serve: flash launches {launches}, max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
@@ -341,13 +422,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     phase_build(card)
     kernel = phase_kernel(card)
-    launches = phase_serve(card)
+    launches = phase_serve(card, kernel)
     main_case = kernel[MAIN_CASE]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": REPLACES, "launches": launches,
-        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "max_abs_err": main_case["max_abs_err"],
+        "err_over_tol": main_case["err_over_tol"],
+        "tolerance": TOLERANCE["bfloat16"], "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],

@@ -273,19 +273,11 @@ cudaError_t dispatch_head_dim(int HD, const void* q, const void* k,
                               const void* v, void* o, int B, int S, int H,
                               int KV, float scale, int causal, int window,
                               float softcap, cudaStream_t stream) {
+  // gemma2-2b's head_dim and the smoke config's; add others with a config
   switch (HD) {
     case 16:
       return launch<T, 16>(q, k, v, o, B, S, H, KV, scale, causal, window,
                            softcap, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                           softcap, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                           softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                            softcap, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, S, H, KV, scale, causal, window,
                             softcap, stream);
@@ -318,9 +310,6 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
 int flash_attention_smem_bytes(int HD) {
   switch (HD) {
     case 16: return int(smem_bytes<16>());
-    case 32: return int(smem_bytes<32>());
-    case 64: return int(smem_bytes<64>());
-    case 128: return int(smem_bytes<128>());
     case 256: return int(smem_bytes<256>());
     default: return -1;
   }

@@ -5,11 +5,14 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 ``csrc/flash_attention.cu``.  The kernel is compiled with ``nvcc`` into a
 shared library with a plain C interface at first use, into ``_build/``
 beside this file, and called through ``ctypes`` on PyTorch's current
-stream.  Nothing is compiled or loaded when the module is imported.
+stream.  The library's name carries a hash of the source and the flags,
+so a changed source or flag set is never served by an old library.
+Nothing is compiled or loaded when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import shutil
@@ -21,12 +24,15 @@ import torch
 SOURCE = pathlib.Path(__file__).resolve().with_name("csrc") / \
     "flash_attention.cu"
 BUILD_DIR = pathlib.Path(__file__).resolve().with_name("_build")
-LIBRARY = BUILD_DIR / "libflash_attention.so"
-PTXAS_REPORT = BUILD_DIR / "flash_attention.ptxas.txt"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIMS = (16, 32, 64, 128, 256)
+# head_dim instantiations: gemma2-2b's 256 and the smoke config's 16
+HEAD_DIMS = (16, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_TAG = hashlib.sha256(SOURCE.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+                      ).hexdigest()[:8]
+LIBRARY = BUILD_DIR / f"libflash_attention.{_TAG}.so"
+PTXAS_REPORT = BUILD_DIR / f"flash_attention.{_TAG}.ptxas.txt"
 
 
 def _nvcc() -> str:
@@ -41,11 +47,11 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile the library unless it is newer than its source.  The
-    compiler's per-kernel report (registers, shared memory, spills) is
-    kept in ``PTXAS_REPORT``.  Returns the library's path."""
-    if LIBRARY.exists() and \
-            LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+    """Compile the library unless one built from this source and these
+    flags exists.  The compiler's per-kernel report (registers, shared
+    memory, spills) is kept in ``PTXAS_REPORT``.  Returns the library's
+    path."""
+    if LIBRARY.exists() and PTXAS_REPORT.exists():
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")

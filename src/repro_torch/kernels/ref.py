@@ -30,3 +30,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     return out.to(q.dtype)
+
+
+def err_over_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over its elementwise tolerance; at most 1 passes.
+
+    In bfloat16 the tolerance is one ulp of ``want`` (2^-7 |want|) plus
+    1e-3: a kernel that sums in another order than the plain version may
+    round the same fp32 value to the neighbouring bf16 value, and no more.
+    In float32 it is 1e-4."""
+    bf16 = want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    tol = 2.0 ** -7 * want.abs() + 1e-3 if bf16 else \
+        torch.full_like(want, 1e-4)
+    return ((got - want).abs() / tol).max().item()

@@ -100,6 +100,18 @@ def test_cpu_dispatch_is_plain_and_kernel_refuses_cpu():
     assert KERNEL.launches == before
 
 
+def test_err_over_tolerance_admits_one_bf16_ulp_only():
+    want = torch.from_numpy(4 * np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32)).to(torch.bfloat16)
+    bits = want.view(torch.int16)
+    one_ulp, two_ulps = ((bits + n).view(torch.bfloat16) for n in (1, 2))
+    assert ref.err_over_tolerance(one_ulp, want) <= 1.0
+    assert ref.err_over_tolerance(two_ulps, want) > 1.0
+    f32 = want.float()
+    assert ref.err_over_tolerance(f32 + 9e-5, f32) <= 1.0
+    assert ref.err_over_tolerance(f32 + 2e-4, f32) > 1.0
+
+
 # ---------------------------------------------------------------------------
 # attention layer: full-sequence, prefill with cache, decode
 # ---------------------------------------------------------------------------
@@ -176,14 +188,16 @@ def test_cross_attention_not_ported():
 
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,window,dtype", [
-    (1024, 0, "bfloat16"), (1024, 0, "float32"), (96, 0, "float32"),
-    (512, 64, "bfloat16"), (300, 100, "float32")])
-def test_kernel_matches_plain_on_card(s, window, dtype):
+@pytest.mark.parametrize("b,s,window,dtype", [
+    (1, 1024, 0, "bfloat16"), (1, 1024, 0, "float32"), (1, 96, 0, "float32"),
+    (1, 512, 64, "bfloat16"), (1, 300, 100, "float32"),
+    (4, 228, 0, "bfloat16"), (4, 123, 0, "bfloat16")])   # batched waves
+def test_kernel_matches_plain_on_card(b, s, window, dtype):
+    """Scores of std 4 (q at 4x) put the top scores on the softcap's curve;
+    the kernel with the softcap off must fail the same check."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    q_scale = 4.0 if dtype == "float32" else 1.0   # as in chip_smoke.py
-    arrays = _qkv(1, s, 16, 4, 256, q_scale=q_scale)
+    arrays = _qkv(b, s, 16, 4, 256, q_scale=4.0)
     tensors = [torch.from_numpy(a).to("cuda", getattr(torch, dtype))
                for a in arrays]
     kw = dict(causal=True, window=window, softcap=50.0)
@@ -192,6 +206,7 @@ def test_kernel_matches_plain_on_card(s, window, dtype):
     want = ref.attention_ref(*tensors, **kw)
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
-    assert got.dtype == tensors[0].dtype
-    tol = 2e-2 if dtype == "bfloat16" else 1e-4
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert got.dtype == tensors[0].dtype and got.shape == tensors[0].shape
+    assert ref.err_over_tolerance(got, want) <= 1.0
+    control = KERNEL(*tensors, causal=True, window=window, softcap=0.0)
+    assert ref.err_over_tolerance(control, want) > 1.0
