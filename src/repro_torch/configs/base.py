@@ -84,6 +84,14 @@ class ArchConfig:
     def resolved_num_heads(self) -> int:
         return self.padded_heads or self.num_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def pattern(self) -> List[BlockSpec_]:
         """The repeating unit of the layer stack."""
         period = 1
@@ -162,4 +170,4 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from . import gemma2_2b  # noqa: F401
+    from . import gemma2_2b, mamba2_780m  # noqa: F401

@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+FNV_PRIME = 0x01000193
+_MASK32 = 0xFFFFFFFF
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
@@ -32,15 +35,80 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def err_over_tolerance(got: torch.Tensor, want: torch.Tensor) -> float:
+def ssd_intra_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                  b_in: torch.Tensor, c_in: torch.Tensor) -> torch.Tensor:
+    """Intra-chunk SSD: Y[i] = Σ_{j≤i} (C_i·B_j) exp(cum_i − cum_j) Δ_j x_j.
+
+    x: (B,NC,Q,H,P); dt/cum: (B,NC,Q,H); b_in/c_in: (B,NC,Q,N).  The mask
+    is applied before the product with Δ_j, so the overflowing
+    exp(cum_i − cum_j) of j > i never reaches the output."""
+    q = x.shape[2]
+    scores = torch.einsum("bcqn,bckn->bcqk", c_in.float(), b_in.float())
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    m = torch.where(mask[None, None, :, :, None], scores[..., None] * decay,
+                    torch.zeros((), device=x.device))
+    m = m * dt[:, :, None, :, :]
+    return torch.einsum("bcqkh,bckhp->bcqhp", m, x.float()).to(x.dtype)
+
+
+def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:
+    """a·b mod 2³² for int64 values in [0, 2³²), exactly: b is split in
+    16-bit halves so that no partial product exceeds 2⁴⁸."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _powers(n: int, device) -> torch.Tensor:
+    """[P^(n−1), …, P^1, P^0] mod 2³² as int64, by squaring."""
+    e = torch.arange(n - 1, -1, -1, dtype=torch.int64, device=device)
+    out = torch.ones_like(e)
+    base = FNV_PRIME
+    for _ in range(max(n - 1, 1).bit_length()):
+        out = torch.where(e & 1 == 1, _mulmod32(out, base), out)
+        base = base * base & _MASK32
+        e = e >> 1
+    return out
+
+
+def _as_uint32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2³²) as uint32 (int32's wrap, then a view)."""
+    return t.to(torch.int32).view(torch.uint32)
+
+
+def poly_digest_ref(data: torch.Tensor, block: int = 1024):
+    """Blockwise degree-weighted polynomial hash in uint32 wraparound:
+    per block, Σ_i d_i·P^(L−1−i) mod 2³² over the zero-padded buffer;
+    blocks folded with the same polynomial.  ``data``: uint8 or int32,
+    any shape (int32 is read as uint32, two's complement).  Returns
+    (total, digests), uint32 of shape () and (n_blocks,).  Exact int64
+    arithmetic, masked after every product and sum."""
+    if data.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"digest of {data.dtype}: needs uint8 or int32")
+    flat = data.reshape(-1).to(torch.int64) & _MASK32
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % block))
+    blocks = flat.reshape(-1, block)
+    digests = _as_uint32(_mulmod32(blocks, _powers(block, data.device)
+                                   [None, :]).sum(dim=1) & _MASK32)
+    return fold_digests(digests), digests
+
+
+def fold_digests(digests: torch.Tensor) -> torch.Tensor:
+    """Fold uint32 block digests into the buffer's uint32 checksum:
+    Σ_k digest_k·P^(n−1−k) mod 2³²."""
+    d = digests.reshape(-1).view(torch.int32).to(torch.int64) & _MASK32
+    total = _mulmod32(d, _powers(d.numel(), d.device)).sum() & _MASK32
+    return _as_uint32(total)
+
+
+def err_over_tolerance(got: torch.Tensor, want: torch.Tensor,
+                       rtol: float = 0.0) -> float:
     """Largest |got - want| over its elementwise tolerance; at most 1 passes.
 
     In bfloat16 the tolerance is one ulp of ``want`` (2^-7 |want|) plus
     1e-3: a kernel that sums in another order than the plain version may
     round the same fp32 value to the neighbouring bf16 value, and no more.
-    In float32 it is 1e-4."""
+    In float32 it is 1e-4 + rtol·|want|."""
     bf16 = want.dtype == torch.bfloat16
     got, want = got.float(), want.float()
-    tol = 2.0 ** -7 * want.abs() + 1e-3 if bf16 else \
-        torch.full_like(want, 1e-4)
+    tol = 2.0 ** -7 * want.abs() + 1e-3 if bf16 else 1e-4 + rtol * want.abs()
     return ((got - want).abs() / tol).max().item()

@@ -14,7 +14,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels import ops
 from .model import layer_specs, torch_dtype
+from .ssm import FLOAT32_LEAVES
 
 
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype,
@@ -30,20 +32,26 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype,
     return t.to(device=device, dtype=dtype)
 
 
-def _map(tree, fn):
+def _map(tree, fn, name=""):
+    """``fn(name, leaf)`` over a nested dictionary; ``name`` is the leaf's
+    own key."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    return fn(name, tree)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device=None) -> Dict[str, Any]:
     """``tree``: the reference's ``init_lm`` parameters with numpy leaves
     (float32 or ``ml_dtypes.bfloat16``).  Returns the port's parameters
-    on ``device`` in the config's dtype."""
+    on ``device`` in the dtypes the reference gives them: the config's
+    dtype, except the SSM leaves it keeps in float32."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
-    convert = lambda a: _to_tensor(a, dt, dev)  # noqa: E731
+
+    def convert(name, a):
+        return _to_tensor(a, torch.float32 if name in FLOAT32_LEAVES else dt,
+                          dev)
     pattern_len = len(cfg.pattern())
     stacked = tree["blocks"]
     if len(stacked) != pattern_len:
@@ -52,7 +60,31 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     blocks = []
     for layer, _ in enumerate(layer_specs(cfg)):
         g, pos = divmod(layer, pattern_len)
-        blocks.append(_map(stacked[pos], lambda a, g=g: convert(a[g])))
+        blocks.append(_map(stacked[pos],
+                           lambda name, a, g=g: convert(name, a[g])))
     return {"embed": _map(tree["embed"], convert),
-            "final_norm": convert(tree["final_norm"]),
+            "final_norm": convert("final_norm", tree["final_norm"]),
             "blocks": blocks}
+
+
+def param_checksums(params: Dict[str, Any], block: int = 1024
+                    ) -> Dict[str, torch.Tensor]:
+    """The uint32 chunk checksum of every parameter leaf, read as its
+    bytes, keyed by its path (``blocks.3.mixer.in_x``): what a worker
+    checks weights against on ingest.  On the card each leaf is one
+    launch of the checksum kernel; nothing is synchronised."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            items = tree.items()
+        elif isinstance(tree, list):
+            items = enumerate(tree)
+        else:
+            out[path] = ops.chunk_checksum(
+                tree.reshape(-1).view(torch.uint8), block)
+            return
+        for k, v in items:
+            walk(v, f"{path}.{k}" if path else str(k))
+    walk(params, "")
+    return out

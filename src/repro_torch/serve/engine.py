@@ -4,9 +4,11 @@ The reference's engine, on PyTorch:
   * requests are served in waves of ``batch``; each wave is left-padded
     with token 0 to its longest prompt (with no pad mask, as the
     reference does) and padded with empty slots to the full batch;
-  * prefill is one :func:`forward_with_cache` pass (through the flash
-    attention kernel on the card); decode advances every slot one token
-    per step with :func:`decode_step`;
+  * prefill is one :func:`forward_with_cache` pass (on the card through
+    the flash attention kernel for attention models and the ssd_intra
+    kernel for SSM models, whose state takes the pad tokens in as the
+    reference's does); decode advances every slot one token per step
+    with :func:`decode_step`;
   * ``EngineStats`` counts as the reference does: one prefill per slot
     of a wave, pad slots included.
 
