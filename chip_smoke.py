@@ -8,18 +8,23 @@ JAX.  Every phase raises on a mismatch, so the exit code is non-zero if
 any phase fails:
 
 1. build   — compile the three kernels from ``src/repro_torch`` (one
-             ``nvcc`` each, all started together) and print what
-             ``nvcc -Xptxas -v`` reports for them;
+             ``nvcc`` each, all started together); print what
+             ``nvcc -Xptxas -v`` reports for them (registers, spills and
+             warnings of both flash designs, ``wgmma`` and ``simt``), each
+             design's shared memory, and the count of HGMMA instructions
+             in the flash library's SASS, which must not be 0;
 2. kernel  — each kernel against its plain PyTorch version:
              flash attention at gemma2-2b's widths and every (B, S) the
-             gemma2 engines give it, with a softcap-off control;
+             gemma2 engines give it, with a softcap-off control, the
+             design that ran and its TFLOP/s;
              ssd_intra at mamba2-780m's widths and every (B, NC, Q) the
              mamba2 engines give it, and at the smoke widths, with a
              no-decay control; kernel, plain, library and bound times;
 3. serve   — gemma2-2b: a small model on the card against the same model
              on the CPU, then full width (random weights from seed 0) in
              engines A (short prompts, batch 4) and B (one 4352-token
-             prompt through the sliding window);
+             prompt through the sliding window), every flash launch on
+             the ``wgmma`` design;
              mamba2-780m: the chunk checksum over every parameter leaf,
              exactly equal to its plain version, with a flipped-byte
              control; a small model card-vs-CPU check; then full width
@@ -167,6 +172,8 @@ def _kernels():
 def _reset_counts() -> None:
     for kernel in _kernels().values():
         kernel.launches = 0
+    flash = _kernels()["flash_attention"]
+    flash.launches_by_design = dict.fromkeys(flash.launches_by_design, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -182,15 +189,28 @@ def phase_build(card: str) -> None:
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", card)
     for lib in libs:
         for line in lib.ptxas_report.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or \
-                    "spill" in line:
-                say(f"ptxas {lib.name}: {line.split(':', 1)[-1].strip()}",
-                    card)
+            if any(w in line.lower() for w in ("compiling entry",
+                                               "registers", "spill",
+                                               "warning")):
+                entry = line.split(':', 1)[-1].strip()
+                design = ("wgmma design: " if "flash_wgmma" in line else
+                          "simt design: " if "flash_attention_kernel" in line
+                          else "")
+                say(f"ptxas {lib.name}: {design}{entry}", card)
     say("dynamic shared memory per block: " + ", ".join(
-        f"flash hd {hd}: {fa.KERNEL.smem_bytes(hd)} B" for hd in fa.HEAD_DIMS)
+        f"flash {fa.KERNEL.design(dtype, hd)} ({str(dtype)[6:]}, hd {hd}): "
+        f"{fa.KERNEL.smem_bytes(dtype, hd)} B" for dtype, hd in fa.DESIGNS)
         + ", " + ", ".join(f"ssd_intra (P {p}, N {n}): "
                            f"{ssd_scan.KERNEL.smem_bytes(p, n)} B"
                            for p, n in ssd_scan.SHAPES), card)
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(fa.LIB.path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    hgmma = sum(line.count("HGMMA") for line in sass.splitlines())
+    say(f"SASS of {fa.LIB.path.name}: {hgmma} HGMMA instructions", card)
+    if not hgmma:
+        raise AssertionError("the flash library's SASS holds no HGMMA "
+                             "instruction")
 
 
 def _bound(flops: float, peak: float, nbytes: int):
@@ -203,11 +223,11 @@ def _bound(flops: float, peak: float, nbytes: int):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _flash_bound(b: int, s: int, window: int, dtype: str, nbytes: int):
+def _flash_flops(b: int, s: int, window: int) -> int:
     """Matrix-product FLOPs of the valid (row, column) pairs only."""
     pairs = sum(r - (max(0, r - window + 1) if window else 0) + 1
                 for r in range(s))
-    return _bound(4 * b * H * HD * pairs, PEAK_FLOPS[dtype], nbytes)
+    return 4 * b * H * HD * pairs
 
 
 def phase_flash_kernel(card: str) -> dict:
@@ -232,6 +252,7 @@ def phase_flash_kernel(card: str) -> dict:
         q, k, v = rand(b, s, H, HD, scale=Q_SCALE), rand(b, s, KV, HD), \
             rand(b, s, KV, HD)
         kw = dict(causal=True, window=window, softcap=SOFTCAP)
+        design = KERNEL.design(dtype, HD)
         got = KERNEL(q, k, v, **kw)
         control = KERNEL(q, k, v, causal=True, window=window, softcap=0.0)
         want = ref.attention_ref(q, k, v, **kw)
@@ -259,17 +280,20 @@ def phase_flash_kernel(card: str) -> dict:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
         nbytes = 2 * (q.nbytes + k.nbytes)           # q, k, v, o
-        bound_ms, bound_by = _flash_bound(b, s, window, dtype_name, nbytes)
+        flops = _flash_flops(b, s, window)
+        bound_ms, bound_by = _bound(flops, PEAK_FLOPS[dtype_name], nbytes)
+        tflops = flops / kernel_ms / 1e9
         results[name] = dict(max_abs_err=err, err_over_tol=ratio,
                              control_err_over_tol=control_ratio,
                              ms=kernel_ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        say(f"kernel flash {name}: max_abs_err={err:.3e} err/tol={ratio:.3f} "
-            f"softcap-off control err/tol={control_ratio:.3f} (tol {tol}) "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (sdpa causal, softcap 0) "
-            f"bound_ms={bound_ms:.4f} ({bound_by})", card)
+                             bound_by=bound_by, tflops=tflops, design=design)
+        say(f"kernel flash {name} ({design} design): max_abs_err={err:.3e} "
+            f"err/tol={ratio:.3f} softcap-off control "
+            f"err/tol={control_ratio:.3f} (tol {tol}) "
+            f"kernel_ms={kernel_ms:.4f} ({tflops:.1f} TFLOP/s) "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (sdpa "
+            f"causal, softcap 0) bound_ms={bound_ms:.4f} ({bound_by})", card)
         del q, k, v, got, control, want, qt, kt, vt
         torch.cuda.empty_cache()
     return results
@@ -612,12 +636,16 @@ def phase_serve_gemma(card: str, checked: dict) -> int:
            reqs_a, "flash_attention", checked, card)
     _drive("B (batch 1, max_seq 4608, one prompt of 4352)", engine_b,
            reqs_b, "flash_attention", checked, card)
-    launches = _kernels()["flash_attention"].launches   # ... and ends here
-    say(f"serve gemma2-2b: flash launches {launches}, "
-        f"max_memory_allocated="
+    flash = _kernels()["flash_attention"]              # ... and ends here
+    launches, by_design = flash.launches, dict(flash.launches_by_design)
+    say(f"serve gemma2-2b: flash launches {launches} by design "
+        f"{by_design}, max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
     if not launches:
         raise AssertionError("the gemma2 path launched no flash kernel")
+    if by_design["wgmma"] != launches:
+        raise AssertionError(f"the gemma2 path sent flash launches to other "
+                             f"designs than wgmma: {by_design}")
     return launches
 
 
@@ -693,7 +721,9 @@ def _entry(name: str, launches: int, case: dict, tolerance: str,
             "err_over_tol": case["err_over_tol"], "tolerance": tolerance,
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-            "library_ms": case["library_ms"], "shape": shape, "card": card}
+            "library_ms": case["library_ms"], "shape": shape, "card": card,
+            **({"design": case["design"], "tflops": case["tflops"]}
+               if "design" in case else {})}
 
 
 def main() -> int:

@@ -24,15 +24,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to "
+                       f"build the port's kernels")
 
 
 class CudaLibrary:
@@ -82,7 +83,7 @@ def build(*libraries: CudaLibrary) -> None:
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     procs = []
     for lib in todo:
         tmp = lib.path.with_name(f"{lib.path.name}.{os.getpid()}.tmp")

@@ -1,54 +1,110 @@
 // Flash attention forward for Hopper (sm_90a): causal / sliding-window GQA
 // with an optional tanh logit softcap, one pass over K/V with an online
-// softmax.
+// softmax.  Two designs, chosen explicitly by (dtype, head_dim):
+//
+//   wgmma  bf16 at head_dim 256 (gemma2-2b: every launch of its serving
+//          path).  Tensor cores, TMA and warp specialisation.
+//   simt   float32 at head_dim 16 and 256, bf16 at head_dim 16 (the smoke
+//          config).  fp32 FMAs on the CUDA cores.  In float32 it is level
+//          with the library, and TF32 tensor cores would break the 1e-4
+//          float32 check.
+//
+// Any other (dtype, head_dim) is refused.  Neither design falls back to
+// the other.
 //
 // Replaces: the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
-// src/repro/kernels/flash_attention.py.  It computes the same function:
-// scale 1/sqrt(hd), softcap before the mask, causal and window masks,
-// KV head h // (H / KV), fp32 running max / denominator / accumulator,
-// output in q's dtype.
+// src/repro/kernels/flash_attention.py.  Both designs compute the same
+// function: scale 1/sqrt(hd), tanh softcap before the mask, causal and
+// window masks (key c valid for row r iff c <= r and c > r - window),
+// KV head h // (H / KV) read in place, fp32 running max / denominator /
+// accumulator, rows with no valid key written as 0, output in q's dtype.
 //
-// What bounds it on this card: at gemma2-2b's prefill shapes (hd 256,
-// S in the thousands) attention does ~2*S*hd operations per byte of q/k/v,
-// far above the H100's ~295 operations per byte, so the bound is
-// arithmetic.  This first version does its products on the CUDA cores in
-// fp32 (no tensor cores), so it runs well below the bf16 tensor-core peak;
-// wgmma, TMA and warp specialisation are later work.
+// What bounds the wgmma design on this card: at gemma2-2b's prefill
+// shapes (hd 256, S in the thousands) attention does ~2*S*hd operations
+// per byte of q/k/v, far above the H100's ~295 bf16 operations per byte,
+// so the tensor cores bound it: 4*hd operations per valid (row, key) pair
+// at 989 TFLOP/s (6*hd here, with P.V run twice; see below).  Second
+// comes the special-function unit (MUFU, ~16 results per clock per SM):
+// the softmax's exp2 and the softcap's tanh cost 3 MUFU operations per
+// pair, about 0.8 of the function's tensor-core time.
 //
-// What the design does about it:
-//   * one thread block per (64-row query tile, q-head, batch); the TPU
-//     grid's sequential KV axis becomes a loop inside the block, which
-//     carries the softmax state in registers;
-//   * KV tiles that lie wholly outside the causal / window band are never
-//     visited, so a windowed layer costs O(S * window), not O(S^2);
-//   * K and V are read from KV head h // group in place, never repeated;
-//   * the ragged edge (S not a multiple of the tile) is bounds-checked
-//     on load and masked, with no padding in device memory;
-//   * tiles live in shared memory as fp32 with an odd row stride, so the
-//     Q·K^T inner loop reads K rows without bank conflicts; 256 threads
-//     each own a 4x4 block of scores and a 4 x (hd/16) block of the output
-//     accumulator, so every shared-memory read feeds several FMAs;
-//   * shared memory is sized by head_dim (148 KB at hd 256, above the
-//     48 KB default, so the launch raises the dynamic limit);
-//   * heavy (late) query tiles are scheduled first to even out the tail
-//     of a causal launch.
+// What the wgmma design does about it:
+//   * one block per (128 query rows, q-head, batch): two consumer
+//     warpgroups of 64 rows each (wgmma's M) and one producer warp; the
+//     block's key tiles are those of the causal / window band of its
+//     rows, and a warpgroup skips the products of a tile outside its own
+//     band (the diagonal tile of the lower half, the window's first tile
+//     of the upper half);
+//   * shared memory: Q (128 x 256 bf16, 64 KB) loaded once; a ring of 2
+//     stages of K and V tiles (64 keys x 256, 32 KB each), 192 KB in all;
+//     every tile arrives by TMA as 4 column slabs of 64 x 64 with the
+//     128-byte swizzle that wgmma reads without bank conflicts.  K and V
+//     of a stage have their own "full" barrier, so Q.K^T starts before V
+//     has landed; an "empty" barrier per stage hands it back;
+//   * S = Q.K^T: 16 wgmma m64n64k16 over hd 256, both operands K-major in
+//     shared memory.  Products of bf16 values are exact in fp32, so the
+//     scores differ from the plain version only in the order of sums;
+//   * softmax on the accumulator fragment in registers: scale, softcap
+//     and log2(e) folded into two constants; tanh(x) = 1 - 2/(2^(2x
+//     log2 e) + 1) with ex2.approx and rcp.approx (2 MUFU operations; the
+//     libm tanhf is a long sequence, and tanh.approx's 2^-11 relative
+//     error moves a score of 15 by ~0.007, too much for a one-ulp
+//     check); the mask is applied only on tiles that cross the diagonal,
+//     the window edge or S; row max and sum are reduced over the 4
+//     threads that share a row;
+//   * O += P.V: P goes to bf16 in registers as the register A operand of
+//     wgmma m64n256k16 (the m64nN fp32 accumulator layout packs straight
+//     into A's fragment); V (keys x hd, hd contiguous) is B, MN-major.
+//     P rounded once to bf16 misses the one-ulp check by 2.5x: a weight
+//     of 0.3 off by 2^-9 of itself, times |v| ~ 1, is ~6e-4 on an output
+//     near 0, and a few such keys add up past the 1e-3 floor.  So P is
+//     split as hi + lo, both bf16 (hi = P rounded, lo = the rest rounded),
+//     and P.V runs twice: exact to ~2^-17, at 1.5x the tensor-core work
+//     of the function;
+//   * registers: the 64 x 256 fp32 accumulator is 128 registers a thread;
+//     setmaxnreg gives the consumers 240 and the producer 24;
+//   * epilogue: multiply by 1/l, convert to bf16 and store; rows >= S are
+//     not written.  Rows past S in Q, K, V arrive from TMA as zeros;
+//   * the heaviest (latest) query tiles of all heads are scheduled
+//     first.  Heavy-first within each head alone left the heaviest blocks
+//     of the last heads to start late, and the tail to them.
+//
+// Tried at engine B's windowed shape and dropped, before the launch
+// order above, against 0.50 ms for this design then: issuing tile t's
+// Q.K^T with tile t-1's P.V and running the softmax under that P.V
+// (0.62-0.68 ms); 80-key tiles (0.51 ms); ping-pong of the two
+// warpgroups through named barriers (0.55 ms).
+//
+// The simt design: one block per (64-row query tile, q-head, batch), 256
+// threads each owning a 4x4 block of scores and a 4 x (hd/16) block of the
+// accumulator; tiles in shared memory as fp32 with an odd row stride;
+// KV tiles outside the band skipped; the ragged edge bounds-checked.
 //
 // Plain C interface, loaded with ctypes; it returns the cudaError_t of
-// the launch and never synchronises.
+// the launch and never synchronises.  The TMA descriptors are encoded on
+// the host with cuTensorMapEncodeTiled, fetched from the driver at run
+// time (the library links no libcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------------
+// simt design
+// ---------------------------------------------------------------------------
+namespace simt {
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // key/value rows per tile
 constexpr int NT = 256;      // threads per block: 16 x 16
-constexpr float NEG_INF = -1e30f;
 
 template <typename T>
 struct VecWidth {
@@ -268,49 +324,521 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(int HD, const void* q, const void* k,
-                              const void* v, void* o, int B, int S, int H,
-                              int KV, float scale, int causal, int window,
-                              float softcap, cudaStream_t stream) {
-  // gemma2-2b's head_dim and the smoke config's; add others with a config
-  switch (HD) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                           softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                            softcap, stream);
-    default:
-      return cudaErrorInvalidValue;
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// wgmma design (bf16, head_dim 256)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int HD = 256;
+constexpr int BM = 128;                        // query rows per block
+constexpr int BN = 64;                         // keys per tile
+constexpr int STAGES = 2;                      // K/V ring depth
+constexpr int SLAB_COLS = 64;                  // bf16 columns in 128 bytes
+constexpr int SLABS = HD / SLAB_COLS;          // 4 column slabs per tile
+constexpr int SLAB_BYTES = 64 * 128;           // 64 rows x 128 B
+constexpr int TILE_BYTES = SLABS * SLAB_BYTES; // 64 rows x 256 bf16
+constexpr int Q_BYTES = 2 * TILE_BYTES;        // 128 rows
+constexpr int THREADS = 384;                   // 2 consumer warpgroups + 1
+constexpr int CONSUMERS = 256;
+constexpr int NBARS = 1 + 3 * STAGES;          // q_full, k_full, v_full, empty
+// 1024 bytes of slack to align the swizzled tiles to 1024 bytes
+constexpr size_t SMEM_BYTES =
+    1024 + Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * NBARS;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA data on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
+}
+
+// One box (64 columns x 1 head x 64 rows x 1 batch) of a 4-D map.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define F8(a, i)                                                         \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),            \
+      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d (64 x 64, fp32) (+)= A (64 x 16) . B (16 x 64), both bf16 K-major in
+// shared memory.
+__device__ __forceinline__ void mma_qk(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 256, fp32) += A (64 x 16, bf16 in registers) . B (16 x 256,
+// bf16 MN-major in shared memory).
+__device__ __forceinline__ void mma_pv(float (&d)[128], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
+        F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88),
+        F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+#undef F8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two probabilities (p0 in the low half) as bf16 pairs hi + lo: hi is p
+// rounded to bf16, lo the rest rounded to bf16, so hi + lo is p to ~2^-17.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(p0 - back.x, p1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Scores are taken to the log2 domain as z = acc * pre (no softcap), or
+// z = post * tanh(acc * scale / softcap) with ex2's argument acc * pre =
+// 2 log2(e) acc scale / softcap and post = softcap log2(e).
+//
+// q, o: (B, S, H, 256); k, v: (B, S, KV, 256); bf16, contiguous; q, k, v
+// are read through the tensor maps.  grid: (ceil(S / BM) * H, B).
+template <bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int S, int H, int KV,
+                       int causal, int window, float pre, float post) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + Q_BYTES;                  // STAGES K tiles
+  const uint32_t sV = sK + STAGES * TILE_BYTES;      // STAGES V tiles
+  const uint32_t bars = sV + STAGES * TILE_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * STAGES + st); };
+
+  // x runs over (query tile, head), the heaviest tiles of every head
+  // first, so that no heavy block is left to start late
+  const int q0 = (gridDim.x / H - 1 - int(blockIdx.x) / H) * BM;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  // key tiles of the block's band
+  const int q_last = min(q0 + BM, S) - 1;
+  const int t_lo = (window ? max(0, q0 - window + 1) : 0) / BN;
+  const int t_hi = ((causal ? q_last + 1 : S) + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int half = 0; half < 2; ++half)
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sQ + (half * SLABS + sl) * SLAB_BYTES, &tm_q, q_full,
+                   sl * SLAB_COLS, h, q0 + 64 * half, b);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo;
+        const int st = i % STAGES;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);  // 1st pass: free
+        mbar_expect_tx(k_full(st), TILE_BYTES);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sK + st * TILE_BYTES + sl * SLAB_BYTES, &tm_k, k_full(st),
+                   sl * SLAB_COLS, kvh, t * BN, b);
+        mbar_expect_tx(v_full(st), TILE_BYTES);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sV + st * TILE_BYTES + sl * SLAB_BYTES, &tm_v, v_full(st),
+                   sl * SLAB_COLS, kvh, t * BN, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int r0 = q0 + 64 * wgi;                    // first row of the group
+    const int row_a = r0 + 16 * warp + lane / 4;     // rows row_a, row_a + 8
+    const int col_t = 2 * (lane % 4);
+    const bool active = r0 < S;
+    const int w_last = min(r0 + 63, S - 1);
+    const int w_lo = (window ? max(0, r0 - window + 1) : 0) / BN;
+    const int w_hi = ((causal ? w_last + 1 : S) + BN - 1) / BN;
+    const uint32_t sQw = sQ + wgi * TILE_BYTES;
+
+    float acc[128];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo;
+      const int st = i % STAGES;
+      const uint32_t parity = (i / STAGES) & 1;
+      mbar_wait(k_full(st), parity);
+      if (active && t >= w_lo && t < w_hi) {
+        // S = Q . K^T over hd 256: 4 slabs of 4 k-steps of 16 columns
+        float s[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = 0.f;
+        const uint32_t kst = sK + st * TILE_BYTES;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const uint32_t off = (kk / 4) * SLAB_BYTES + (kk % 4) * 32;
+          mma_qk(s, sw128_desc(sQw + off, 16, 1024),
+                 sw128_desc(kst + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+
+        // s[e]: row row_a + 8 ((e >> 1) & 1), key t BN + 8 (e >> 2) +
+        // col_t + (e & 1)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          if (SOFTCAP)
+            s[e] = fmaf(-2.f * post, rcp(ex2(s[e] * pre) + 1.f), post);
+          else
+            s[e] *= pre;
+        }
+        const int c0 = t * BN;
+        if (c0 + BN > S || (causal && c0 + BN - 1 > r0) ||
+            (window && c0 <= r0 + 63 - window)) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int r = row_a + 8 * ((e >> 1) & 1);
+            const int c = c0 + 8 * (e >> 2) + col_t + (e & 1);
+            if (!(c < S && (!causal || c <= r) && (!window || c > r - window)))
+              s[e] = -INFINITY;
+          }
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+        float mu[2], corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // a row with no valid key yet keeps m = -inf; its p are 0
+          mu[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+          corr[r] = ex2(m[r] - mu[r]);
+          m[r] = mx[r];
+          l[r] *= corr[r];
+        }
+        // P as bf16 hi + lo: the A fragments of 4 k-steps each
+        uint32_t ph[16], pl[16];
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int r = (e >> 1) & 1;
+          const float p0 = ex2(s[e] - mu[r]);
+          const float p1 = ex2(s[e + 1] - mu[r]);
+          l[r] += p0 + p1;
+          split_bf16(p0, p1, ph[e >> 1], pl[e >> 1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 128; ++e) acc[e] *= corr[(e >> 1) & 1];
+
+        // O += P . V: 4 k-steps of 16 keys; V slab stride 8 KB (LBO),
+        // 8-key groups 1 KB apart (SBO)
+        mbar_wait(v_full(st), parity);
+        const uint32_t vst = sV + st * TILE_BYTES;
+        fence_regs(acc);
+        fence_regs(ph);
+        fence_regs(pl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dv = sw128_desc(vst + kk * 2048, SLAB_BYTES, 1024);
+          mma_pv(acc, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
+                 ph[4 * kk + 3], dv);
+          mma_pv(acc, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                 pl[4 * kk + 3], dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+      } else {
+        mbar_wait(v_full(st), parity);
+      }
+      mbar_arrive(empty(st));
+    }
+
+    // epilogue: acc[e] is row row_a + 8 ((e >> 1) & 1), column
+    // 8 (e >> 2) + col_t + (e & 1)
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;  // empty rows write 0
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= S) continue;
+      __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * HD + col_t;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
+                                  acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A (B, S, heads, 256) bf16 tensor as 4-D (256, heads, S, B), read in
+// boxes of 64 columns x 64 rows of one head with the 128-byte swizzle;
+// rows past S read as zeros.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
+                     int heads) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t elem = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(heads),
+                              cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {HD * elem, cuuint64_t(heads) * HD * elem,
+                                 cuuint64_t(S) * heads * HD * elem};
+  const cuuint32_t box[4] = {SLAB_COLS, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool SOFTCAP>
+cudaError_t launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
+                           const CUtensorMap& tv, void* o, int B, int S,
+                           int H, int KV, int causal, int window, float pre,
+                           float post, cudaStream_t stream) {
+  auto kernel = flash_wgmma_kernel<SOFTCAP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BM - 1) / BM * H, B);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KV, causal, window,
+      pre, post);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, float scale, int causal,
+                   int window, float softcap, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map(&tq, q, B, S, H);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KV);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KV);
+  if (err != cudaSuccess) return err;
+  constexpr float LOG2E = 1.4426950408889634f;
+  if (softcap > 0.f)
+    return launch_softcap<true>(tq, tk, tv, o, B, S, H, KV, causal, window,
+                                2.f * LOG2E * scale / softcap,
+                                softcap * LOG2E, stream);
+  return launch_softcap<false>(tq, tk, tv, o, B, S, H, KV, causal, window,
+                               scale * LOG2E, 0.f, stream);
+}
+
+}  // namespace wg
+
+enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
+
+// dtype: 0 = float32, 1 = bfloat16.
+Design design_of(int dtype, int HD) {
+  if (dtype == 1 && HD == 256) return WGMMA;
+  if ((dtype == 0 && (HD == 16 || HD == 256)) || (dtype == 1 && HD == 16))
+    return SIMT;
+  return NONE;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// The design that serves (dtype, head_dim): 1 = wgmma, 0 = simt, -1 =
+// none.  dtype: 0 = float32, 1 = bfloat16.
+int flash_attention_design(int dtype, int HD) { return design_of(dtype, HD); }
+
+// Returns a cudaError_t (0 = success).
 int flash_attention_forward(int dtype, const void* q, const void* k,
                             const void* v, void* o, int B, int S, int H,
                             int KV, int HD, float scale, int causal,
                             int window, float softcap, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(HD, q, k, v, o, B, S, H, KV, scale,
-                                    causal, window, softcap, st);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(HD, q, k, v, o, B, S, H, KV,
-                                            scale, causal, window, softcap,
-                                            st);
-  return cudaErrorInvalidValue;
+  switch (design_of(dtype, HD)) {
+    case WGMMA:
+      return wg::launch(q, k, v, o, B, S, H, KV, scale, causal, window,
+                        softcap, st);
+    case SIMT:
+      if (dtype == 1)
+        return simt::launch<__nv_bfloat16, 16>(q, k, v, o, B, S, H, KV, scale,
+                                               causal, window, softcap, st);
+      if (HD == 16)
+        return simt::launch<float, 16>(q, k, v, o, B, S, H, KV, scale, causal,
+                                       window, softcap, st);
+      return simt::launch<float, 256>(q, k, v, o, B, S, H, KV, scale, causal,
+                                      window, softcap, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// Dynamic shared memory of one block at this head_dim, or -1.
-int flash_attention_smem_bytes(int HD) {
-  switch (HD) {
-    case 16: return int(smem_bytes<16>());
-    case 256: return int(smem_bytes<256>());
+// Dynamic shared memory of one block for (dtype, head_dim), or -1.
+int flash_attention_smem_bytes(int dtype, int HD) {
+  switch (design_of(dtype, HD)) {
+    case WGMMA: return int(wg::SMEM_BYTES);
+    case SIMT: return int(HD == 16 ? simt::smem_bytes<16>()
+                                   : simt::smem_bytes<256>());
     default: return -1;
   }
 }

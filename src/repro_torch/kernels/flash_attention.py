@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 (``_flash_kernel``); the source, with its design notes, is
 ``csrc/flash_attention.cu``, built and loaded by ``_build`` at first use
-and called on PyTorch's current stream.
+and called on PyTorch's current stream.  The C entry point chooses one of
+two designs by (dtype, head_dim): ``wgmma`` (tensor cores, TMA) for bf16
+at head_dim 256, ``simt`` (fp32 on the CUDA cores) for float32 and for
+bf16 at head_dim 16; it refuses any other pair.
 """
 from __future__ import annotations
 
@@ -13,27 +16,48 @@ import torch
 
 from ._build import CudaLibrary
 
-# head_dim instantiations: gemma2-2b's 256 and the smoke config's 16
-HEAD_DIMS = (16, 256)
+# (dtype, head_dim) → design, as the C entry point routes them:
+# gemma2-2b's bf16 at 256 on the tensor cores; float32, and the smoke
+# config's head_dim 16, on the CUDA cores
+DESIGNS = {(torch.bfloat16, 256): "wgmma", (torch.float32, 256): "simt",
+           (torch.float32, 16): "simt", (torch.bfloat16, 16): "simt"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGN_CODES = {0: "simt", 1: "wgmma"}
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIB = CudaLibrary("flash_attention", {
     "flash_attention_forward": (
         [_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _ci, _cf,
          _vp], _ci),
-    "flash_attention_smem_bytes": ([_ci], _ci)})
+    "flash_attention_design": ([_ci, _ci], _ci),
+    "flash_attention_smem_bytes": ([_ci, _ci], _ci)})
 
 
 class FlashAttentionKernel:
-    """The loaded library and its launch count (a plain integer, raised
-    once per launch that the card accepted)."""
+    """The loaded library and its launch counts (plain integers, raised
+    once per launch that the card accepted): ``launches`` in all and
+    ``launches_by_design`` per design."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.launches_by_design = dict.fromkeys(sorted(set(DESIGNS.values())),
+                                                0)
 
-    def smem_bytes(self, head_dim: int) -> int:
-        """Dynamic shared memory one block takes at ``head_dim``."""
-        return LIB.load().flash_attention_smem_bytes(head_dim)
+    def design(self, dtype: torch.dtype, head_dim: int) -> str:
+        """The design the library routes (dtype, head_dim) to; it must be
+        the one ``DESIGNS`` names."""
+        code = LIB.load().flash_attention_design(_DTYPE_CODES[dtype],
+                                                 head_dim)
+        got = _DESIGN_CODES.get(code)
+        if got != DESIGNS.get((dtype, head_dim)):
+            raise RuntimeError(f"flash attention: the library routes "
+                               f"({dtype}, {head_dim}) to {got}, not "
+                               f"{DESIGNS.get((dtype, head_dim))}")
+        return got
+
+    def smem_bytes(self, dtype: torch.dtype, head_dim: int) -> int:
+        """Dynamic shared memory one block takes for (dtype, head_dim)."""
+        return LIB.load().flash_attention_smem_bytes(_DTYPE_CODES[dtype],
+                                                     head_dim)
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: int = 0,
@@ -53,6 +77,7 @@ class FlashAttentionKernel:
                 stream)
         LIB.check(err, "flash attention")
         self.launches += 1
+        self.launches_by_design[DESIGNS[(q.dtype, hd)]] += 1
         return out
 
 
@@ -81,9 +106,10 @@ def _check_inputs(q, k, v, window, softcap) -> None:
     if s == 0 or b == 0 or k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"flash attention kernel: {h} q-heads over "
                          f"{k.shape[2]} KV heads, S={s}, B={b}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    if (q.dtype, hd) not in DESIGNS:
+        raise ValueError(f"flash attention kernel: no design for "
+                         f"{q.dtype} at head_dim {hd}; it takes "
+                         f"{sorted((str(d), n) for d, n in DESIGNS)}")
     if window < 0 or softcap < 0:
         raise ValueError("flash attention kernel: window and softcap must "
                          "be >= 0")

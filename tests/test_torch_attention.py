@@ -8,6 +8,7 @@ the machine with the card has no JAX, and there only the ``gpu`` test
 runs (``python -m pytest -m gpu tests/test_torch_attention.py``).
 """
 import dataclasses
+import math
 import types
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import KERNEL
+from repro_torch.kernels.flash_attention import DESIGNS, KERNEL
 from repro_torch.models import attention as attn
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -113,6 +114,100 @@ def test_err_over_tolerance_admits_one_bf16_ulp_only():
 
 
 # ---------------------------------------------------------------------------
+# the wgmma design's arithmetic, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+def _wgmma_arithmetic(q, k, v, *, window, softcap, p_parts=2,
+                      tanh_rel_err=0.0):
+    """What the wgmma design computes, with its rounding points: fp32
+    scores from bf16 q and k, 64-key tiles with a running max, tanh as
+    1 - 2/(2^(2x log2 e) + 1) with scale, softcap and log2 e folded into
+    two constants, exp2, P as the sum of ``p_parts`` bf16 parts (hi, then
+    the rest), the denominator summed from P in fp32, the output times
+    1/l, rounded once to bf16.  ``tanh_rel_err`` perturbs tanh by that
+    relative error with random signs, a model of tanh.approx."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(g, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, 2).transpose(1, 2)
+    log2e = math.log2(math.e)
+    scale = hd ** -0.5
+    pre = 2 * log2e * scale / softcap if softcap else scale * log2e
+    post = softcap * log2e
+    gen = torch.Generator().manual_seed(0)
+    m = torch.full((b, h, s), -math.inf)
+    l = torch.zeros(b, h, s)
+    acc = torch.zeros(b, h, s, hd)
+    rows = torch.arange(s)[:, None]
+    for c0 in range(0, s, 64):
+        cols = torch.arange(c0, min(c0 + 64, s))[None, :]
+        sc = qf @ kf[:, :, c0:c0 + 64].transpose(-1, -2)
+        if softcap:
+            t = 1 - 2 / (torch.exp2(sc * pre) + 1)
+            if tanh_rel_err:
+                sign = 2 * torch.randint(0, 2, t.shape, generator=gen) - 1
+                t = t * (1 + tanh_rel_err * sign)
+            z = post * t
+        else:
+            z = sc * pre
+        valid = cols <= rows
+        if window:
+            valid &= cols > rows - window
+        z = torch.where(valid, z, -math.inf)
+        mx = torch.maximum(m, z.amax(-1))
+        mu = torch.where(mx == -math.inf, 0.0, mx)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(z - mu[..., None])
+        l = l * corr + p.sum(-1)
+        parts, rest = [], p
+        for _ in range(p_parts):
+            parts.append(rest.bfloat16().float())
+            rest = rest - parts[-1]
+        acc = acc * corr[..., None]
+        for part in parts:
+            acc = acc + part @ vf[:, :, c0:c0 + 64]
+        m = mx
+    inv = torch.where(l > 0, 1 / l, 0.0)
+    return (acc * inv[..., None]).transpose(1, 2).bfloat16()
+
+
+# gemma2-2b's widths (16 q-heads over 4 KV heads, hd 256), q at 4x
+@pytest.mark.parametrize("b,s,window,zero_heads", [
+    (1, 320, 0, False), (1, 577, 0, False), (1, 577, 200, False),
+    (1, 450, 100, True), (2, 300, 37, False), (1, 129, 0, True)])
+def test_wgmma_arithmetic_within_one_bf16_ulp(b, s, window, zero_heads):
+    """The kernel's rounding points keep it within one bf16 ulp of the
+    plain version, and the same check sees the softcap."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(b, s, 16, 4, 256, q_scale=4.0))
+    if zero_heads:                 # gemma2-2b's zero pad heads
+        q[:, :, 8:] = 0
+    want = ref.attention_ref(q, k, v, causal=True, window=window,
+                             softcap=50.0)
+    got = _wgmma_arithmetic(q, k, v, window=window, softcap=50.0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert ref.err_over_tolerance(got, want) <= 1.0
+    control = _wgmma_arithmetic(q, k, v, window=window, softcap=0.0)
+    assert ref.err_over_tolerance(control, want) > 1.0
+
+
+@pytest.mark.parametrize("s,window", [(577, 0), (450, 100)])
+def test_single_rounding_of_p_or_approx_tanh_misses_one_ulp(s, window):
+    """Why the kernel splits P in two bf16 parts and does not use
+    tanh.approx: P rounded once to bf16, or tanh off by tanh.approx's
+    2^-11 relative error bound, fails the one-ulp check at these shapes."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, s, 16, 4, 256, q_scale=4.0))
+    want = ref.attention_ref(q, k, v, causal=True, window=window,
+                             softcap=50.0)
+    once = _wgmma_arithmetic(q, k, v, window=window, softcap=50.0, p_parts=1)
+    approx = _wgmma_arithmetic(q, k, v, window=window, softcap=50.0,
+                               tanh_rel_err=2.0 ** -11)
+    assert ref.err_over_tolerance(once, want) > 1.0
+    assert ref.err_over_tolerance(approx, want) > 1.0
+
+
+# ---------------------------------------------------------------------------
 # attention layer: full-sequence, prefill with cache, decode
 # ---------------------------------------------------------------------------
 def _layer(jx, window):
@@ -187,26 +282,51 @@ def test_cross_attention_not_ported():
 
 
 # ---------------------------------------------------------------------------
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s,window,dtype", [
-    (1, 1024, 0, "bfloat16"), (1, 1024, 0, "float32"), (1, 96, 0, "float32"),
-    (1, 512, 64, "bfloat16"), (1, 300, 100, "float32"),
-    (4, 228, 0, "bfloat16"), (4, 123, 0, "bfloat16")])   # batched waves
-def test_kernel_matches_plain_on_card(b, s, window, dtype):
+def _check_on_card(b, s, window, dtype, zero_heads=False):
     """Scores of std 4 (q at 4x) put the top scores on the softcap's curve;
-    the kernel with the softcap off must fail the same check."""
+    the kernel with the softcap off must fail the same check (with one key
+    the softcap cannot change the output).  The launch is counted under
+    the design that (dtype, head_dim 256) routes to."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     arrays = _qkv(b, s, 16, 4, 256, q_scale=4.0)
     tensors = [torch.from_numpy(a).to("cuda", getattr(torch, dtype))
                for a in arrays]
+    if zero_heads:                 # gemma2-2b's zero pad heads
+        tensors[0][:, :, 8:] = 0
     kw = dict(causal=True, window=window, softcap=50.0)
+    design = DESIGNS[(tensors[0].dtype, 256)]
     before = KERNEL.launches
+    by_design = KERNEL.launches_by_design[design]
     got = ops.flash_attention(*tensors, **kw)
     want = ref.attention_ref(*tensors, **kw)
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
+    assert KERNEL.launches_by_design[design] == by_design + 1
     assert got.dtype == tensors[0].dtype and got.shape == tensors[0].shape
     assert ref.err_over_tolerance(got, want) <= 1.0
-    control = KERNEL(*tensors, causal=True, window=window, softcap=0.0)
-    assert ref.err_over_tolerance(control, want) > 1.0
+    if s > 1:
+        control = KERNEL(*tensors, causal=True, window=window, softcap=0.0)
+        assert ref.err_over_tolerance(control, want) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,window,dtype", [
+    (1, 1024, 0, "bfloat16"), (1, 1024, 0, "float32"), (1, 96, 0, "float32"),
+    (1, 512, 64, "bfloat16"), (1, 300, 100, "float32"),
+    (4, 228, 0, "bfloat16"), (4, 123, 0, "bfloat16"),    # batched waves
+    # tile and ring edges of the wgmma design (64 keys, 128 rows, 2 stages)
+    (1, 1, 0, "bfloat16"), (1, 63, 0, "bfloat16"), (1, 64, 0, "bfloat16"),
+    (1, 65, 0, "bfloat16"), (1, 127, 0, "bfloat16"),
+    (1, 128, 0, "bfloat16"), (1, 129, 0, "bfloat16"),
+    # windows off the tile grid, one under a tile; B 4 with GQA
+    (1, 700, 100, "bfloat16"), (1, 300, 37, "bfloat16"),
+    (4, 333, 150, "bfloat16")])
+def test_kernel_matches_plain_on_card(b, s, window, dtype):
+    _check_on_card(b, s, window, dtype)
+
+
+@pytest.mark.gpu
+def test_kernel_zero_q_heads_on_card():
+    """Half the q-heads all zero, as gemma2-2b's 8 pad heads are."""
+    _check_on_card(2, 200, 0, "bfloat16", zero_heads=True)
