@@ -10,27 +10,33 @@ any phase fails:
 1. build   — compile the three kernels from ``src/repro_torch`` (one
              ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
-             warnings of both flash designs, ``wgmma`` and ``simt``), each
-             design's shared memory, and the count of HGMMA instructions
-             in the flash library's SASS, which must not be 0;
+             warnings of both flash designs and both ssd_intra designs,
+             ``wgmma`` and ``simt``), each design's shared memory, and the
+             count of HGMMA instructions in the flash and ssd_scan
+             libraries' SASS, neither of which may be 0;
 2. kernel  — each kernel against its plain PyTorch version:
              flash attention at gemma2-2b's widths and every (B, S) the
              gemma2 engines give it, with a softcap-off control, the
              design that ran and its TFLOP/s;
              ssd_intra at mamba2-780m's widths and every (B, NC, Q) the
              mamba2 engines give it, and at the smoke widths, with a
-             no-decay control; kernel, plain, library and bound times;
+             no-decay control; the design that ran, its TFLOP/s, kernel,
+             plain, library and bound times (fp32 CUDA cores, and the
+             tensor cores' 3xTF32 route);
 3. serve   — gemma2-2b: a small model on the card against the same model
              on the CPU, then full width (random weights from seed 0) in
              engines A (short prompts, batch 4) and B (one 4352-token
              prompt through the sliding window), every flash launch on
              the ``wgmma`` design;
-             mamba2-780m: the chunk checksum over every parameter leaf,
-             exactly equal to its plain version, with a flipped-byte
-             control; a small model card-vs-CPU check; then full width
-             (random weights from seed 0): the leaves' checksums and
+             mamba2-780m: the chunk checksum of every parameter leaf in
+             one launch, exactly equal to its plain version, with a
+             flipped-byte control, timed as the launch alone (its table
+             built once) and with the host's work; a small model
+             card-vs-CPU check; then full width (random weights from
+             seed 0): ``param_checksums`` (one launch, host clock) and
              engines C (8 prompts of 64-1000 tokens, batch 4) and D (one
-             8000-token prompt, 32 chunks);
+             8000-token prompt, 32 chunks), every ssd_intra launch on the
+             ``wgmma`` design;
 4. report  — one JSON line of kernel numbers, then the device line.
 
 Each serving path runs with every launch count set to 0 just before it
@@ -54,7 +60,7 @@ H, KV, HD, SOFTCAP = 16, 4, 256, 50.0      # gemma2-2b attention
 # top scores (50·tanh(16/50) is 15.47); the model's own q and k are larger
 Q_SCALE = 4.0
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOLERANCE = {"bfloat16": "2^-7·|want| + 1e-3 (one bf16 ulp)",
              "float32": "1e-4"}
 SSD_RTOL = 1e-4
@@ -172,8 +178,9 @@ def _kernels():
 def _reset_counts() -> None:
     for kernel in _kernels().values():
         kernel.launches = 0
-    flash = _kernels()["flash_attention"]
-    flash.launches_by_design = dict.fromkeys(flash.launches_by_design, 0)
+        if hasattr(kernel, "launches_by_design"):
+            kernel.launches_by_design = dict.fromkeys(
+                kernel.launches_by_design, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -187,30 +194,37 @@ def phase_build(card: str) -> None:
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", card)
+    entries = {"flash_wgmma": "wgmma design: ",
+               "flash_attention_kernel": "simt design: ",
+               "ssd_wgmma_kernel": "wgmma design: ",
+               "ssd_simt_kernel": "simt design: "}
     for lib in libs:
+        design = ""
         for line in lib.ptxas_report.read_text().splitlines():
+            if "compiling entry" in line.lower():
+                design = next((d for e, d in entries.items() if e in line),
+                              "")
             if any(w in line.lower() for w in ("compiling entry",
                                                "registers", "spill",
                                                "warning")):
                 entry = line.split(':', 1)[-1].strip()
-                design = ("wgmma design: " if "flash_wgmma" in line else
-                          "simt design: " if "flash_attention_kernel" in line
-                          else "")
                 say(f"ptxas {lib.name}: {design}{entry}", card)
     say("dynamic shared memory per block: " + ", ".join(
         f"flash {fa.KERNEL.design(dtype, hd)} ({str(dtype)[6:]}, hd {hd}): "
         f"{fa.KERNEL.smem_bytes(dtype, hd)} B" for dtype, hd in fa.DESIGNS)
-        + ", " + ", ".join(f"ssd_intra (P {p}, N {n}): "
-                           f"{ssd_scan.KERNEL.smem_bytes(p, n)} B"
-                           for p, n in ssd_scan.SHAPES), card)
-    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
-                           str(fa.LIB.path)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    hgmma = sum(line.count("HGMMA") for line in sass.splitlines())
-    say(f"SASS of {fa.LIB.path.name}: {hgmma} HGMMA instructions", card)
-    if not hgmma:
-        raise AssertionError("the flash library's SASS holds no HGMMA "
-                             "instruction")
+        + ", " + ", ".join(f"ssd_intra {ssd_scan.KERNEL.design(p, n)} "
+                           f"(P {p}, N {n}, Q 256): "
+                           f"{ssd_scan.KERNEL.smem_bytes(p, n, 256)} B"
+                           for p, n in ssd_scan.DESIGNS), card)
+    for lib in (fa.LIB, ssd_scan.LIB):
+        sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                               str(lib.path)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        hgmma = sum(line.count("HGMMA") for line in sass.splitlines())
+        say(f"SASS of {lib.path.name}: {hgmma} HGMMA instructions", card)
+        if not hgmma:
+            raise AssertionError(f"the {lib.name} library's SASS holds no "
+                                 f"HGMMA instruction")
 
 
 def _bound(flops: float, peak: float, nbytes: int):
@@ -321,7 +335,12 @@ def phase_ssd_kernel(card: str) -> dict:
         dt = F.softplus(rand(b, nc, q, h))
         cum = torch.cumsum(-F.softplus(rand(b, nc, q, h)), dim=2)
         args = (x, dt, cum, b_in, c_in)
+        design = KERNEL.design(p, n)
+        by_design = KERNEL.launches_by_design[design]
         got = KERNEL(*args)
+        if KERNEL.launches_by_design[design] != by_design + 1:
+            raise AssertionError(f"ssd_intra: the launch was not counted "
+                                 f"under {design}")
         want = ref.ssd_intra_ref(*args)
         control = ref.ssd_intra_ref(x, dt, torch.zeros_like(cum), b_in, c_in)
         torch.cuda.synchronize()
@@ -348,16 +367,24 @@ def phase_ssd_kernel(card: str) -> dict:
         flops = b * nc * q * (q + 1) // 2 * (2 * n + 2 * h * p)
         nbytes = sum(t.nbytes for t in args) + got.nbytes
         bound_ms, bound_by = _bound(flops, PEAK_FLOPS["float32"], nbytes)
+        # the tensor cores' route: three TF32 products per product
+        tc_bound_ms, tc_bound_by = _bound(3 * flops, PEAK_FLOPS["tf32"],
+                                          nbytes)
+        tflops = flops / kernel_ms / 1e9
         results[name] = dict(max_abs_err=err, err_over_tol=ratio,
                              control_err_over_tol=control_ratio,
                              ms=kernel_ms, plain_ms=plain_ms,
                              library_ms=None, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        say(f"kernel ssd_intra {name} float32: max_abs_err={err:.3e} "
-            f"err/tol={ratio:.3f} no-decay control err/tol="
-            f"{control_ratio:.3f} (tol {SSD_TOLERANCE}) "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms=none bound_ms={bound_ms:.4f} ({bound_by})", card)
+                             bound_by=bound_by, tc_bound_ms=tc_bound_ms,
+                             tc_bound_by=tc_bound_by, tflops=tflops,
+                             design=design)
+        say(f"kernel ssd_intra {name} float32 ({design} design): "
+            f"max_abs_err={err:.3e} err/tol={ratio:.3f} no-decay control "
+            f"err/tol={control_ratio:.3f} (tol {SSD_TOLERANCE}) "
+            f"kernel_ms={kernel_ms:.4f} ({tflops:.1f} TFLOP/s) "
+            f"plain_ms={plain_ms:.4f} library_ms=none bound_ms="
+            f"{bound_ms:.4f} ({bound_by}, fp32 CUDA cores) tc_bound_ms="
+            f"{tc_bound_ms:.4f} ({tc_bound_by}, 3xTF32 tensor cores)", card)
         del x, dt, cum, b_in, c_in, args, got, want, control
         torch.cuda.empty_cache()
     return results
@@ -372,55 +399,72 @@ def _leaves(tree):
 
 
 def phase_checksum_kernel(params, card: str) -> dict:
-    """Every parameter leaf of mamba2-780m as bytes: the kernel's block
-    digests and total equal the plain version's exactly.  Control: one
-    byte flipped in the embedding changes the total and the digest of
-    exactly one block, at offset // 1024."""
+    """Every parameter leaf of mamba2-780m as bytes, all in one launch: the
+    kernel's block digests and totals equal the plain version's exactly.
+    Control: one byte flipped in the largest leaf changes that leaf's
+    total and the digest of exactly one block, at offset // 1024, and no
+    other leaf's total or digest."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunk_checksum import KERNEL
 
     leaves = [t.reshape(-1).view(torch.uint8) for t in _leaves(params)]
+    before = KERNEL.launches
+    totals, digests, offsets = KERNEL.many(leaves, 1024)
+    if KERNEL.launches != before + 1:
+        raise AssertionError(f"chunk_checksum: {KERNEL.launches - before} "
+                             f"launches for one list")
     for i, data in enumerate(leaves):
-        total, digests = KERNEL(data, 1024)
         want_total, want_digests = ref.poly_digest_ref(data, 1024)
-        if not (torch.equal(digests.view(torch.int32),
+        got = digests[offsets[i]:offsets[i + 1]]
+        if not (torch.equal(got.view(torch.int32),
                             want_digests.view(torch.int32)) and
-                int(total) == int(want_total)):
+                int(totals[i]) == int(want_total)):
             raise AssertionError(f"chunk_checksum: leaf {i} "
                                  f"({data.numel()} bytes) differs from the "
                                  f"plain version")
-    largest = max(leaves, key=lambda t: t.numel())
-    offset = largest.numel() // 3 + 5
-    flipped = largest.clone()
-    flipped[offset] ^= 0x01
-    total, digests = KERNEL(largest, 1024)
-    f_total, f_digests = KERNEL(flipped, 1024)
+    big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    offset = leaves[big].numel() // 3 + 5
+    flipped = list(leaves)
+    flipped[big] = leaves[big].clone()
+    flipped[big][offset] ^= 0x01
+    f_totals, f_digests, _ = KERNEL.many(flipped, 1024)
+    totals_differ = (f_totals.view(torch.int32) != totals.view(torch.int32)) \
+        .nonzero().flatten().tolist()
     differ = (f_digests.view(torch.int32) != digests.view(torch.int32)) \
         .nonzero().flatten().tolist()
-    if int(f_total) == int(total) or differ != [offset // 1024]:
-        raise AssertionError(f"chunk_checksum: flipped byte {offset} gave "
-                             f"total {int(f_total)} vs {int(total)}, blocks "
-                             f"{differ[:8]}")
-    del flipped
+    if totals_differ != [big] or differ != [offsets[big] + offset // 1024]:
+        raise AssertionError(f"chunk_checksum: flipped byte {offset} of leaf "
+                             f"{big} changed totals {totals_differ[:8]}, "
+                             f"digests {differ[:8]}")
+    del flipped, f_totals, f_digests
     nbytes = sum(t.numel() for t in leaves)
-    kernel_ms = time_ms(lambda: [KERNEL(t, 1024) for t in leaves], 5)
+    # the launch alone (its table built once), then with the host's work
+    launch = KERNEL.prepare(leaves, 1024)
+    kernel_ms = time_ms(lambda: KERNEL.run(launch), 20)
+    with_host_ms = time_ms(lambda: KERNEL.many(leaves, 1024), 20)
     plain_ms = time_ms(lambda: [ref.poly_digest_ref(t, 1024)
                                 for t in leaves], 2)
-    largest_ms = time_ms(lambda: KERNEL(largest, 1024), 50)
+    largest = KERNEL.prepare([leaves[big]], 1024)
+    largest_ms = time_ms(lambda: KERNEL.run(largest), 50)
     bound_ms, bound_by = _bound(0, 1.0, nbytes)
     say(f"kernel chunk_checksum: {len(leaves)} leaves, {nbytes} bytes "
-        f"(bf16 and f32 leaves as uint8, block 1024): digests and totals "
-        f"equal the plain version exactly; flipped byte {offset} of the "
-        f"largest leaf ({largest.numel()} bytes) changed the total and only "
-        f"block {offset // 1024}; kernel_ms={kernel_ms:.4f} (all leaves, "
-        f"{len(leaves)} launches) largest_leaf_ms={largest_ms:.4f} "
+        f"(bf16 and f32 leaves as uint8, block 1024) in one launch: digests "
+        f"and totals equal the plain version exactly; flipped byte {offset} "
+        f"of the largest leaf ({leaves[big].numel()} bytes) changed its "
+        f"total and only block {offset // 1024}; kernel_ms={kernel_ms:.4f} "
+        f"(all leaves, one launch, {nbytes / kernel_ms / 1e9:.3f} TB/s; "
+        f"{with_host_ms:.4f} with the host's work of many()) "
+        f"largest_leaf_ms={largest_ms:.4f} "
+        f"({leaves[big].numel() / largest_ms / 1e9:.3f} TB/s) "
         f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bound_ms:.4f} "
         f"({bound_by})", card)
     return dict(max_abs_err=0, err_over_tol=0.0, ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by, nbytes=nbytes, leaves=len(leaves))
+                bound_by=bound_by, nbytes=nbytes, leaves=len(leaves),
+                largest_leaf_ms=largest_ms, with_host_ms=with_host_ms,
+                totals=totals.cpu().tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -689,25 +733,36 @@ def phase_serve_mamba(card: str, checked: dict):
     sums = param_checksums(params)
     torch.cuda.synchronize()
     sums_ms = 1e3 * (time.perf_counter() - t0)
-    if len(sums) != checksum["leaves"]:
+    sums_launches = _kernels()["chunk_checksum"].launches
+    if len(sums) != checksum["leaves"] or sums_launches != 1:
         raise AssertionError(f"param_checksums: {len(sums)} leaves of "
-                             f"{checksum['leaves']}")
+                             f"{checksum['leaves']} in {sums_launches} "
+                             f"launches, not 1")
+    if [int(t) for t in sums.values()] != checksum["totals"]:
+        raise AssertionError("param_checksums differs from the checked "
+                             "totals of the same leaves")
+    checksum["host_ms"] = sums_ms
     say(f"serve mamba2-780m: param_checksums over {len(sums)} leaves in "
-        f"{sums_ms:.2f} ms (host clock; e.g. embed.embedding "
-        f"{int(sums['embed.embedding']):#010x})", card)
+        f"{sums_launches} launch, {sums_ms:.2f} ms (host clock; e.g. "
+        f"embed.embedding {int(sums['embed.embedding']):#010x})", card)
     _drive("C (batch 4, max_seq 1088, 8 prompts of 64-1000)", engine_c,
            reqs_c, "ssd_intra", checked, card)
     _drive(f"D (batch 1, max_seq 8192, one prompt of {ENGINE_D_PROMPT})",
            engine_d, reqs_d, "ssd_intra", checked, card)
     kernels = _kernels()                     # ... and ends here
-    ssd, sums_launches = kernels["ssd_intra"].launches, \
-        kernels["chunk_checksum"].launches
-    say(f"serve mamba2-780m: ssd_intra launches {ssd}, chunk_checksum "
-        f"launches {sums_launches}, max_memory_allocated="
+    ssd_kernel = kernels["ssd_intra"]
+    ssd, by_design = ssd_kernel.launches, dict(ssd_kernel.launches_by_design)
+    sums_launches = kernels["chunk_checksum"].launches
+    say(f"serve mamba2-780m: ssd_intra launches {ssd} by design "
+        f"{by_design}, chunk_checksum launches {sums_launches}, "
+        f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
-    if not (ssd and sums_launches == len(sums)):
+    if not (ssd and sums_launches == 1):
         raise AssertionError(f"the mamba2 path launched ssd_intra {ssd} and "
                              f"chunk_checksum {sums_launches} times")
+    if by_design["wgmma"] != ssd:
+        raise AssertionError(f"the mamba2 path sent ssd_intra launches to "
+                             f"other designs than wgmma: {by_design}")
     return ssd, sums_launches, checksum
 
 
@@ -722,8 +777,10 @@ def _entry(name: str, launches: int, case: dict, tolerance: str,
             "ms": case["ms"], "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"], "shape": shape, "card": card,
-            **({"design": case["design"], "tflops": case["tflops"]}
-               if "design" in case else {})}
+            **{k: case[k] for k in ("design", "tflops", "tc_bound_ms",
+                                    "tc_bound_by", "host_ms",
+                                    "with_host_ms", "largest_leaf_ms")
+                   if k in case}}
 
 
 def main() -> int:

@@ -3,7 +3,15 @@
 //   Y[i] = sum_{j <= i} (C_i . B_j) * exp(cum_i - cum_j) * dt_j * x_j
 //
 // within each chunk of Q rows, per head, with B and C shared by all heads
-// (ngroups 1).
+// (ngroups 1).  Two designs, chosen explicitly by (P, N):
+//
+//   wgmma  (P, N) = (64, 128), mamba2-780m's widths: every launch of its
+//          serving path.  Both products on the tensor cores in TF32 at
+//          3xTF32 precision.
+//   simt   (P, N) = (16, 16), the smoke config's widths.  fp32 FMAs on
+//          the CUDA cores.
+//
+// Any other (P, N) is refused.  Neither design falls back to the other.
 //
 // Replaces: the Pallas TPU kernel `_ssd_kernel` / `ssd_intra` in
 // src/repro/kernels/ssd_scan.py, which holds a whole Q x Q tile of one
@@ -13,29 +21,67 @@
 // What bounds it on this card: per (batch, chunk) the function needs
 // Q(Q+1)/2 * (2N + 2*H*P) operations (scores once, then one product per
 // head) against (Q*H*P*2 + Q*H*2 + Q*N*2) * 4 bytes.  At mamba2-780m's
-// widths (Q 256, H 48, P 64, N 128) that is ~32 operations per byte,
-// above the 20 of the H100's fp32 peak over its memory rate (67 TFLOP/s,
-// 3.35 TB/s; H100 SXM data sheet, 700 W), so the bound is arithmetic.
-// This first version does fp32 FMAs on the CUDA cores; TF32 wgmma and
-// TMA are later work.
+// widths (Q 256, H 48, P 64, N 128) that is ~32 operations per byte.  On
+// the CUDA cores (67 TFLOP/s fp32) that is above the card's 20 per byte,
+// so operations bound it; on the tensor cores in 3xTF32 (three TF32
+// products per product, 495 TFLOP/s) the line is ~49 per byte, so bytes
+// bound it (3.35 TB/s; H100 SXM data sheet, 700 W).
 //
-// What the design does about it:
-//   * a Q x N tile of C and of B in fp32 is 128 KB each at Q 256, N 128,
-//     so the TPU's whole-chunk tile does not fit the 227 KB a block may
-//     have.  One block handles (64 query rows, HG heads, batch x chunk)
-//     and loops over 64-row key tiles up to the diagonal, summing into
-//     registers; key tiles above the diagonal are never visited;
-//   * the score tile C_i . B_j^T is computed once per key tile and used
-//     by the block's HG heads, so scores cost H / HG times, not H times;
-//   * masking comes before the product: exp(cum_i - cum_j) is formed only
-//     for j <= i, where cum_i - cum_j <= 0.  For j > i it overflows to
-//     inf over a 256-row chunk, and 0 * inf would be NaN;
+// What the wgmma design does about it:
+//   * precision: one TF32 product (10-bit mantissa) misses the 1e-4 +
+//     1e-4|want| float32 check by two orders of magnitude.  Every operand
+//     is split as hi = tf32(v) (rounded to nearest, ties away, as cvt.rna
+//     does), lo = tf32(v - hi), and each product is hi.hi + hi.lo + lo.hi
+//     summed in fp32: wgmma .tf32, three instructions per k-step of 8
+//     (m64n32k8 for the scores, m64n64k8 per head).  The tensor cores' sums
+//     are not rounded to nearest: each instruction's sum loses about an
+//     ulp of the accumulator's magnitude.  So the scores, whose 48
+//     instructions ran the check to its limit in one accumulator, sum
+//     each 32-column chunk's hi.hi and cross terms in accumulators of
+//     their own and add those into the scores on the CUDA cores;
+//   * one block is two warpgroups for (64 query rows, a group of heads,
+//     batch x chunk).  Phase 1 forms the scores C_i . B_j^T once for the
+//     block's heads: per 64-key tile up to the diagonal (tiles above it
+//     are never visited), C and B stream through shared memory in
+//     32-column chunks (128 bytes a row, the 128-byte swizzle, K-major as
+//     wgmma's TF32 operands must be), split hi/lo on the way through
+//     registers; each warpgroup forms 32 of the tile's keys (m64n32k8).
+//     The fp32 fragments go to shared memory in the accumulator's layout,
+//     where a thread of either warpgroup finds its own fragment's values;
+//   * phase 2: each warpgroup takes every other head of the block, in
+//     steps of 32 keys.  M_h = S * exp(cum_i - cum_j) * dt_j is formed in
+//     registers from the stored fragment, masked before exp is formed
+//     (above the diagonal exp overflows over a 256-row chunk, and 0 * inf
+//     would be NaN), split hi/lo, and fed to the per-head product as the
+//     register A operand.  The accumulator gives a thread keys {2t, 2t+1}
+//     of each 8-key group; the TF32 A fragment wants k {t, t+4}.  So the
+//     k order of the product is the keys permuted, k = t <- key 2t, k =
+//     t + 4 <- key 2t + 1, and X_h^T is staged in that order: no shuffles;
+//   * X arrives as (keys, P), P contiguous: MN-major, which TF32 wgmma does
+//     not take (its transpose flags are for 16-bit types only).  Threads
+//     stage X_h^T (P x keys, keys contiguous), hi and lo, through registers:
+//     each holds 4 keys of one parity x 4 P and writes the 16-byte chunks
+//     of 4 permuted keys; the 8 lanes of a quarter-warp hold the 8 chunks
+//     of one row, so every store hits 8 distinct bank groups.  The next
+//     step's X loads are issued before this step's M and products, so
+//     they arrive meanwhile;
+//   * occupancy: a block of one warpgroup (8 warps an SM) left loads,
+//     staging, barriers and product chains each exposed (0.32 ms at
+//     engine D's shape, H100 SXM at 700 W); a second warpgroup sharing the
+//     scores doubles the warps at the same shared memory, 32 KB of
+//     operands plus 16 KB of scores per key tile (97.5 KB at Q 256): two
+//     blocks, 16 warps an SM, at 128 registers a thread;
 //   * Q is a runtime value (the model's chunk, or a prompt shorter than
-//     it); rows at or beyond Q are zero on load and not written;
-//   * tiles sit in shared memory as fp32 with an odd row stride for the
-//     score product, so B rows are read without bank conflicts; 256
-//     threads each own 4 x 4 scores and 4 x (P/16) outputs per head;
-//   * heavy (late) query tiles are scheduled first.
+//     it); rows at or beyond Q are zero on load and not written.  Up to
+//     12 key tiles (Q <= 768) fit;
+//   * the heaviest (latest) query tiles of every (batch, chunk, head
+//     group) are scheduled first; the head group shrinks (16, 8, 4) when
+//     the grid would not give each SM two blocks.
+//
+// The simt design: one block per (64 query rows, 4 heads, batch x chunk)
+// and 256 threads each owning 4 x 4 scores and 4 x (P/16) outputs per
+// head; tiles in shared memory as fp32 with an odd row stride; the score
+// tile formed once per key tile for the block's 4 heads.
 //
 // Plain C interface, loaded with ctypes; it returns the cudaError_t of
 // the launch and never synchronises.
@@ -43,8 +89,14 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// simt design (the smoke widths)
+// ---------------------------------------------------------------------------
+namespace simt {
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // key rows per tile
@@ -87,11 +139,11 @@ __device__ __forceinline__ void load_rows(float* dst, int ds,
 // contiguous float32.  grid: (ceil(Q / BQ), ceil(H / HG), B * NC).
 template <int P, int N>
 __global__ void __launch_bounds__(NT)
-    ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ cum,
-                     const float* __restrict__ bm,
-                     const float* __restrict__ cm, float* __restrict__ y,
-                     int Q, int H) {
+    ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ cum,
+                    const float* __restrict__ bm,
+                    const float* __restrict__ cm, float* __restrict__ y,
+                    int Q, int H) {
   constexpr int RS = N + 1;  // odd row stride: conflict-free B row reads
   constexpr int MS = BK + 1;
   constexpr int NJ = P / 16;  // output columns per thread
@@ -219,7 +271,7 @@ cudaError_t launch(const void* x, const void* dt, const void* cum,
                    const void* b, const void* c, void* y, int B, int NC,
                    int Q, int H, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<P, N>();
-  auto kernel = ssd_intra_kernel<P, N>;
+  auto kernel = ssd_simt_kernel<P, N>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -231,28 +283,459 @@ cudaError_t launch(const void* x, const void* dt, const void* cum,
   return cudaGetLastError();
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// wgmma design (P 64, N 128)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int P = 64;
+constexpr int N = 128;
+constexpr int BQ = 64;                  // query rows per block: wgmma's M
+constexpr int BK = 64;                  // keys per tile
+constexpr int NT = 256;                 // two warpgroups
+constexpr int KC = 32;                  // state columns per staged chunk
+constexpr int SLAB = 64 * 128;          // 64 rows x 128 bytes, one swizzle span
+constexpr int OPS_BYTES = 4 * SLAB;     // phase 1: C, B hi/lo; 2: X^T hi/lo x 2
+constexpr int S_TILE_BYTES = 32 * 128 * 4;  // one score tile's fragments
+constexpr int MAX_TILES = 12;           // Q <= 768
+constexpr int SMALL_BYTES = 2 * 64 * 4;    // cum_j, dt_j of each group's step
+
+size_t smem_bytes(int Q) {
+  const int tiles = (Q + BK - 1) / BK;
+  return 1024 + OPS_BYTES + size_t(tiles) * S_TILE_BYTES + SMALL_BYTES;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// v as TF32, rounded to nearest with ties away from zero (what
+// cvt.rna.tf32.f32 gives, in two integer operations): the low 13 bits
+// zero.  v is finite here.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo to ~2^-22 of v: hi = tf32(v), lo = tf32(v - hi).
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void st_split(uint32_t hi_addr, uint32_t lo_addr,
+                                         float a, float b, float c, float d) {
+  uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+  split(a, h0, l0);
+  split(b, h1, l1);
+  split(c, h2, l2);
+  split(d, h3, l3);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi_addr),
+               "r"(h0), "r"(h1), "r"(h2), "r"(h3)
+               : "memory");
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo_addr),
+               "r"(l0), "r"(l1), "r"(l2), "r"(l3)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` (0..7) of row `r` in a slab of 128-byte
+// rows with the 128-byte swizzle (slab 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return uint32_t(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// Writes by threads become visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup `wgi` meet (barrier 0 is the block's).
+__device__ __forceinline__ void wg_sync(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+}
+
+// K-major shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (in 16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers across the
+// asynchronous products.
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define F8(a, i)                                                         \
+  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),            \
+      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
+
+// d (64 x 32, fp32) (+)= A (64 x 8) . B (8 x 32), both TF32 K-major in
+// shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 8, TF32 in registers) . B (8 x 64, TF32
+// K-major in shared memory).
+__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+#undef F8
+
+// Rows [row0, row0 + 64) x state columns [col0, col0 + 32) of a (rows, N)
+// array into a slab, hi and lo; rows at or beyond Q are zero.  Eight
+// threads take one row's eight 16-byte chunks: distinct banks.
+__device__ __forceinline__ void stage_rows(uint32_t hi, uint32_t lo,
+                                           const float* src, int row0,
+                                           int col0, int Q) {
+#pragma unroll
+  for (int it = 0; it < 64 * 8 / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / 8, c = i % 8;
+    const int gr = row0 + r;
+    const float4 v =
+        gr < Q ? *reinterpret_cast<const float4*>(src + size_t(gr) * N +
+                                                  col0 + 4 * c)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint32_t off = sw128(r, c);
+    st_split(hi + off, lo + off, v.x, v.y, v.z, v.w);
+  }
+}
+
+// A step of phase 2 is 32 keys [k0, k0 + 32) of one head.  This thread
+// (of its warpgroup's 128) loads X keys k0 + 8 g8 + 2 m + par (m < 4) at
+// P columns 4 pq .. 4 pq + 3, and (threads < 64) cum or dt of key
+// k0 + tid % 32.  Keys at or beyond Q are zero.
+__device__ __forceinline__ void load_step(float4 (&v)[4], float& side,
+                                          const float* xb, const float* cumb,
+                                          const float* dtb, int h, int k0,
+                                          int H, int Q, int g8, int par,
+                                          int pq, int tid) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int key = k0 + 8 * g8 + 2 * m + par;
+    v[m] = key < Q ? *reinterpret_cast<const float4*>(
+                         xb + (size_t(key) * H + h) * P + 4 * pq)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int key = k0 + tid % 32;
+  side = tid < 64 && key < Q ? (tid < 32 ? cumb : dtb)[size_t(key) * H + h]
+                             : 0.f;
+}
+
+// The step into its stage: X^T (64 P rows x 32 keys, one slab, hi then
+// lo) with key 2 m + par of each 8-key group at position 4 par + m, and
+// cum, dt of its keys (small[0..31], small[32..63]).  The 8 lanes of a
+// quarter-warp hold the 8 (g8, par) pairs of one pq, so each store's 16
+// bytes land in 8 distinct bank groups.
+__device__ __forceinline__ void store_step(uint32_t stage, float* small,
+                                           const float4 (&v)[4], float side,
+                                           int g8, int par, int pq, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = 4 * pq + i;
+    const uint32_t off = sw128(p, 2 * g8 + par);
+    const float a = i == 0 ? v[0].x : i == 1 ? v[0].y : i == 2 ? v[0].z
+                                                               : v[0].w;
+    const float b = i == 0 ? v[1].x : i == 1 ? v[1].y : i == 2 ? v[1].z
+                                                               : v[1].w;
+    const float c = i == 0 ? v[2].x : i == 1 ? v[2].y : i == 2 ? v[2].z
+                                                               : v[2].w;
+    const float d = i == 0 ? v[3].x : i == 1 ? v[3].y : i == 2 ? v[3].z
+                                                               : v[3].w;
+    st_split(stage + off, stage + SLAB + off, a, b, c, d);
+  }
+  if (tid < 64) small[tid] = side;
+}
+
+// x, y: (B, NC, Q, H, 64); dt, cum: (B, NC, Q, H); b, c: (B, NC, Q, 128);
+// all contiguous float32.  grid: ceil(Q / BQ) * n_groups * B * NC blocks,
+// the latest query tiles first; head group g holds heads [g hg, g hg + hg),
+// warpgroup w of the block every other one of them from g hg + w.
+__global__ void __launch_bounds__(NT, 2)
+    ssd_wgmma_kernel(const float* __restrict__ x,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ cum,
+                     const float* __restrict__ bm,
+                     const float* __restrict__ cm, float* __restrict__ y,
+                     int Q, int H, int hg, int BNC) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ops = smem_u32(base);           // 4 slabs, 1024-aligned
+  float* sS = reinterpret_cast<float*>(base + OPS_BYTES);
+  const int n_qt = (Q + BQ - 1) / BQ;
+  float* sSmall = sS + size_t(n_qt) * (S_TILE_BYTES / 4);  // 2 x 64
+
+  const int n_groups = (H + hg - 1) / hg;
+  const int rest = n_groups * BNC;
+  const int q0 = (n_qt - 1 - int(blockIdx.x) / rest) * BQ;
+  const int grp = int(blockIdx.x) % rest % n_groups;
+  const size_t bc = size_t(blockIdx.x) % rest / n_groups;
+  const int h0 = grp * hg;
+  const int h1 = min(H, h0 + hg);
+  const float* cb = cm + bc * Q * N;
+  const float* bb = bm + bc * Q * N;
+  const float* xb = x + bc * Q * H * P;
+  const float* dtb = dt + bc * Q * H;
+  const float* cumb = cum + bc * Q * H;
+  float* yb = y + bc * Q * H * P;
+
+  const int wgi = threadIdx.x / 128;             // warpgroup
+  const int tid = threadIdx.x % 128;             // thread in it
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row_a = q0 + 16 * warp + lane / 4;  // rows row_a, row_a + 8
+  const int tq = lane % 4;
+  const int n_tiles = (min(q0 + BQ, Q) - 1) / BK + 1;  // up to the diagonal
+
+  // ---- phase 1: scores S = C . B^T of every key tile, once ----
+  // Warpgroup w forms keys 32 w .. 32 w + 31 of each tile: its 64 x 32
+  // fragment goes to sS[tile][w][register][thread], where a thread of
+  // either warpgroup finds its own fragment's values in phase 2.
+  {
+    const uint32_t cHi = ops, cLo = ops + SLAB, bHi = ops + 2 * SLAB,
+                   bLo = ops + 3 * SLAB;
+    const uint32_t bw = wgi * 32 * 128;  // this group's 32 keys of B
+    for (int t = 0; t < n_tiles; ++t) {
+      float s[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+      for (int kc = 0; kc < N / KC; ++kc) {
+        __syncthreads();  // the last products are done with the slabs
+        stage_rows(cHi, cLo, cb, q0, kc * KC, Q);
+        stage_rows(bHi, bLo, bb, t * BK, kc * KC, Q);
+        fence_async_smem();
+        __syncthreads();
+        // hi.hi and the two cross terms in accumulators of their own,
+        // fresh for each chunk, summed into s in fp32 (see the note)
+        float big[16], small[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) big[e] = small[e] = 0.f;
+        fence_regs(big);
+        fence_regs(small);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 8; ++kk) {
+          const uint32_t off = kk * 32;
+          const uint64_t ch = sw128_desc(cHi + off), cl = sw128_desc(cLo + off),
+                         bh = sw128_desc(bHi + bw + off),
+                         bl = sw128_desc(bLo + bw + off);
+          mma_ss(big, ch, bh, kk > 0);
+          mma_ss(small, ch, bl, kk > 0);
+          mma_ss(small, cl, bh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(big);
+        fence_regs(small);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s[e] = s[e] + big[e] + small[e];
+      }
+      // s[e]: row row_a + 8 ((e >> 1) & 1), key t BK + 32 wgi + 8 (e >> 2)
+      // + 2 tq + (e & 1)
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        sS[((t * 2 + wgi) * 16 + e) * 128 + tid] = s[e];
+    }
+  }
+  __syncthreads();  // every score stored; the slabs are free
+
+  // ---- phase 2: per head, Y_h = M_h . X_h, 32 keys a step ----
+  // Each warpgroup runs its own heads through its own stage (16 KB of the
+  // slabs) and its own barrier; the next step's X loads are issued before
+  // this step's M and products, so they arrive meanwhile.
+  const uint32_t stage = ops + wgi * 2 * SLAB;
+  float* small = sSmall + wgi * 64;
+  const int g8 = (lane % 8) / 2, par = lane % 2, pq = lane / 8 + 4 * warp;
+  const int sph = 2 * n_tiles;  // steps per head
+  for (int h = h0 + wgi; h < h1; h += 2) {
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    float cum_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      cum_r[r] = row < Q ? cumb[size_t(row) * H + h] : 0.f;
+    }
+    float4 v[4];
+    float side;
+    load_step(v, side, xb, cumb, dtb, h, 0, H, Q, g8, par, pq, tid);
+    for (int st = 0; st < sph; ++st) {
+      const int t = st / 2, half = st % 2;
+      wg_sync(wgi);  // the last products are done with the stage
+      store_step(stage, small, v, side, g8, par, pq, tid);
+      fence_async_smem();
+      wg_sync(wgi);
+      if (st + 1 < sph)
+        load_step(v, side, xb, cumb, dtb, h, (st + 1) * 32, H, Q, g8, par,
+                  pq, tid);
+      // M in the accumulator layout of the step's 32 keys, masked before
+      // exp is formed, as hi + lo
+      uint32_t mh[16], ml[16];
+      const float* s_frag = sS + size_t(st) * 16 * 128 + tid;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        const int row = row_a + 8 * r;
+        const int kh = 8 * (i >> 2) + 2 * tq + (i & 1);  // key in the step
+        float m = 0.f;
+        if (t * BK + 32 * half + kh <= row && row < Q)
+          m = s_frag[i * 128] * expf(cum_r[r] - small[kh]) * small[32 + kh];
+        split(m, mh[i], ml[i]);
+      }
+      fence_regs(mh);
+      fence_regs(ml);
+      wgmma_fence();
+      // k-step jj: keys 8 jj .. 8 jj + 7 of the step in the permuted
+      // order; the A fragment (rows g, g + 8; k t, t + 4) is (e0, e2, e1,
+      // e3) of the accumulator's group jj
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * jj;
+        const uint64_t dh = sw128_desc(stage + jj * 32),
+                       dl = sw128_desc(stage + SLAB + jj * 32);
+        mma_rs(acc, mh[i], mh[i + 2], mh[i + 1], mh[i + 3], dh);
+        mma_rs(acc, mh[i], mh[i + 2], mh[i + 1], mh[i + 3], dl);
+        mma_rs(acc, ml[i], ml[i + 2], ml[i + 1], ml[i + 3], dh);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(mh);
+      fence_regs(ml);
+    }
+    fence_regs(acc);
+    // acc[e]: row row_a + 8 ((e >> 1) & 1), column 8 (e >> 2) + 2 tq +
+    // (e & 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= Q) continue;
+      float* out = yb + (size_t(row) * H + h) * P + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Heads per block: the largest of 16, 8, 4 that still gives every SM two
+// blocks; scores are formed once per block, so larger groups repeat them
+// less.
+int head_group(int blocks_per_group, int H) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  for (int hg = 16; hg > 4; hg /= 2)
+    if (blocks_per_group * ((H + hg - 1) / hg) >= 2 * sms) return hg;
+  return 4;
+}
+
+cudaError_t launch(const void* x, const void* dt, const void* cum,
+                   const void* b, const void* c, void* y, int B, int NC,
+                   int Q, int H, cudaStream_t stream) {
+  if (Q > MAX_TILES * BK) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Q);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Q + BQ - 1) / BQ;
+  const int hg = head_group(n_qt * B * NC, H);
+  const long long blocks =
+      (long long)n_qt * ((H + hg - 1) / hg) * B * NC;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  ssd_wgmma_kernel<<<unsigned(blocks), NT, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cum), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<float*>(y), Q, H, hg,
+      B * NC);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
+
+Design design_of(int P, int N) {
+  if (P == 64 && N == 128) return WGMMA;
+  if (P == 16 && N == 16) return SIMT;
+  return NONE;
+}
+
 }  // namespace
 
 extern "C" {
 
-// (P, N): mamba2-780m's (64, 128) and its smoke config's (16, 16); add
-// others with a config.  Returns a cudaError_t (0 = success).
+// The design that serves (P, N): 1 = wgmma, 0 = simt, -1 = none.
+int ssd_scan_design(int P, int N) { return design_of(P, N); }
+
+// Returns a cudaError_t (0 = success).
 int ssd_scan_intra(const void* x, const void* dt, const void* cum,
                    const void* b, const void* c, void* y, int B, int NC,
                    int Q, int H, int P, int N, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P == 64 && N == 128)
-    return launch<64, 128>(x, dt, cum, b, c, y, B, NC, Q, H, st);
-  if (P == 16 && N == 16)
-    return launch<16, 16>(x, dt, cum, b, c, y, B, NC, Q, H, st);
-  return cudaErrorInvalidValue;
+  switch (design_of(P, N)) {
+    case WGMMA:
+      return wg::launch(x, dt, cum, b, c, y, B, NC, Q, H, st);
+    case SIMT:
+      return simt::launch<16, 16>(x, dt, cum, b, c, y, B, NC, Q, H, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// Dynamic shared memory of one block at (P, N), or -1.
-int ssd_scan_smem_bytes(int P, int N) {
-  if (P == 64 && N == 128) return int(smem_bytes<64, 128>());
-  if (P == 16 && N == 16) return int(smem_bytes<16, 16>());
-  return -1;
+// Dynamic shared memory of one block at (P, N) and chunk length Q, or -1.
+int ssd_scan_smem_bytes(int P, int N, int Q) {
+  switch (design_of(P, N)) {
+    case WGMMA: return int(wg::smem_bytes(Q));
+    case SIMT: return int(simt::smem_bytes<16, 16>());
+    default: return -1;
+  }
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -10,6 +10,7 @@ import torch
 
 from . import ref
 from .chunk_checksum import chunk_checksum as _checksum_kernel
+from .chunk_checksum import chunk_checksums as _checksums_kernel
 from .flash_attention import KERNEL as _flash_kernel
 from .ssd_scan import KERNEL as _ssd_kernel
 
@@ -39,3 +40,16 @@ def chunk_checksum(data: torch.Tensor, block: int = 1024) -> torch.Tensor:
     if data.device.type == "cpu":
         return ref.poly_digest_ref(data, block)[0]
     return _checksum_kernel(data, block)
+
+
+def chunk_checksums(buffers, block: int = 1024, *,
+                    as_bytes: bool = False) -> torch.Tensor:
+    """The uint32 checksums (n,) of a list of buffers on one device, each
+    uint8 or int32, or any dtype read as its bytes when ``as_bytes``: on
+    the card, one launch for the whole list."""
+    buffers = list(buffers)
+    if buffers[0].device.type == "cpu":
+        return torch.stack([ref.poly_digest_ref(
+            t.reshape(-1).view(torch.uint8) if as_bytes else t, block)[0]
+            for t in buffers])
+    return _checksums_kernel(buffers, block, as_bytes=as_bytes)

@@ -14,25 +14,43 @@ import torch
 
 from ._build import CudaLibrary
 
-# (P, N) instantiations: mamba2-780m's (64, 128) and its smoke config's
-# (16, 16).  The chunk length Q is a runtime value.
-SHAPES = ((64, 128), (16, 16))
+# (P, N) → design, as the C entry point routes them: mamba2-780m's
+# (64, 128) on the tensor cores, its smoke config's (16, 16) on the CUDA
+# cores.  The chunk length Q is a runtime value, at most WGMMA_MAX_Q on
+# wgmma (12 key tiles of scores in shared memory).
+DESIGNS = {(64, 128): "wgmma", (16, 16): "simt"}
+WGMMA_MAX_Q = 768
+_DESIGN_CODES = {0: "simt", 1: "wgmma"}
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("ssd_scan", {
     "ssd_scan_intra": ([_vp] * 6 + [_ci] * 6 + [_vp], _ci),
-    "ssd_scan_smem_bytes": ([_ci, _ci], _ci)})
+    "ssd_scan_design": ([_ci, _ci], _ci),
+    "ssd_scan_smem_bytes": ([_ci, _ci, _ci], _ci)})
 
 
 class SSDIntraKernel:
-    """The launch count of the kernel: a plain integer, raised once per
-    launch that the card accepted."""
+    """The launch counts of the kernel (plain integers, raised once per
+    launch that the card accepted): ``launches`` in all and
+    ``launches_by_design`` per design."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.launches_by_design = dict.fromkeys(sorted(set(DESIGNS.values())),
+                                                0)
 
-    def smem_bytes(self, p: int, n: int) -> int:
-        """Dynamic shared memory one block takes at (P, N)."""
-        return LIB.load().ssd_scan_smem_bytes(p, n)
+    def design(self, p: int, n: int) -> str:
+        """The design the library routes (P, N) to; it must be the one
+        ``DESIGNS`` names."""
+        got = _DESIGN_CODES.get(LIB.load().ssd_scan_design(p, n))
+        if got != DESIGNS.get((p, n)):
+            raise RuntimeError(f"ssd_intra: the library routes ({p}, {n}) to "
+                               f"{got}, not {DESIGNS.get((p, n))}")
+        return got
+
+    def smem_bytes(self, p: int, n: int, q: int) -> int:
+        """Dynamic shared memory one block takes at (P, N) and chunk
+        length Q."""
+        return LIB.load().ssd_scan_smem_bytes(p, n, q)
 
     def __call__(self, x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                  b_in: torch.Tensor, c_in: torch.Tensor) -> torch.Tensor:
@@ -51,6 +69,7 @@ class SSDIntraKernel:
                 b_in.shape[-1], stream)
         LIB.check(err, "ssd_intra")
         self.launches += 1
+        self.launches_by_design[DESIGNS[(p, b_in.shape[-1])]] += 1
         return y
 
 
@@ -77,9 +96,12 @@ def _check_inputs(x, dt, cum, b_in, c_in) -> None:
         raise ValueError(f"ssd_intra kernel: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, cum {tuple(cum.shape)}, b_in "
                          f"{tuple(b_in.shape)}, c_in {tuple(c_in.shape)}")
-    if (p, n) not in SHAPES:
+    if (p, n) not in DESIGNS:
         raise ValueError(f"ssd_intra kernel: (P, N) = ({p}, {n}) not in "
-                         f"{SHAPES}")
+                         f"{tuple(DESIGNS)}")
+    if DESIGNS[(p, n)] == "wgmma" and q > WGMMA_MAX_Q:
+        raise ValueError(f"ssd_intra kernel: Q={q} above the wgmma "
+                         f"design's {WGMMA_MAX_Q}")
     if min(bsz, nc, q, h) == 0 or bsz * nc > 65535:
         raise ValueError(f"ssd_intra kernel: B={bsz}, NC={nc}, Q={q}, "
                          f"H={h}; needs each >= 1 and B*NC <= 65535")

@@ -71,9 +71,9 @@ def param_checksums(params: Dict[str, Any], block: int = 1024
                     ) -> Dict[str, torch.Tensor]:
     """The uint32 chunk checksum of every parameter leaf, read as its
     bytes, keyed by its path (``blocks.3.mixer.in_x``): what a worker
-    checks weights against on ingest.  On the card each leaf is one
+    checks weights against on ingest.  On the card all leaves go to one
     launch of the checksum kernel; nothing is synchronised."""
-    out: Dict[str, torch.Tensor] = {}
+    paths, leaves = [], []
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -81,10 +81,11 @@ def param_checksums(params: Dict[str, Any], block: int = 1024
         elif isinstance(tree, list):
             items = enumerate(tree)
         else:
-            out[path] = ops.chunk_checksum(
-                tree.reshape(-1).view(torch.uint8), block)
+            paths.append(path)
+            leaves.append(tree)
             return
         for k, v in items:
             walk(v, f"{path}.{k}" if path else str(k))
     walk(params, "")
-    return out
+    sums = ops.chunk_checksums(leaves, block, as_bytes=True)
+    return dict(zip(paths, sums.unbind(0)))

@@ -122,6 +122,118 @@ def test_param_checksums_equal_jax_digests_of_the_leaf_bytes(jx):
         assert int(total) == int(_u32(want)), path
 
 
+# ---------------------------------------------------------------------------
+# the list launch's walk, modelled on the CPU
+# ---------------------------------------------------------------------------
+P32 = 2 ** 32
+
+
+def _walk(buffers, block, n_warps):
+    """What the list kernel computes, unit by unit: warp w takes units
+    w, w + G, … of all buffers (G = ``n_warps``); entering a buffer it
+    finds it by binary search over the first units and forms the fold
+    weight P^(U j) with pow_mod, then steps it by P^(U G) inside the
+    buffer; unit j covers blocks n_blocks−1−U·j−r (r < U, those that
+    exist), each weighted P^(U j)·P^r; each warp adds one partial sum per
+    buffer it touched.  A block's digest is summed per lane vector by
+    Horner's rule, as the kernel does.  Returns (totals, digests,
+    offsets) as Python ints."""
+    rows, offsets, total_units = cc.plan([t.size for t in buffers],
+                                         [t.itemsize for t in buffers], block)
+    rows, offsets = rows.tolist(), offsets.tolist()
+    firsts = [row[2] for row in rows]
+    totals, digests = [0] * len(buffers), [None] * offsets[-1]
+    for w in range(n_warps):
+        b, unit_end, partial, fold = -1, 0, 0, 0
+        for u in range(w, total_units, n_warps):
+            if u < unit_end:
+                fold = fold * step % P32
+            else:
+                if b >= 0:
+                    totals[b] = (totals[b] + partial) % P32
+                partial = 0
+                lo, hi = b + 1, len(buffers) - 1
+                while lo < hi:
+                    mid = (lo + hi + 1) // 2
+                    lo, hi = (mid, hi) if firsts[mid] <= u else (lo, mid - 1)
+                b = lo
+                n, first_block, first_unit, _ = rows[b]
+                unit_end = firsts[b + 1] if b + 1 < len(buffers) \
+                    else total_units
+                per_unit = cc.UNIT_BYTES // (block * buffers[b].itemsize)
+                step = pow(ref.FNV_PRIME, per_unit * n_warps, P32)
+                fold = pow(ref.FNV_PRIME, per_unit * (u - first_unit), P32)
+            j = u - first_unit
+            n_blocks = -(-n // block)
+            data = np.zeros(n_blocks * block, np.uint64)
+            data[:n] = buffers[b].astype(np.int64) & 0xFFFFFFFF
+            vec = min(block // 32, 16 // buffers[b].itemsize)
+            f = fold
+            for r in range(per_unit):
+                k = n_blocks - 1 - per_unit * j - r
+                if k < 0:
+                    break
+                d = 0
+                for start in range(k * block, (k + 1) * block, vec):
+                    h = 0                # Horner over the lane's vector
+                    for v in data[start:start + vec]:
+                        h = (h * ref.FNV_PRIME + int(v)) % P32
+                    pos = start - k * block
+                    d += h * pow(ref.FNV_PRIME, block - vec - pos, P32)
+                d %= P32
+                digests[first_block + k] = d
+                partial = (partial + d * f) % P32
+                f = f * ref.FNV_PRIME % P32
+        if b >= 0:
+            totals[b] = (totals[b] + partial) % P32
+    return totals, digests, offsets
+
+
+@pytest.mark.parametrize("n_warps", [1, 3, 7, 64])
+def test_list_walk_equals_plain_per_buffer(n_warps):
+    """Ragged, empty and one-element buffers of both dtypes, block 256:
+    every digest and total of the walk equals ``poly_digest_ref`` of its
+    buffer, however many warps share the units."""
+    sizes = [("uint8", 0), ("uint8", 1), ("int32", 1), ("uint8", 1023),
+             ("uint8", 4096 * 3 + 77), ("int32", 0), ("int32", 257),
+             ("uint8", 256), ("int32", 1500), ("uint8", 0)]
+    buffers = [_data(n, dt, seed=i) for i, (dt, n) in enumerate(sizes)]
+    totals, digests, offsets = _walk(buffers, 256, n_warps)
+    assert None not in digests
+    for i, data in enumerate(buffers):
+        want_total, want_digests = ref.poly_digest_ref(
+            torch.from_numpy(data), 256)
+        assert totals[i] == int(want_total)
+        assert digests[offsets[i]:offsets[i + 1]] == \
+            [int(d) for d in want_digests]
+
+
+def test_list_api_equals_jax_per_buffer(jx):
+    """The list entry point (one launch on the card, the plain version per
+    buffer on the CPU) against the reference's ``block_digests`` and
+    ``combine_digests`` of each buffer."""
+    sizes = [("uint8", 0), ("uint8", 1), ("int32", 3), ("uint8", 1025),
+             ("int32", 700), ("uint8", 5000)]
+    buffers = [_data(n, dt, seed=i) for i, (dt, n) in enumerate(sizes)]
+    totals = ops.chunk_checksums([torch.from_numpy(a) for a in buffers], 256)
+    assert totals.dtype == torch.uint32 and totals.shape == (len(sizes),)
+    for i, data in enumerate(buffers):
+        jdata = jx.jnp.asarray(data.astype(np.int32))
+        want = jx.cc.combine_digests(
+            jx.cc.block_digests(jdata, 256, interpret=True), 256) \
+            if data.size else 0
+        assert int(totals[i]) == int(_u32(want)), i
+
+
+def test_plan_cuts_units_from_each_buffers_end():
+    rows, offsets, units = cc.plan([0, 1, 4096 * 2 + 1, 1025], [1, 1, 1, 4],
+                                   1024)
+    # blocks: 0, 1, 9 (uint8, 4 a unit), 2 (int32, 1 a unit)
+    assert offsets.tolist() == [0, 0, 1, 10, 12]
+    assert rows[:, 2].tolist() == [0, 0, 1, 4]
+    assert units == 6 and rows[:, 3].tolist() == [0, 0, 0, 1]
+
+
 def test_kernel_refuses_cpu_and_other_dtypes():
     before = cc.KERNEL.launches
     with pytest.raises(ValueError, match="not a CUDA device"):
@@ -157,3 +269,49 @@ def test_kernel_matches_plain_on_card(n, block, dtype):
     differ = (flipped_digests.view(torch.int32) !=
               digests.view(torch.int32)).nonzero().flatten().tolist()
     assert differ == [offset // (block * data.element_size())]
+
+
+@pytest.mark.gpu
+def test_list_launch_matches_plain_on_card():
+    """Mixed sizes and dtypes in one launch: every digest and total equals
+    the plain version's; float buffers read ``as_bytes`` equal their uint8
+    views; a flipped byte changes exactly one buffer's total and one
+    digest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sizes = [("uint8", 0), ("uint8", 1), ("uint8", 1023), ("uint8", 1025),
+             ("uint8", 3 * 2 ** 20 + 77), ("int32", 0), ("int32", 1),
+             ("int32", 255), ("int32", 257), ("int32", (3 * 2 ** 20 + 76) // 4)]
+    for block in cc.BLOCKS:
+        buffers = [torch.from_numpy(_data(n, dt, seed=i)).cuda()
+                   for i, (dt, n) in enumerate(sizes)]
+        before = cc.KERNEL.launches
+        totals, digests, offsets = cc.KERNEL.many(buffers, block)
+        torch.cuda.synchronize()
+        assert cc.KERNEL.launches == before + 1
+        assert len(offsets) == len(buffers) + 1
+        for i, data in enumerate(buffers):
+            want_total, want_digests = ref.poly_digest_ref(data, block)
+            assert int(totals[i]) == int(want_total), i
+            assert torch.equal(digests[offsets[i]:offsets[i + 1]]
+                               .view(torch.int32),
+                               want_digests.view(torch.int32)), i
+        floats = [torch.randn(n, device="cuda").to(dtype)
+                  for n, dtype in ((0, torch.float32), (7, torch.bfloat16),
+                                   (70001, torch.float32))]
+        as_bytes = cc.KERNEL.many(floats, block, as_bytes=True)[0]
+        viewed = cc.KERNEL.many([t.view(torch.uint8) for t in floats],
+                                block)[0]
+        assert torch.equal(as_bytes.view(torch.int32),
+                           viewed.view(torch.int32))
+        target = 4
+        offset = buffers[target].numel() // 3
+        flipped = list(buffers)
+        flipped[target] = buffers[target].clone()
+        flipped[target][offset] ^= 0x10
+        f_totals, f_digests, _ = cc.KERNEL.many(flipped, block)
+        assert (f_totals.view(torch.int32) != totals.view(torch.int32)) \
+            .nonzero().flatten().tolist() == [target]
+        assert (f_digests.view(torch.int32) != digests.view(torch.int32)) \
+            .nonzero().flatten().tolist() == \
+            [offsets[target] + offset // block]

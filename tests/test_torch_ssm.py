@@ -8,6 +8,7 @@ file: the machine with the card has no JAX, and there only the ``gpu``
 tests run (``python -m pytest -m gpu tests/test_torch_ssm.py``).
 """
 import dataclasses
+import math
 import types
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.ssd_scan import KERNEL
+from repro_torch.kernels.ssd_scan import DESIGNS, KERNEL
 from repro_torch.models import (decode_step, forward, forward_with_cache,
                                 init_decode_cache, init_lm, params_from_jax)
 from repro_torch.models import ssm
@@ -102,6 +103,182 @@ def test_cpu_dispatch_is_plain_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="not the CUDA device"):
         KERNEL(*tensors)
     assert KERNEL.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the wgmma design's arithmetic, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+def _tf32(v):
+    """cvt.rna.tf32.f32 with the low 13 bits cleared: float32 rounded to
+    10 mantissa bits, to nearest, ties away from zero."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _cut(v, quantum):
+    """v cut toward zero to a multiple of ``quantum``."""
+    return torch.trunc(v / quantum) * quantum
+
+
+def _to_f32_toward_zero(v):
+    f = v.float()
+    return torch.where(f.double().abs() > v.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _wgmma(acc, a, b):
+    """One wgmma m64nNk8 .tf32 instruction, acc + a·b for a (..., M, 8)
+    and b (..., 8, N), as this rehearsal models the tensor cores' fp32 sum
+    (not rounded to nearest): the 8 products are exact; each of them and
+    the accumulator is cut toward zero to the 24 bits below the largest
+    one's leading bit; the cut addends are summed and the sum cut toward
+    zero to float32.  ``acc`` None is an instruction with scale-d 0."""
+    prods = a.double()[..., :, :, None] * b.double()[..., None, :, :]
+    top = prods.abs().amax(-2)
+    if acc is not None:
+        top = torch.maximum(top, acc.double().abs())
+    quantum = torch.exp2(torch.floor(torch.log2(top.clamp(min=1e-30))) - 23)
+    total = _cut(prods, quantum[..., None, :]).sum(-2)
+    if acc is not None:
+        total = total + _cut(acc.double(), quantum)
+    return _to_f32_toward_zero(total)
+
+
+def _wgmma_ssd_arithmetic(x, dt, cum, b_in, c_in, *, parts=3):
+    """What the wgmma design computes at its rounding points: operands
+    split hi/lo (``parts`` 3: hi·hi + hi·lo + lo·hi; 1: one TF32 product);
+    scores per 32-column chunk in two fresh accumulators (hi·hi; the
+    cross terms), added into the scores in fp32; M = S·exp(cum_i −
+    cum_j)·dt_j in fp32, masked before exp; the per-head product over
+    64-key tiles and 8-key k-steps in the kernel's permuted key order,
+    three instructions a k-step into one accumulator."""
+    bsz, nc, q, h, p = x.shape
+    n = b_in.shape[-1]
+    ch, cl = _split(c_in)
+    bh, bl = (t.transpose(-1, -2) for t in _split(b_in))
+    scores = torch.zeros(bsz, nc, q, q)
+    for c0 in range(0, n, 32):
+        big = small = None
+        for k0 in range(c0, c0 + 32, 8):
+            ks = slice(k0, k0 + 8)
+            big = _wgmma(big, ch[..., ks], bh[..., ks, :])
+            if parts == 3:
+                small = _wgmma(small, ch[..., ks], bl[..., ks, :])
+                small = _wgmma(small, cl[..., ks], bh[..., ks, :])
+        scores = scores + big + (small if parts == 3 else 0.0)
+    cum_h = cum.permute(0, 1, 3, 2)                        # B NC H Q
+    rows = torch.arange(q)[:, None]
+    keys = torch.arange(q)[None, :]
+    decay = torch.exp(torch.where(keys <= rows,
+                                  cum_h[..., :, None] - cum_h[..., None, :],
+                                  -math.inf))
+    m = scores[:, :, None] * decay * dt.permute(0, 1, 3, 2)[..., None, :]
+    mh, ml = _split(m)
+    xh, xl = _split(x.permute(0, 1, 3, 2, 4))              # B NC H Q P
+    # k-step j takes keys 8j + 2(k % 4) + k // 4 at k = 0..7
+    order = torch.tensor([8 * j + 2 * (k % 4) + k // 4
+                          for j in range(-(-q // 8)) for k in range(8)])
+    order = order[order < q]
+    acc = None
+    for k0 in range(0, q, 8):
+        ks = order[k0:k0 + 8]
+        acc = _wgmma(acc, mh[..., ks], xh[..., ks, :])
+        if parts == 3:
+            acc = _wgmma(acc, mh[..., ks], xl[..., ks, :])
+            acc = _wgmma(acc, ml[..., ks], xh[..., ks, :])
+    return acc.permute(0, 1, 3, 2, 4).contiguous()
+
+
+@pytest.mark.parametrize("b,nc,q,h", [(1, 1, 256, 4), (1, 2, 100, 3)])
+def test_wgmma_arithmetic_within_tolerance(b, nc, q, h):
+    """mamba2-780m's widths at the model's decay (~0.7 a row): the
+    kernel's rounding points stay within the card check's 1e-4 +
+    1e-4·|want| of the plain version, and the check sees the decay."""
+    x, dt, cum, b_in, c_in = (torch.from_numpy(a) for a in
+                              _intra_inputs(b, nc, q, h, 64, 128, decay=1.0))
+    want = ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
+    got = _wgmma_ssd_arithmetic(x, dt, cum, b_in, c_in)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert ref.err_over_tolerance(got, want, rtol=1e-4) <= 1.0
+    control = _wgmma_ssd_arithmetic(x, dt, torch.zeros_like(cum), b_in, c_in)
+    assert ref.err_over_tolerance(control, want, rtol=1e-4) > 1.0
+
+
+def test_single_tf32_misses_the_check():
+    """Why the kernel splits every operand in two TF32 parts: one TF32
+    product per product fails the same check by orders of magnitude."""
+    x, dt, cum, b_in, c_in = (torch.from_numpy(a) for a in
+                              _intra_inputs(1, 1, 256, 4, 64, 128, decay=1.0))
+    want = ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
+    once = _wgmma_ssd_arithmetic(x, dt, cum, b_in, c_in, parts=1)
+    assert ref.err_over_tolerance(once, want, rtol=1e-4) > 10.0
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 + 2.0 ** -20, 3.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10, 3.0])
+    assert torch.equal(_tf32(v), want)
+    hi, lo = _split(torch.tensor([math.pi]))
+    assert abs(float(hi) + float(lo) - math.pi) < 2.0 ** -21 * math.pi
+
+
+def test_fragment_layouts_agree_under_the_key_permutation():
+    """The kernel's index maps for one 32-key step: the fp32 accumulator
+    of the scores (thread t of a warpgroup, register e) and the TF32 A
+    fragment of the per-head product (register i of k-step j), fed as
+    (e0, e2, e1, e3) of group j, give A[row, k] = M[row, key(k)] with the
+    key order that X_h^T is staged in; and the staging's 16-byte stores
+    hit 8 distinct bank groups in every quarter-warp."""
+    def acc_layout(t, e):          # (row, key) of accumulator register e
+        w, lane = divmod(t, 32)
+        return (16 * w + lane // 4 + 8 * ((e >> 1) & 1),
+                8 * (e >> 2) + 2 * (lane % 4) + (e & 1))
+
+    def a_layout(t, i, j):         # (row, k) of A register i, k-step j
+        w, lane = divmod(t, 32)
+        return 16 * w + lane // 4 + 8 * (i & 1), 8 * j + lane % 4 + 4 * (i >> 1)
+
+    def key_of(k):                 # the product's k -> the step's key
+        return 8 * (k // 8) + 2 * (k % 4) + (k % 8) // 4
+
+    seen = set()
+    for t in range(128):
+        for j in range(4):
+            for i, e in enumerate((4 * j, 4 * j + 2, 4 * j + 1, 4 * j + 3)):
+                row, key = acc_layout(t, e)
+                a_row, k = a_layout(t, i, j)
+                assert (row, key) == (a_row, key_of(k))
+                seen.add((a_row, k))
+    assert seen == {(r, k) for r in range(64) for k in range(32)}
+    assert sorted(key_of(k) for k in range(32)) == list(range(32))
+
+    # X_h^T staging: thread (warp, lane) of the warpgroup holds keys
+    # 8 g8 + 2 m + par (m < 4) at P quad pq and writes 16-byte chunk
+    # c = 2 g8 + par of rows 4 pq + i, swizzled to chunk c ^ (row % 8)
+    placed = set()
+    for warp in range(4):
+        for quarter in range(4):
+            for i in range(4):
+                banks = set()
+                for r8 in range(8):
+                    lane = 8 * quarter + r8
+                    g8, par = r8 // 2, r8 % 2
+                    pq = lane // 8 + 4 * warp
+                    p, c = 4 * pq + i, 2 * g8 + par
+                    banks.add(c ^ (p % 8))
+                    for m in range(4):   # the chunk's 4 keys
+                        k = 4 * c + m
+                        assert key_of(k) == 8 * g8 + 2 * m + par
+                        placed.add((p, k))
+                assert len(banks) == 8
+    assert placed == {(p, k) for p in range(64) for k in range(32)}
 
 
 # ---------------------------------------------------------------------------
@@ -302,22 +479,33 @@ def test_init_lm_layout_matches_converted(jx):
 @pytest.mark.parametrize("b,nc,q,h,p,n", [
     (1, 4, 256, 48, 64, 128),     # mamba2-780m's widths
     (2, 1, 100, 48, 64, 128),     # a prompt shorter than the chunk
-    (1, 2, 256, 6, 64, 128),      # heads not a multiple of the block's 4
+    (1, 2, 256, 6, 64, 128),      # heads not a multiple of the head group
     (4, 3, 8, 8, 16, 16),         # the smoke config's widths
+    (1, 3, 255, 48, 64, 128),     # a ragged last key tile
+    (1, 2, 256, 50, 64, 128),     # 50 heads: a short last head group
+    (4, 4, 256, 48, 64, 128),     # engine C's first wave
+    (4, 2, 256, 48, 64, 128),     # engine C's second wave
+    (1, 32, 256, 48, 64, 128),    # engine D's prompt
 ])
 def test_kernel_matches_plain_on_card(b, nc, q, h, p, n):
     """At the model's decay (~0.7 a row) exp(cum_i − cum_j) overflows
     above the diagonal; the kernel with cum set to 0 (no decay) must fail
-    the same check."""
+    the same check.  The launch is counted under the design that (P, N)
+    routes to: wgmma at mamba2-780m's widths."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     x, dt, cum, b_in, c_in = (torch.from_numpy(a).cuda() for a in
                               _intra_inputs(b, nc, q, h, p, n, decay=1.0))
+    design = DESIGNS[(p, n)]
+    assert design == ("wgmma" if (p, n) == (64, 128) else "simt")
+    assert KERNEL.design(p, n) == design
     before = KERNEL.launches
+    by_design = KERNEL.launches_by_design[design]
     got = ops.ssd_intra(x, dt, cum, b_in, c_in)
     want = ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
+    assert KERNEL.launches_by_design[design] == by_design + 1
     assert got.shape == x.shape and bool(torch.isfinite(got).all())
     assert ref.err_over_tolerance(got, want, rtol=1e-4) <= 1.0
     control = KERNEL(x, dt, torch.zeros_like(cum), b_in, c_in)
