@@ -10,14 +10,16 @@ any phase fails:
 1. build   — compile the three kernels from ``src/repro_torch`` (one
              ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
-             warnings of both flash designs and both ssd_intra designs,
-             ``wgmma`` and ``simt``), each design's shared memory, and the
-             count of HGMMA instructions in the flash and ssd_scan
-             libraries' SASS, neither of which may be 0;
+             warnings of both flash designs at every head_dim and both
+             ssd_intra designs, ``wgmma`` and ``simt``), each design's
+             shared memory, and the count of HGMMA instructions in the
+             flash and ssd_scan libraries' SASS, neither of which may be 0;
 2. kernel  — each kernel against its plain PyTorch version:
-             flash attention at gemma2-2b's widths and every (B, S) the
-             gemma2 engines give it, with a softcap-off control, the
-             design that ran and its TFLOP/s;
+             flash attention at gemma2-2b's widths (hd 256, softcap 50) and
+             mixtral-8x22b's (hd 128, no softcap) and every (B, S, window)
+             their engines give it, with a control that must fail the same
+             check (softcap off; without a softcap, window 0 or no causal
+             mask), the design that ran and its TFLOP/s;
              ssd_intra at mamba2-780m's widths and every (B, NC, Q) the
              mamba2 engines give it, and at the smoke widths, with a
              no-decay control; the design that ran, its TFLOP/s, kernel,
@@ -37,6 +39,19 @@ any phase fails:
              engines C (8 prompts of 64-1000 tokens, batch 4) and D (one
              8000-token prompt, 32 chunks), every ssd_intra launch on the
              ``wgmma`` design;
+             mixtral-8x22b, after the earlier paths' weights are freed: a
+             small model card-vs-CPU check whose routing (expert, slot,
+             kept) is equal on both and drops pairs; then full width, 8
+             of 56 layers (the only cut; random weights from seed 0): the
+             checksum of every leaf (41 GB as bytes) in one launch,
+             exactly equal to its plain version (run in 64 MB pieces),
+             with a flipped-byte control; ``param_checksums`` (one
+             launch); engines E (8
+             prompts of 64-256 tokens, batch 4) and F (one 4352-token
+             prompt through the 4096 window), every flash launch on the
+             ``wgmma`` design, with the share of each wave and decode
+             step that the MoE layers, their routing and their expert
+             products take;
 4. report  — one JSON line of kernel numbers, then the device line.
 
 Each serving path runs with every launch count set to 0 just before it
@@ -46,16 +61,28 @@ and its power limit.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H, KV, HD, SOFTCAP = 16, 4, 256, 50.0      # gemma2-2b attention
+
+class Widths(NamedTuple):
+    """The attention widths a model gives the flash kernel."""
+    h: int              # q-heads
+    kv: int             # KV heads
+    hd: int             # head_dim
+    softcap: float
+
+
+GEMMA2 = Widths(16, 4, 256, 50.0)      # 16 q-heads, 8 of them zero pads
+MIXTRAL = Widths(48, 8, 128, 0.0)
 # q at 4x unit scale gives scores of std 4, where the softcap bends the
 # top scores (50·tanh(16/50) is 15.47); the model's own q and k are larger
 Q_SCALE = 4.0
@@ -68,7 +95,8 @@ SSD_TOLERANCE = "1e-4 + 1e-4·|want|"
 ENGINE_A_BATCH = 4
 ENGINE_C_BATCH = 4
 ENGINE_D_PROMPT = 8000
-MAIN_CASE = "B1 S4352 window4096 bfloat16"   # engine B's windowed layers
+ENGINE_F_PROMPT = 4352
+MIXTRAL_LAYERS = 8               # of 56: the bf16 weights, 40.9 GB, fit
 SSD_MAIN_CASE = "B1 NC32 Q256 H48 P64 N128"    # engine D's long prompt
 # kernel: (its source, the TPU kernel it replaces)
 KERNEL_FILES = {
@@ -96,21 +124,27 @@ def _wave_lengths(lengths, batch):
 
 
 def kernel_cases():
-    """(B, S, window, dtype): every shape the serve phase gives the flash
-    kernel in bf16 (engine A's two waves, engine B's windowed and global
-    layers), then edge cases."""
+    """(widths, B, S, window, dtype): every shape the serve phase gives the
+    flash kernel in bf16 (gemma2: engine A's two waves, engine B's
+    windowed and global layers; mixtral: engine E's two waves, the same
+    lengths as A's, and engine F's windowed layers), then edge cases and
+    float32 at both head dims."""
     import numpy as np
     waves = _wave_lengths(engine_a_lengths(np.random.default_rng(0)),
                           ENGINE_A_BATCH)
     return [
-        *[(ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
-        (1, 4352, 4096, "bfloat16"),
-        (1, 4352, 0, "bfloat16"),
-        (1, 1024, 0, "bfloat16"),
-        (1, 1024, 0, "float32"),
-        (1, 96, 0, "bfloat16"),            # ragged
-        (1, 96, 0, "float32"),
-        (1, 512, 64, "bfloat16"),
+        *[(GEMMA2, ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
+        (GEMMA2, 1, 4352, 4096, "bfloat16"),
+        (GEMMA2, 1, 4352, 0, "bfloat16"),
+        (GEMMA2, 1, 1024, 0, "bfloat16"),
+        (GEMMA2, 1, 1024, 0, "float32"),
+        (GEMMA2, 1, 96, 0, "bfloat16"),            # ragged
+        (GEMMA2, 1, 96, 0, "float32"),
+        (GEMMA2, 1, 512, 64, "bfloat16"),
+        *[(MIXTRAL, ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
+        (MIXTRAL, 1, ENGINE_F_PROMPT, 4096, "bfloat16"),
+        (MIXTRAL, 1, 1024, 0, "float32"),
+        (MIXTRAL, 1, 300, 100, "float32"),
     ]
 
 
@@ -132,9 +166,14 @@ def ssd_cases():
             (2, 5, 8, 8, 16, 16)]
 
 
-def case_name(b: int, s: int, window: int, dtype: str) -> str:
+def case_name(w: Widths, b: int, s: int, window: int, dtype: str) -> str:
     band = f"window{window}" if window else "causal"
-    return f"B{b} S{s} {band} {dtype}"
+    return f"B{b} S{s} {band} {dtype} H{w.h} KV{w.kv} hd{w.hd}"
+
+
+# engine B's and engine F's windowed layers
+MAIN_CASE = case_name(GEMMA2, 1, 4352, 4096, "bfloat16")
+MAIN_CASE_128 = case_name(MIXTRAL, 1, ENGINE_F_PROMPT, 4096, "bfloat16")
 
 
 def ssd_name(b, nc, q, h, p, n) -> str:
@@ -237,18 +276,20 @@ def _bound(flops: float, peak: float, nbytes: int):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _flash_flops(b: int, s: int, window: int) -> int:
+def _flash_flops(w: Widths, b: int, s: int, window: int) -> int:
     """Matrix-product FLOPs of the valid (row, column) pairs only."""
     pairs = sum(r - (max(0, r - window + 1) if window else 0) + 1
                 for r in range(s))
-    return 4 * b * H * HD * pairs
+    return 4 * b * w.h * w.hd * pairs
 
 
 def phase_flash_kernel(card: str) -> dict:
     """Each case: the kernel against the plain version within the stated
-    tolerance, and a control (the kernel with the softcap off, against the
-    plain version with it on) that must fall outside it, so the check is
-    known to see the softcap."""
+    tolerance, and a control that must fall outside it, so the check is
+    known to see what the case tests: with a softcap, the kernel with the
+    softcap off against the plain version with it on; without one (no
+    softcap to switch off), the kernel without its band: window 0 on a
+    windowed case, no causal mask on the others."""
     import torch
     import torch.nn.functional as F
 
@@ -257,21 +298,26 @@ def phase_flash_kernel(card: str) -> dict:
 
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, s, window, dtype_name in kernel_cases():
+    for w, b, s, window, dtype_name in kernel_cases():
         dtype = getattr(torch, dtype_name)
 
         def rand(*shape, scale=1.0):
             return (scale * torch.randn(shape, generator=gen, device="cuda")
                     ).to(dtype)
-        q, k, v = rand(b, s, H, HD, scale=Q_SCALE), rand(b, s, KV, HD), \
-            rand(b, s, KV, HD)
-        kw = dict(causal=True, window=window, softcap=SOFTCAP)
-        design = KERNEL.design(dtype, HD)
+        q, k, v = rand(b, s, w.h, w.hd, scale=Q_SCALE), \
+            rand(b, s, w.kv, w.hd), rand(b, s, w.kv, w.hd)
+        kw = dict(causal=True, window=window, softcap=w.softcap)
+        design = KERNEL.design(dtype, w.hd)
         got = KERNEL(q, k, v, **kw)
-        control = KERNEL(q, k, v, causal=True, window=window, softcap=0.0)
+        if w.softcap:
+            control_kind = "softcap-off"
+            control = KERNEL(q, k, v, causal=True, window=window, softcap=0.0)
+        else:
+            control_kind = "window-0" if window else "non-causal"
+            control = KERNEL(q, k, v, causal=bool(window), window=0)
         want = ref.attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        name = case_name(b, s, window, dtype_name)
+        name = case_name(w, b, s, window, dtype_name)
         if got.dtype != dtype or got.shape != q.shape:
             raise AssertionError(f"kernel {name}: got {got.dtype} "
                                  f"{tuple(got.shape)}")
@@ -283,10 +329,10 @@ def phase_flash_kernel(card: str) -> dict:
             raise AssertionError(f"kernel {name}: error {ratio} times the "
                                  f"tolerance {tol} (max_abs_err {err})")
         if not control_ratio > 1.0:
-            raise AssertionError(f"kernel {name}: the softcap-off control is "
-                                 f"within tolerance ({control_ratio}); the "
-                                 f"check cannot see the softcap")
-        iters = max(20, min(200, int(2e10 // (b * s * s * H * HD))))
+            raise AssertionError(f"kernel {name}: the {control_kind} control "
+                                 f"is within tolerance ({control_ratio}); "
+                                 f"the check cannot see what it changes")
+        iters = max(20, min(200, int(2e10 // (b * s * s * w.h * w.hd))))
         kernel_ms = time_ms(lambda: KERNEL(q, k, v, **kw), iters)
         plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, **kw),
                            max(2, iters // 4))
@@ -294,20 +340,22 @@ def phase_flash_kernel(card: str) -> dict:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
         nbytes = 2 * (q.nbytes + k.nbytes)           # q, k, v, o
-        flops = _flash_flops(b, s, window)
+        flops = _flash_flops(w, b, s, window)
         bound_ms, bound_by = _bound(flops, PEAK_FLOPS[dtype_name], nbytes)
         tflops = flops / kernel_ms / 1e9
         results[name] = dict(max_abs_err=err, err_over_tol=ratio,
                              control_err_over_tol=control_ratio,
-                             ms=kernel_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, tflops=tflops, design=design)
+                             control=control_kind, ms=kernel_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             tflops=tflops, design=design)
         say(f"kernel flash {name} ({design} design): max_abs_err={err:.3e} "
-            f"err/tol={ratio:.3f} softcap-off control "
+            f"err/tol={ratio:.3f} {control_kind} control "
             f"err/tol={control_ratio:.3f} (tol {tol}) "
             f"kernel_ms={kernel_ms:.4f} ({tflops:.1f} TFLOP/s) "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (sdpa "
-            f"causal, softcap 0) bound_ms={bound_ms:.4f} ({bound_by})", card)
+            f"causal, no window, softcap 0) bound_ms={bound_ms:.4f} "
+            f"({bound_by})", card)
         del q, k, v, got, control, want, qt, kt, vt
         torch.cuda.empty_cache()
     return results
@@ -398,15 +446,28 @@ def _leaves(tree):
     return [tree]
 
 
-def phase_checksum_kernel(params, card: str) -> dict:
-    """Every parameter leaf of mamba2-780m as bytes, all in one launch: the
+def _plain_digests(data, block: int = 1024):
+    """``ref.poly_digest_ref`` over a buffer in pieces of whole blocks: the
+    same digests (as int32) and total, with the plain version's int64
+    temporaries bounded by the piece (64 MB of bytes), not the buffer."""
+    import torch
+
+    from repro_torch.kernels import ref
+    piece = 1 << 26
+    digests = torch.cat([ref.poly_digest_ref(data[i:i + piece], block)[1]
+                         .view(torch.int32)
+                         for i in range(0, data.numel(), piece)])
+    return ref.fold_digests(digests), digests
+
+
+def phase_checksum_kernel(params, label: str, card: str) -> dict:
+    """Every parameter leaf of the model as bytes, all in one launch: the
     kernel's block digests and totals equal the plain version's exactly.
     Control: one byte flipped in the largest leaf changes that leaf's
     total and the digest of exactly one block, at offset // 1024, and no
     other leaf's total or digest."""
     import torch
 
-    from repro_torch.kernels import ref
     from repro_torch.kernels.chunk_checksum import KERNEL
 
     leaves = [t.reshape(-1).view(torch.uint8) for t in _leaves(params)]
@@ -416,10 +477,9 @@ def phase_checksum_kernel(params, card: str) -> dict:
         raise AssertionError(f"chunk_checksum: {KERNEL.launches - before} "
                              f"launches for one list")
     for i, data in enumerate(leaves):
-        want_total, want_digests = ref.poly_digest_ref(data, 1024)
+        want_total, want_digests = _plain_digests(data)
         got = digests[offsets[i]:offsets[i + 1]]
-        if not (torch.equal(got.view(torch.int32),
-                            want_digests.view(torch.int32)) and
+        if not (torch.equal(got.view(torch.int32), want_digests) and
                 int(totals[i]) == int(want_total)):
             raise AssertionError(f"chunk_checksum: leaf {i} "
                                  f"({data.numel()} bytes) differs from the "
@@ -444,12 +504,12 @@ def phase_checksum_kernel(params, card: str) -> dict:
     launch = KERNEL.prepare(leaves, 1024)
     kernel_ms = time_ms(lambda: KERNEL.run(launch), 20)
     with_host_ms = time_ms(lambda: KERNEL.many(leaves, 1024), 20)
-    plain_ms = time_ms(lambda: [ref.poly_digest_ref(t, 1024)
-                                for t in leaves], 2)
+    plain_ms = time_ms(lambda: [_plain_digests(t) for t in leaves], 2)
     largest = KERNEL.prepare([leaves[big]], 1024)
     largest_ms = time_ms(lambda: KERNEL.run(largest), 50)
     bound_ms, bound_by = _bound(0, 1.0, nbytes)
-    say(f"kernel chunk_checksum: {len(leaves)} leaves, {nbytes} bytes "
+    say(f"kernel chunk_checksum ({label}): {len(leaves)} leaves, "
+        f"{nbytes} bytes "
         f"(bf16 and f32 leaves as uint8, block 1024) in one launch: digests "
         f"and totals equal the plain version exactly; flipped byte {offset} "
         f"of the largest leaf ({leaves[big].numel()} bytes) changed its "
@@ -476,10 +536,33 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+class _Routes:
+    """Records the routing of every MoE layer the model runs while the
+    context is open (``repro_torch.models.moe.route``, as the layer calls
+    it)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.routings, self._moe, self._route = [], moe, moe.route
+
+        def recorded(*args):
+            self.routings.append(self._route(*args))
+            return self.routings[-1]
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
 def _check_small_model(cfg, label: str, card: str) -> None:
     """The smoke-sized model through the kernels on the card against the
     same weights through the plain path on the CPU: logits and every
-    cache leaf within 1e-4, equal greedy outputs and EngineStats."""
+    cache leaf within 1e-4, equal greedy outputs and EngineStats.  For an
+    MoE model the first 30 of row 0's 40 tokens are token 0, as the engine
+    left-pads a wave: the pads route alike and overflow an expert's C =
+    25 slots in every layer.  Every layer's routing (expert, slot, kept)
+    must be equal on the card and the CPU, and pairs must have dropped."""
     import numpy as np
     import torch
 
@@ -489,16 +572,37 @@ def _check_small_model(cfg, label: str, card: str) -> None:
     params = init_lm(cfg, seed=0, device="cuda")
     cpu_params = _tree_map(lambda t: t.cpu(), params)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
-    gpu_logits, gpu_cache, _ = forward_with_cache(
-        params, torch.as_tensor(tokens, device="cuda"), cfg, max_seq=64)
-    cpu_logits, cpu_cache, _ = forward_with_cache(
-        cpu_params, torch.as_tensor(tokens), cfg, max_seq=64)
+    if cfg.num_experts:
+        tokens[0, :30] = 0
+    with _Routes() as gpu_routes:
+        gpu_logits, gpu_cache, _ = forward_with_cache(
+            params, torch.as_tensor(tokens, device="cuda"), cfg, max_seq=64)
+    with _Routes() as cpu_routes:
+        cpu_logits, cpu_cache, _ = forward_with_cache(
+            cpu_params, torch.as_tensor(tokens), cfg, max_seq=64)
     err = (gpu_logits.cpu() - cpu_logits).abs().max().item()
     cache_err = max((g[n].cpu().float() - c[n].float()).abs().max().item()
                     for g, c in zip(gpu_cache, cpu_cache) for n in g)
     if not (err <= 1e-4 and cache_err <= 1e-4):
         raise AssertionError(f"small model {label}: card vs CPU logits "
                              f"{err}, cache {cache_err} (tol 1e-4)")
+    routing = ""
+    if cfg.num_experts:
+        dropped = []
+        for g, c in zip(gpu_routes.routings, cpu_routes.routings,
+                        strict=True):
+            for name in ("expert", "slot", "kept"):
+                if not torch.equal(getattr(g, name).cpu(), getattr(c, name)):
+                    raise AssertionError(f"small model {label}: routing "
+                                         f"{name} differs, card vs CPU")
+            dropped.append(int((~c.kept).sum()))
+        if len(dropped) != cfg.num_layers or not all(dropped):
+            raise AssertionError(f"small model {label}: dropped pairs per "
+                                 f"layer {dropped}; the pads must overflow")
+        routing = (f"; routing (expert, slot, kept) equal in all "
+                   f"{len(dropped)} layers, capacity "
+                   f"{gpu_routes.routings[0].capacity}, dropped (token, "
+                   f"choice) pairs per layer {dropped}")
     outs = []
     for params_, device in ((params, "cuda"), (cpu_params, "cpu")):
         rng = np.random.default_rng(2)
@@ -513,15 +617,18 @@ def _check_small_model(cfg, label: str, card: str) -> None:
                              f"card {outs[0]} vs CPU {outs[1]}")
     say(f"small model ({label}): card vs CPU max_abs_err logits={err:.3e} "
         f"cache={cache_err:.3e} (tol 1e-4); greedy outputs and stats "
-        f"equal", card)
+        f"equal{routing}", card)
 
 
 class _Probe:
     """Times an engine's prefill waves, records their (B, S), times each
     call of one kernel op inside them with CUDA events and records its
-    shape, and checks every logit it samples from is finite."""
+    shape, and checks every logit it samples from is finite.  ``timed``
+    names more functions, as ``(module, name, flops)``, whose calls it
+    times with CUDA events apart in prefill and in decode, with their
+    matrix-product FLOPs when ``flops`` is given."""
 
-    def __init__(self, engine, op: str, shape_key) -> None:
+    def __init__(self, engine, op: str, shape_key, timed=()) -> None:
         from repro_torch.kernels import ops
         self.prefill_s = 0.0
         self.wave_shapes = []
@@ -529,13 +636,24 @@ class _Probe:
         self.op_shapes = set()
         self._ops, self._op = ops, op
         self._dispatch = getattr(ops, op)
+        self._in_prefill = False
+        # name → phase → [(start, end, flops)]
+        self.timed = {name: {"prefill": [], "decode": []}
+                      for _, name, _ in timed}
+        self._patches = [(op_module, name, getattr(op_module, name),
+                          self._timer(getattr(op_module, name), name, flops))
+                         for op_module, name, flops in timed]
         prefill, sample = engine._prefill_batch, engine._sample
 
         def timed_prefill(prompts):
             import torch
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last, cache = prefill(prompts)
+            self._in_prefill = True
+            try:
+                last, cache = prefill(prompts)
+            finally:
+                self._in_prefill = False
             torch.cuda.synchronize()
             self.prefill_s += time.perf_counter() - t0
             self.wave_shapes.append(tuple(prompts.shape))
@@ -564,20 +682,44 @@ class _Probe:
         engine._sample = checked_sample
         self._timed_op = timed_op
 
+    def _timer(self, fn, name: str, flops):
+        def timed(*args, **kw):
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.timed[name]["prefill" if self._in_prefill else "decode"] \
+                .append((start, end, flops(*args) if flops else 0))
+            return out
+        return timed
+
     def __enter__(self):
         setattr(self._ops, self._op, self._timed_op)
+        for op_module, name, _, timed in self._patches:
+            setattr(op_module, name, timed)
         return self
 
     def __exit__(self, *exc):
         setattr(self._ops, self._op, self._dispatch)
+        for op_module, name, fn, _ in self._patches:
+            setattr(op_module, name, fn)
 
     def op_ms(self) -> float:
         return sum(s.elapsed_time(e) for s, e in self.op_events)
 
+    def timed_ms(self, name: str, phase: str):
+        """(ms, matrix-product FLOPs) of ``name``'s calls in ``phase``."""
+        calls = self.timed[name][phase]
+        return sum(s.elapsed_time(e) for s, e, _ in calls), \
+            sum(f for _, _, f in calls)
+
 
 def _flash_key(q, k, v, *, causal=True, window=0, softcap=0.0):
-    b, s = q.shape[:2]
-    return case_name(b, s, window if window < s else 0,
+    b, s, h, hd = q.shape
+    return case_name(Widths(h, k.shape[2], hd, softcap), b, s,
+                     window if window < s else 0,
                      str(q.dtype).removeprefix("torch."))
 
 
@@ -587,10 +729,10 @@ def _ssd_key(x, dt, cum, b_in, c_in):
 
 
 def _drive(name: str, engine, requests, op: str, checked: dict,
-           card: str) -> None:
+           card: str, timed=()) -> None:
     """Serve ``requests`` through ``engine``; ``op`` is the kernel op of
     the path, launched once per layer per prefill wave, at shapes that
-    must all be among ``checked``."""
+    must all be among ``checked``; ``timed`` as ``_Probe`` takes it."""
     import torch
     kernel = _kernels()[op]
     cfg = engine.cfg
@@ -598,7 +740,7 @@ def _drive(name: str, engine, requests, op: str, checked: dict,
     torch.cuda.synchronize()
     before = kernel.launches
     t0 = time.perf_counter()
-    with _Probe(engine, op, shape_key) as probe:
+    with _Probe(engine, op, shape_key, timed) as probe:
         engine.generate(requests)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -621,6 +763,17 @@ def _drive(name: str, engine, requests, op: str, checked: dict,
     tokens = sum(len(r.output) for r in requests)
     decode_s = wall - probe.prefill_s
     op_ms = probe.op_ms()
+    shares = ""
+    for fn in probe.timed:
+        wave_ms, flops = probe.timed_ms(fn, "prefill")
+        step_ms, _ = probe.timed_ms(fn, "decode")
+        rate = f", {flops / wave_ms / 1e9:.1f} TFLOP/s" if flops else ""
+        shares += (f"{fn}_ms_per_wave={wave_ms / waves:.2f} ("
+                   f"{100 * wave_ms / (1e3 * probe.prefill_s):.1f}% of "
+                   f"prefill{rate}) {fn}_ms_per_decode_step="
+                   f"{step_ms / max(st.decode_steps, 1):.2f} ("
+                   f"{100 * step_ms / max(1e3 * decode_s, 1e-9):.1f}% of "
+                   f"decode) ")
     say(f"engine {name}: prefills={st.prefills} waves={waves} "
         f"wave_shapes={probe.wave_shapes} "
         f"{op}_shapes={sorted(probe.op_shapes)} "
@@ -629,9 +782,11 @@ def _drive(name: str, engine, requests, op: str, checked: dict,
         f"ms_per_prefill_wave={1e3 * probe.prefill_s / waves:.2f} "
         f"{op}_ms_per_wave={op_ms / waves:.2f} (CUDA events, "
         f"{100 * op_ms / (1e3 * probe.prefill_s):.1f}% of prefill) "
-        f"ms_per_decode_step="
+        f"{shares}ms_per_decode_step="
         f"{1e3 * decode_s / max(st.decode_steps, 1):.2f} "
-        f"tokens_per_s={tokens / wall:.2f} wall_s={wall:.2f}", card)
+        f"tokens_per_s={tokens / wall:.2f} wall_s={wall:.2f} "
+        f"max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
 
 
 def _describe(cfg, params, t0: float, card: str) -> None:
@@ -713,7 +868,7 @@ def phase_serve_mamba(card: str, checked: dict):
     params = init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     _describe(cfg, params, t0, card)
-    checksum = phase_checksum_kernel(params, card)
+    checksum = phase_checksum_kernel(params, "mamba2-780m", card)
 
     engine_c = ServeEngine(cfg, params, batch_size=ENGINE_C_BATCH,
                            max_seq=1088)
@@ -766,6 +921,106 @@ def phase_serve_mamba(card: str, checked: dict):
     return ssd, sums_launches, checksum
 
 
+def _expert_flops(p, xe) -> int:
+    """The three expert products of ``moe.expert_ffn`` on xe (E, N, D)."""
+    return 3 * 2 * xe.numel() * p["w1"].shape[-1]
+
+
+def phase_serve_mixtral(card: str, checked: dict):
+    """Returns (flash launches, chunk_checksum launches, the checksum
+    kernel's check) of the mixtral path.  The depth is cut from 56 to
+    ``MIXTRAL_LAYERS`` layers, so that the bf16 weights fit one card with
+    room for the engines; every width is the published one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, moe, param_checksums
+    from repro_torch.serve import Request, ServeEngine
+
+    _check_small_model(
+        dataclasses.replace(get_config("mixtral-8x22b", smoke=True),
+                            dtype="float32"),
+        "mixtral-8x22b smoke, f32", card)
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0, card)
+    weight_bytes = sum(t.nbytes for t in _leaves(params))
+    say(f"mixtral-8x22b cut: {cfg.num_layers} of {full.num_layers} layers "
+        f"(depth only); d={cfg.d_model}, {cfg.num_heads} q-heads over "
+        f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}, "
+        f"window {cfg.sliding_window}, vocab {cfg.vocab_size}; weights "
+        f"{weight_bytes} bytes", card)
+    checksum = phase_checksum_kernel(params, "mixtral-8x22b", card)
+
+    engine_e = ServeEngine(cfg, params, batch_size=ENGINE_A_BATCH,
+                           max_seq=512)
+    engine_f = ServeEngine(cfg, params, batch_size=1, max_seq=4608)
+    rng = np.random.default_rng(0)
+    reqs_e = [Request(i, rng.integers(0, cfg.vocab_size, int(n)),
+                      max_new_tokens=32)
+              for i, n in enumerate(engine_a_lengths(rng))]
+    reqs_f = [Request(100, rng.integers(0, cfg.vocab_size, ENGINE_F_PROMPT),
+                      max_new_tokens=8)]
+    ServeEngine(cfg, params, batch_size=4, max_seq=512).generate(
+        [Request(-1, rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)])
+
+    _reset_counts()                          # the mixtral path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = param_checksums(params)
+    torch.cuda.synchronize()
+    sums_ms = 1e3 * (time.perf_counter() - t0)
+    sums_launches = _kernels()["chunk_checksum"].launches
+    if len(sums) != checksum["leaves"] or sums_launches != 1:
+        raise AssertionError(f"param_checksums: {len(sums)} leaves of "
+                             f"{checksum['leaves']} in {sums_launches} "
+                             f"launches, not 1")
+    if [int(t) for t in sums.values()] != checksum["totals"]:
+        raise AssertionError("param_checksums differs from the checked "
+                             "totals of the same leaves")
+    checksum["host_ms"] = sums_ms
+    say(f"serve mixtral-8x22b: param_checksums over {len(sums)} leaves in "
+        f"{sums_launches} launch, {sums_ms:.2f} ms (host clock)", card)
+    timed = ((moe, "moe_forward", None), (moe, "route", None),
+             (moe, "expert_ffn", _expert_flops))
+    _drive("E (batch 4, max_seq 512, 8 prompts of 64-256)", engine_e,
+           reqs_e, "flash_attention", checked, card, timed)
+    _drive(f"F (batch 1, max_seq 4608, one prompt of {ENGINE_F_PROMPT})",
+           engine_f, reqs_f, "flash_attention", checked, card, timed)
+    kernels = _kernels()                     # ... and ends here
+    flash = kernels["flash_attention"]
+    launches, by_design = flash.launches, dict(flash.launches_by_design)
+    sums_launches = kernels["chunk_checksum"].launches
+    slots = cfg.num_experts * moe.capacity(cfg, ENGINE_F_PROMPT)
+    expert_bound_ms, _ = _bound(
+        cfg.num_layers * 3 * 2 * slots * cfg.d_model * cfg.d_ff,
+        PEAK_FLOPS["bfloat16"], 0)
+    decode_bound_ms, _ = _bound(0, 1.0, weight_bytes)
+    say(f"serve mixtral-8x22b: flash launches {launches} by design "
+        f"{by_design}, chunk_checksum launches {sums_launches}, "
+        f"max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bounds: "
+        f"engine F's expert products ({slots} slots x {cfg.d_model} x "
+        f"{cfg.d_ff}, 3 products, {cfg.num_layers} layers) "
+        f"{expert_bound_ms:.2f} ms a wave at 989 TFLOP/s; a decode step "
+        f"reading every weight once {decode_bound_ms:.2f} ms at 3.35 TB/s",
+        card)
+    if not (launches and sums_launches == 1):
+        raise AssertionError(f"the mixtral path launched flash {launches} "
+                             f"and chunk_checksum {sums_launches} times")
+    if by_design["wgmma"] != launches:
+        raise AssertionError(f"the mixtral path sent flash launches to "
+                             f"other designs than wgmma: {by_design}")
+    return launches, sums_launches, checksum
+
+
 # ---------------------------------------------------------------------------
 def _entry(name: str, launches: int, case: dict, tolerance: str,
            shape: str, card: str) -> dict:
@@ -781,6 +1036,24 @@ def _entry(name: str, launches: int, case: dict, tolerance: str,
                                     "tc_bound_by", "host_ms",
                                     "with_host_ms", "largest_leaf_ms")
                    if k in case}}
+
+
+def _case(case: dict, shape: str, **extra) -> dict:
+    """A second measured case of a kernel, beside its main one."""
+    return {"shape": shape, **extra,
+            **{k: case[k] for k in ("max_abs_err", "err_over_tol", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "design", "tflops",
+                                    "host_ms", "with_host_ms",
+                                    "largest_leaf_ms") if k in case}}
+
+
+def _free() -> None:
+    """Release the last path's weights: its engines hold them in reference
+    cycles (the probes' wrappers), which only the collector breaks."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -804,19 +1077,38 @@ def main() -> int:
     phase_build(card)
     flash = phase_flash_kernel(card)
     ssd = phase_ssd_kernel(card)
-    flash_launches = phase_serve_gemma(card, flash)
-    torch.cuda.empty_cache()
-    ssd_launches, sums_launches, checksum = phase_serve_mamba(card, ssd)
+    gemma_flash = phase_serve_gemma(card, flash)
+    _free()
+    ssd_launches, mamba_sums, checksum = phase_serve_mamba(card, ssd)
+    _free()
+    mixtral_flash, mixtral_sums, mixtral_checksum = phase_serve_mixtral(
+        card, flash)
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
+    # launches: the sum over the paths that run the kernel
+    flash_entry = _entry("flash_attention", gemma_flash + mixtral_flash,
+                         flash[MAIN_CASE], TOLERANCE["bfloat16"], MAIN_CASE,
+                         card)
+    flash_entry["launches_by_path"] = {"gemma2-2b": gemma_flash,
+                                       "mixtral-8x22b": mixtral_flash}
+    flash_entry["hd128_case"] = _case(flash[MAIN_CASE_128], MAIN_CASE_128,
+                                      launches=mixtral_flash)
+    checksum_entry = _entry(
+        "chunk_checksum", mamba_sums + mixtral_sums, checksum, "exact",
+        f"{checksum['leaves']} leaves of mamba2-780m, "
+        f"{checksum['nbytes']} bytes as uint8, block 1024", card)
+    checksum_entry["launches_by_path"] = {"mamba2-780m": mamba_sums,
+                                          "mixtral-8x22b": mixtral_sums}
+    checksum_entry["mixtral_case"] = _case(
+        mixtral_checksum, f"{mixtral_checksum['leaves']} leaves of "
+        f"mixtral-8x22b ({MIXTRAL_LAYERS} layers), "
+        f"{mixtral_checksum['nbytes']} bytes as uint8, block 1024",
+        launches=mixtral_sums)
     print(json.dumps({"kernels": [
-        _entry("flash_attention", flash_launches, flash[MAIN_CASE],
-               TOLERANCE["bfloat16"], MAIN_CASE, card),
+        flash_entry,
         _entry("ssd_intra", ssd_launches, ssd[SSD_MAIN_CASE], SSD_TOLERANCE,
                f"{SSD_MAIN_CASE} float32", card),
-        _entry("chunk_checksum", sums_launches, checksum, "exact",
-               f"{checksum['leaves']} leaves of mamba2-780m, "
-               f"{checksum['nbytes']} bytes as uint8, block 1024", card),
+        checksum_entry,
     ]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

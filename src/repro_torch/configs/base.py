@@ -170,4 +170,4 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from . import gemma2_2b, mamba2_780m  # noqa: F401
+    from . import gemma2_2b, mamba2_780m, mixtral_8x22b  # noqa: F401

@@ -2,12 +2,13 @@
 // with an optional tanh logit softcap, one pass over K/V with an online
 // softmax.  Two designs, chosen explicitly by (dtype, head_dim):
 //
-//   wgmma  bf16 at head_dim 256 (gemma2-2b: every launch of its serving
-//          path).  Tensor cores, TMA and warp specialisation.
-//   simt   float32 at head_dim 16 and 256, bf16 at head_dim 16 (the smoke
-//          config).  fp32 FMAs on the CUDA cores.  In float32 it is level
-//          with the library, and TF32 tensor cores would break the 1e-4
-//          float32 check.
+//   wgmma  bf16 at head_dim 256 (gemma2-2b) and 128 (mixtral-8x22b):
+//          every launch of their serving paths.  Tensor cores, TMA and
+//          warp specialisation; one template over the head dim.
+//   simt   float32 at head_dim 16, 128 and 256, bf16 at head_dim 16 (the
+//          smoke configs).  fp32 FMAs on the CUDA cores.  In float32 it is
+//          level with the library, and TF32 tensor cores would break the
+//          1e-4 float32 check.
 //
 // Any other (dtype, head_dim) is refused.  Neither design falls back to
 // the other.
@@ -19,14 +20,16 @@
 // KV head h // (H / KV) read in place, fp32 running max / denominator /
 // accumulator, rows with no valid key written as 0, output in q's dtype.
 //
-// What bounds the wgmma design on this card: at gemma2-2b's prefill
-// shapes (hd 256, S in the thousands) attention does ~2*S*hd operations
-// per byte of q/k/v, far above the H100's ~295 bf16 operations per byte,
-// so the tensor cores bound it: 4*hd operations per valid (row, key) pair
-// at 989 TFLOP/s (6*hd here, with P.V run twice; see below).  Second
-// comes the special-function unit (MUFU, ~16 results per clock per SM):
-// the softmax's exp2 and the softcap's tanh cost 3 MUFU operations per
-// pair, about 0.8 of the function's tensor-core time.
+// What bounds the wgmma design on this card: at the served models'
+// prefill shapes (hd 256 or 128, S in the thousands) attention does
+// ~2*S*hd operations per byte of q/k/v, far above the H100's ~295 bf16
+// operations per byte, so the tensor cores bound it: 4*hd operations per
+// valid (row, key) pair at 989 TFLOP/s (6*hd here, with P.V run twice;
+// see below).  Second comes the special-function unit (MUFU, ~16 results
+// per clock per SM): the softmax's exp2 and the softcap's tanh cost 3 MUFU
+// operations per pair, about 0.8 of the function's tensor-core time at hd
+// 256.  At hd 128 with no softcap the exp2 alone is 1 MUFU operation per
+// pair against half the products of hd 256, so it weighs about as much.
 //
 // What the wgmma design does about it:
 //   * one block per (128 query rows, q-head, batch): two consumer
@@ -35,15 +38,18 @@
 //     rows, and a warpgroup skips the products of a tile outside its own
 //     band (the diagonal tile of the lower half, the window's first tile
 //     of the upper half);
-//   * shared memory: Q (128 x 256 bf16, 64 KB) loaded once; a ring of 2
-//     stages of K and V tiles (64 keys x 256, 32 KB each), 192 KB in all;
-//     every tile arrives by TMA as 4 column slabs of 64 x 64 with the
-//     128-byte swizzle that wgmma reads without bank conflicts.  K and V
-//     of a stage have their own "full" barrier, so Q.K^T starts before V
-//     has landed; an "empty" barrier per stage hands it back;
-//   * S = Q.K^T: 16 wgmma m64n64k16 over hd 256, both operands K-major in
-//     shared memory.  Products of bf16 values are exact in fp32, so the
-//     scores differ from the plain version only in the order of sums;
+//   * shared memory: Q (128 x hd bf16) loaded once; a ring of K and V
+//     tiles (64 keys x hd); every tile arrives by TMA as hd/64 column
+//     slabs of 64 x 64 with the 128-byte swizzle that wgmma reads without
+//     bank conflicts.  At hd 256: Q 64 KB, 2 stages of 32 KB tiles, 192
+//     KB in all.  At hd 128 a tile is 16 KB, and the same room holds a
+//     ring of 4 stages: Q 32 KB, 160 KB in all.  K and V of a stage have
+//     their own "full" barrier, so Q.K^T starts before V has landed; an
+//     "empty" barrier per stage hands it back;
+//   * S = Q.K^T: hd/16 wgmma m64n64k16 (16 at 256, 8 at 128), both
+//     operands K-major in shared memory.  Products of bf16 values are
+//     exact in fp32, so the scores differ from the plain version only in
+//     the order of sums;
 //   * softmax on the accumulator fragment in registers: scale, softcap
 //     and log2(e) folded into two constants; tanh(x) = 1 - 2/(2^(2x
 //     log2 e) + 1) with ex2.approx and rcp.approx (2 MUFU operations; the
@@ -53,16 +59,17 @@
 //     the window edge or S; row max and sum are reduced over the 4
 //     threads that share a row;
 //   * O += P.V: P goes to bf16 in registers as the register A operand of
-//     wgmma m64n256k16 (the m64nN fp32 accumulator layout packs straight
+//     wgmma m64n{hd}k16 (the m64nN fp32 accumulator layout packs straight
 //     into A's fragment); V (keys x hd, hd contiguous) is B, MN-major.
-//     P rounded once to bf16 misses the one-ulp check by 2.5x: a weight
-//     of 0.3 off by 2^-9 of itself, times |v| ~ 1, is ~6e-4 on an output
-//     near 0, and a few such keys add up past the 1e-3 floor.  So P is
-//     split as hi + lo, both bf16 (hi = P rounded, lo = the rest rounded),
-//     and P.V runs twice: exact to ~2^-17, at 1.5x the tensor-core work
-//     of the function;
-//   * registers: the 64 x 256 fp32 accumulator is 128 registers a thread;
-//     setmaxnreg gives the consumers 240 and the producer 24;
+//     P rounded once to bf16 misses the one-ulp check by 2.5x at hd 256
+//     and 2.7-3.5x at hd 128: a weight of 0.3 off by 2^-9 of itself,
+//     times |v| ~ 1, is ~6e-4 on an output near 0, and a few such keys
+//     add up past the 1e-3 floor.  So P is split as hi + lo, both bf16
+//     (hi = P rounded, lo = the rest rounded), and P.V runs twice: exact
+//     to ~2^-17, at 1.5x the tensor-core work of the function;
+//   * registers: the 64 x hd fp32 accumulator is hd/2 registers a thread
+//     (128 at hd 256, 64 at 128); setmaxnreg gives the consumers 240 and
+//     the producer 24 at both widths;
 //   * epilogue: multiply by 1/l, convert to bf16 and store; rows >= S are
 //     not written.  Rows past S in Q, K, V arrive from TMA as zeros;
 //   * the heaviest (latest) query tiles of all heads are scheduled
@@ -327,25 +334,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// wgmma design (bf16, head_dim 256)
+// wgmma design (bf16, head_dim 256 and 128)
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int HD = 256;
 constexpr int BM = 128;                        // query rows per block
 constexpr int BN = 64;                         // keys per tile
-constexpr int STAGES = 2;                      // K/V ring depth
 constexpr int SLAB_COLS = 64;                  // bf16 columns in 128 bytes
-constexpr int SLABS = HD / SLAB_COLS;          // 4 column slabs per tile
 constexpr int SLAB_BYTES = 64 * 128;           // 64 rows x 128 B
-constexpr int TILE_BYTES = SLABS * SLAB_BYTES; // 64 rows x 256 bf16
-constexpr int Q_BYTES = 2 * TILE_BYTES;        // 128 rows
 constexpr int THREADS = 384;                   // 2 consumer warpgroups + 1
 constexpr int CONSUMERS = 256;
-constexpr int NBARS = 1 + 3 * STAGES;          // q_full, k_full, v_full, empty
-// 1024 bytes of slack to align the swizzled tiles to 1024 bytes
-constexpr size_t SMEM_BYTES =
-    1024 + Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * NBARS;
+
+// What the head dim sets.  A K or V tile of 64 keys is HD/64 column slabs
+// (32 KB at 256, 16 KB at 128); the ring is as deep as the shared memory
+// that two stages take at 256 allows: 2 stages at 256 (192 KB in all), 4
+// at 128 (160 KB).  The accumulator is HD/2 registers a thread.
+template <int HD>
+struct Shape {
+  static constexpr int SLABS = HD / SLAB_COLS;
+  static constexpr int TILE_BYTES = SLABS * SLAB_BYTES;  // 64 rows
+  static constexpr int Q_BYTES = 2 * TILE_BYTES;         // 128 rows
+  static constexpr int STAGES = HD == 256 ? 2 : 4;       // K/V ring depth
+  static constexpr int NBARS = 1 + 3 * STAGES;  // q_full, k/v_full, empty
+  static constexpr int ACC = HD / 2;            // accumulator registers
+  // 1024 bytes of slack to align the swizzled tiles to 1024 bytes
+  static constexpr size_t SMEM_BYTES =
+      1024 + Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * NBARS;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -446,7 +461,7 @@ __device__ __forceinline__ void mma_qk(float (&d)[32], uint64_t da,
 }
 
 // d (64 x 256, fp32) += A (64 x 16, bf16 in registers) . B (16 x 256,
-// bf16 MN-major in shared memory).
+// bf16 MN-major in shared memory): P.V at head_dim 256.
 __device__ __forceinline__ void mma_pv(float (&d)[128], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        uint64_t db) {
@@ -467,6 +482,24 @@ __device__ __forceinline__ void mma_pv(float (&d)[128], uint32_t a0,
       : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
         F8(d, 48), F8(d, 56), F8(d, 64), F8(d, 72), F8(d, 80), F8(d, 88),
         F8(d, 96), F8(d, 104), F8(d, 112), F8(d, 120)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// The same at head_dim 128: d (64 x 128) += A (64 x 16) . B (16 x 128).
+__device__ __forceinline__ void mma_pv(float (&d)[64], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40),
+        F8(d, 48), F8(d, 56)
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
@@ -499,18 +532,21 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
 // z = post * tanh(acc * scale / softcap) with ex2's argument acc * pre =
 // 2 log2(e) acc scale / softcap and post = softcap log2(e).
 //
-// q, o: (B, S, H, 256); k, v: (B, S, KV, 256); bf16, contiguous; q, k, v
+// q, o: (B, S, H, HD); k, v: (B, S, KV, HD); bf16, contiguous; q, k, v
 // are read through the tensor maps.  grid: (ceil(S / BM) * H, B).
-template <bool SOFTCAP>
+template <int HD, bool SOFTCAP>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ o, int S, int H, int KV,
                        int causal, int window, float pre, float post) {
+  using Sh = Shape<HD>;
+  constexpr int SLABS = Sh::SLABS, TILE_BYTES = Sh::TILE_BYTES,
+                STAGES = Sh::STAGES, ACC = Sh::ACC;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sK = sQ + Q_BYTES;                  // STAGES K tiles
+  const uint32_t sK = sQ + Sh::Q_BYTES;              // STAGES K tiles
   const uint32_t sV = sK + STAGES * TILE_BYTES;      // STAGES V tiles
   const uint32_t bars = sV + STAGES * TILE_BYTES;
   const uint32_t q_full = bars;
@@ -545,7 +581,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ---- producer: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, Q_BYTES);
+      mbar_expect_tx(q_full, Sh::Q_BYTES);
       for (int half = 0; half < 2; ++half)
         for (int sl = 0; sl < SLABS; ++sl)
           tma_load(sQ + (half * SLABS + sl) * SLAB_BYTES, &tm_q, q_full,
@@ -579,9 +615,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int w_hi = ((causal ? w_last + 1 : S) + BN - 1) / BN;
     const uint32_t sQw = sQ + wgi * TILE_BYTES;
 
-    float acc[128];
+    float acc[ACC];
 #pragma unroll
-    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+    for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
 
@@ -592,7 +628,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t parity = (i / STAGES) & 1;
       mbar_wait(k_full(st), parity);
       if (active && t >= w_lo && t < w_hi) {
-        // S = Q . K^T over hd 256: 4 slabs of 4 k-steps of 16 columns
+        // S = Q . K^T over HD: HD/64 slabs of 4 k-steps of 16 columns
         float s[32];
 #pragma unroll
         for (int e = 0; e < 32; ++e) s[e] = 0.f;
@@ -600,7 +636,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         fence_regs(s);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 16; ++kk) {
+        for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t off = (kk / 4) * SLAB_BYTES + (kk % 4) * 32;
           mma_qk(s, sw128_desc(sQw + off, 16, 1024),
                  sw128_desc(kst + off, 16, 1024), kk > 0);
@@ -655,7 +691,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           split_bf16(p0, p1, ph[e >> 1], pl[e >> 1]);
         }
 #pragma unroll
-        for (int e = 0; e < 128; ++e) acc[e] *= corr[(e >> 1) & 1];
+        for (int e = 0; e < ACC; ++e) acc[e] *= corr[(e >> 1) & 1];
 
         // O += P . V: 4 k-steps of 16 keys; V slab stride 8 KB (LBO),
         // 8-key groups 1 KB apart (SBO)
@@ -697,7 +733,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (row >= S) continue;
       __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * HD + col_t;
 #pragma unroll
-      for (int j = 0; j < 32; ++j)
+      for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv[r],
                                   acc[4 * j + 2 * r + 1] * inv[r]);
@@ -733,11 +769,11 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A (B, S, heads, 256) bf16 tensor as 4-D (256, heads, S, B), read in
+// A (B, S, heads, HD) bf16 tensor as 4-D (HD, heads, S, B), read in
 // boxes of 64 columns x 64 rows of one head with the 128-byte swizzle;
 // rows past S read as zeros.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
-                     int heads) {
+                     int heads, int HD) {
   EncodeTiled encode;
   const cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -756,37 +792,39 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool SOFTCAP>
+template <int HD, bool SOFTCAP>
 cudaError_t launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
                            const CUtensorMap& tv, void* o, int B, int S,
                            int H, int KV, int causal, int window, float pre,
                            float post, cudaStream_t stream) {
-  auto kernel = flash_wgmma_kernel<SOFTCAP>;
+  constexpr size_t smem = Shape<HD>::SMEM_BYTES;
+  auto kernel = flash_wgmma_kernel<HD, SOFTCAP>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM * H, B);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KV, causal, window,
       pre, post);
   return cudaGetLastError();
 }
 
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KV, float scale, int causal,
                    int window, float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, B, S, H);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KV);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KV);
+  cudaError_t err = make_map(&tq, q, B, S, H, HD);
+  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KV, HD);
+  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KV, HD);
   if (err != cudaSuccess) return err;
   constexpr float LOG2E = 1.4426950408889634f;
   if (softcap > 0.f)
-    return launch_softcap<true>(tq, tk, tv, o, B, S, H, KV, causal, window,
-                                2.f * LOG2E * scale / softcap,
-                                softcap * LOG2E, stream);
-  return launch_softcap<false>(tq, tk, tv, o, B, S, H, KV, causal, window,
-                               scale * LOG2E, 0.f, stream);
+    return launch_softcap<HD, true>(tq, tk, tv, o, B, S, H, KV, causal,
+                                    window, 2.f * LOG2E * scale / softcap,
+                                    softcap * LOG2E, stream);
+  return launch_softcap<HD, false>(tq, tk, tv, o, B, S, H, KV, causal, window,
+                                   scale * LOG2E, 0.f, stream);
 }
 
 }  // namespace wg
@@ -795,8 +833,9 @@ enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
 
 // dtype: 0 = float32, 1 = bfloat16.
 Design design_of(int dtype, int HD) {
-  if (dtype == 1 && HD == 256) return WGMMA;
-  if ((dtype == 0 && (HD == 16 || HD == 256)) || (dtype == 1 && HD == 16))
+  if (dtype == 1 && (HD == 128 || HD == 256)) return WGMMA;
+  if ((dtype == 0 && (HD == 16 || HD == 128 || HD == 256)) ||
+      (dtype == 1 && HD == 16))
     return SIMT;
   return NONE;
 }
@@ -817,8 +856,11 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (design_of(dtype, HD)) {
     case WGMMA:
-      return wg::launch(q, k, v, o, B, S, H, KV, scale, causal, window,
-                        softcap, st);
+      if (HD == 128)
+        return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal, window,
+                               softcap, st);
+      return wg::launch<256>(q, k, v, o, B, S, H, KV, scale, causal, window,
+                             softcap, st);
     case SIMT:
       if (dtype == 1)
         return simt::launch<__nv_bfloat16, 16>(q, k, v, o, B, S, H, KV, scale,
@@ -826,6 +868,9 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
       if (HD == 16)
         return simt::launch<float, 16>(q, k, v, o, B, S, H, KV, scale, causal,
                                        window, softcap, st);
+      if (HD == 128)
+        return simt::launch<float, 128>(q, k, v, o, B, S, H, KV, scale,
+                                        causal, window, softcap, st);
       return simt::launch<float, 256>(q, k, v, o, B, S, H, KV, scale, causal,
                                       window, softcap, st);
     default:
@@ -836,9 +881,11 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
 // Dynamic shared memory of one block for (dtype, head_dim), or -1.
 int flash_attention_smem_bytes(int dtype, int HD) {
   switch (design_of(dtype, HD)) {
-    case WGMMA: return int(wg::SMEM_BYTES);
-    case SIMT: return int(HD == 16 ? simt::smem_bytes<16>()
-                                   : simt::smem_bytes<256>());
+    case WGMMA: return int(HD == 128 ? wg::Shape<128>::SMEM_BYTES
+                                     : wg::Shape<256>::SMEM_BYTES);
+    case SIMT: return int(HD == 16    ? simt::smem_bytes<16>()
+                          : HD == 128 ? simt::smem_bytes<128>()
+                                      : simt::smem_bytes<256>());
     default: return -1;
   }
 }

@@ -5,8 +5,8 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 ``csrc/flash_attention.cu``, built and loaded by ``_build`` at first use
 and called on PyTorch's current stream.  The C entry point chooses one of
 two designs by (dtype, head_dim): ``wgmma`` (tensor cores, TMA) for bf16
-at head_dim 256, ``simt`` (fp32 on the CUDA cores) for float32 and for
-bf16 at head_dim 16; it refuses any other pair.
+at head_dim 256 and 128, ``simt`` (fp32 on the CUDA cores) for float32
+and for bf16 at head_dim 16; it refuses any other pair.
 """
 from __future__ import annotations
 
@@ -17,9 +17,10 @@ import torch
 from ._build import CudaLibrary
 
 # (dtype, head_dim) → design, as the C entry point routes them:
-# gemma2-2b's bf16 at 256 on the tensor cores; float32, and the smoke
-# config's head_dim 16, on the CUDA cores
-DESIGNS = {(torch.bfloat16, 256): "wgmma", (torch.float32, 256): "simt",
+# gemma2-2b's bf16 at 256 and mixtral-8x22b's at 128 on the tensor cores;
+# float32, and the smoke configs' head_dim 16, on the CUDA cores
+DESIGNS = {(torch.bfloat16, 256): "wgmma", (torch.bfloat16, 128): "wgmma",
+           (torch.float32, 256): "simt", (torch.float32, 128): "simt",
            (torch.float32, 16): "simt", (torch.bfloat16, 16): "simt"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGN_CODES = {0: "simt", 1: "wgmma"}

@@ -1,4 +1,4 @@
-"""Decoder LMs: the dense (attention) and SSM families, with decode
+"""Decoder LMs: the dense (attention), MoE and SSM families, with decode
 caches."""
 from .convert import param_checksums, params_from_jax
 from .model import (decode_step, forward, forward_with_cache,

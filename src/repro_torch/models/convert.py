@@ -15,8 +15,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
+from . import moe, ssm
 from .model import layer_specs, torch_dtype
-from .ssm import FLOAT32_LEAVES
+
+# leaves the reference keeps in float32 whatever the model's dtype
+FLOAT32_LEAVES = ssm.FLOAT32_LEAVES | moe.FLOAT32_LEAVES
 
 
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype,
@@ -45,7 +48,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     """``tree``: the reference's ``init_lm`` parameters with numpy leaves
     (float32 or ``ml_dtypes.bfloat16``).  Returns the port's parameters
     on ``device`` in the dtypes the reference gives them: the config's
-    dtype, except the SSM leaves it keeps in float32."""
+    dtype, except the SSM leaves and the MoE router it keeps in
+    float32."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
 

@@ -7,9 +7,11 @@ order is the reference's: group-major over ``cfg.pattern()``, so layer
 layers run as a Python loop.  Caches are a list in the same order.
 
 Ported blocks: attention mixers (global and sliding-window) with the
-dense FFN, and Mamba-2 SSM mixers with no FFN (the SSM family).  Each
-layer dispatches on its mixer as the reference does.  MoE,
-cross-attention and hybrid stacks raise ``NotImplementedError``.
+dense or the MoE FFN, and Mamba-2 SSM mixers with no FFN (the SSM
+family).  Each layer dispatches on its mixer and its FFN as the
+reference does; the full-sequence passes return the sum of the MoE
+layers' aux losses.  Cross-attention and hybrid stacks (SSM mixers with
+an FFN) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,12 +19,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..configs.base import (FFN_DENSE, FFN_NONE, MIXER_ATTN,
+from ..configs.base import (FFN_MOE, FFN_NONE, MIXER_ATTN,
                             MIXER_ATTN_LOCAL, MIXER_SSM, ArchConfig,
                             BlockSpec_)
 from ..device import resolve_device
 from . import attention as attn
-from . import ssm
+from . import moe, ssm
 from .layers import (embed_tokens, init_embed, init_mlp, lm_logits,
                      mlp_forward, rms_norm)
 
@@ -38,14 +40,13 @@ def layer_specs(cfg: ArchConfig) -> List[BlockSpec_]:
     kinds the port does not run yet."""
     specs = cfg.pattern() * cfg.num_groups()
     for spec in specs:
-        attention = spec.mixer in (MIXER_ATTN, MIXER_ATTN_LOCAL) and \
-            spec.ffn in (FFN_DENSE, FFN_NONE)
+        attention = spec.mixer in (MIXER_ATTN, MIXER_ATTN_LOCAL)
         ssm_only = (spec.mixer, spec.ffn) == (MIXER_SSM, FFN_NONE)
         if not (attention or ssm_only):
             raise NotImplementedError(
                 f"{cfg.name}: block ({spec.mixer}, {spec.ffn}) is not ported "
-                f"yet; the port runs attention mixers with dense FFNs and "
-                f"SSM mixers with no FFN")
+                f"yet; the port runs attention mixers with dense or MoE "
+                f"FFNs and SSM mixers with no FFN")
     return specs
 
 
@@ -68,7 +69,9 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
             "mixer": init_mixer(gen, cfg, dtype=dt)}
         if spec.ffn != FFN_NONE:
             bp["norm2"] = torch.zeros(cfg.d_model, dtype=dt, device=dev)
-            bp["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
+            bp["ffn"] = moe.init_moe(gen, cfg, dtype=dt) \
+                if spec.ffn == FFN_MOE else \
+                init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
         blocks.append(bp)
     return {"embed": init_embed(gen, cfg.vocab_size, cfg.d_model,
                                 cfg.tie_embeddings, dtype=dt),
@@ -76,19 +79,27 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
             "blocks": blocks}
 
 
-def _ffn(bp: Params, x: torch.Tensor, cfg: ArchConfig, spec) -> torch.Tensor:
+def _ffn(bp: Params, x: torch.Tensor, cfg: ArchConfig, spec
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The channel mixer with its residual, and its aux loss (None but
+    for MoE)."""
     if spec.ffn == FFN_NONE:
-        return x
-    return x + mlp_forward(bp["ffn"], rms_norm(x, bp["norm2"], cfg.norm_eps))
+        return x, None
+    h = rms_norm(x, bp["norm2"], cfg.norm_eps)
+    if spec.ffn == FFN_MOE:
+        out, aux = moe.moe_forward(bp["ffn"], h, cfg)
+        return x + out, aux
+    return x + mlp_forward(bp["ffn"], h), None
 
 
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
          max_seq: Optional[int]):
-    """Full-sequence pass; collects the decode cache when ``max_seq`` is
-    given."""
+    """Full-sequence pass: (logits, caches, the sum of the layers' aux
+    losses); collects the decode cache when ``max_seq`` is given."""
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for bp, spec in zip(params["blocks"], layer_specs(cfg)):
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
         window = _window_for(cfg, spec.mixer)
@@ -104,30 +115,26 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
             mix, cache = attn.prefill_attention(bp["mixer"], h, cfg,
                                                 positions, window, max_seq)
             caches.append(cache)
-        x = _ffn(bp, x + mix, cfg, spec)
+        x, layer_aux = _ffn(bp, x + mix, cfg, spec)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_logits(params["embed"], x, cfg.final_logit_softcap)
-    return logits, caches
-
-
-def _no_aux(device) -> torch.Tensor:
-    """No ported block has an auxiliary (MoE balance) loss."""
-    return torch.zeros((), dtype=torch.float32, device=device)
+    return logits, caches, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V) fp32, aux loss)."""
-    logits, _ = _run(params, tokens, cfg, None)
-    return logits, _no_aux(tokens.device)
+    logits, _, aux = _run(params, tokens, cfg, None)
+    return logits, aux
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor,
                        cfg: ArchConfig, max_seq: int):
     """Full-sequence forward that also returns the populated decode cache:
     (logits (B, S, V) fp32, cache, aux loss)."""
-    logits, caches = _run(params, tokens, cfg, max_seq)
-    return logits, caches, _no_aux(tokens.device)
+    return _run(params, tokens, cfg, max_seq)
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -147,7 +154,9 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def decode_step(params: Params, cache: List[Dict], token: torch.Tensor,
                 pos: int, cfg: ArchConfig):
     """token (B,) at absolute position ``pos`` → (logits (B, V) fp32,
-    cache).  The cache is updated in place."""
+    cache).  The cache is updated in place.  An MoE layer routes the
+    step's B tokens with S = 1 (capacity 4), and its aux loss is dropped,
+    as in the reference."""
     x = embed_tokens(params["embed"], token[:, None])
     for bp, spec, c in zip(params["blocks"], layer_specs(cfg), cache):
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
@@ -157,7 +166,7 @@ def decode_step(params: Params, cache: List[Dict], token: torch.Tensor,
         else:
             mix, _ = attn.decode_attention(bp["mixer"], h, c, pos, cfg,
                                            _window_for(cfg, spec.mixer))
-        x = _ffn(bp, x + mix, cfg, spec)
+        x, _ = _ffn(bp, x + mix, cfg, spec)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params["embed"], x[:, 0], cfg.final_logit_softcap), \
         cache

@@ -117,7 +117,7 @@ def test_err_over_tolerance_admits_one_bf16_ulp_only():
 # the wgmma design's arithmetic, rehearsed on the CPU
 # ---------------------------------------------------------------------------
 def _wgmma_arithmetic(q, k, v, *, window, softcap, p_parts=2,
-                      tanh_rel_err=0.0):
+                      tanh_rel_err=0.0, causal=True):
     """What the wgmma design computes, with its rounding points: fp32
     scores from bf16 q and k, 64-key tiles with a running max, tanh as
     1 - 2/(2^(2x log2 e) + 1) with scale, softcap and log2 e folded into
@@ -150,7 +150,7 @@ def _wgmma_arithmetic(q, k, v, *, window, softcap, p_parts=2,
             z = post * t
         else:
             z = sc * pre
-        valid = cols <= rows
+        valid = cols <= rows if causal else torch.ones_like(cols <= rows)
         if window:
             valid &= cols > rows - window
         z = torch.where(valid, z, -math.inf)
@@ -189,6 +189,35 @@ def test_wgmma_arithmetic_within_one_bf16_ulp(b, s, window, zero_heads):
     assert ref.err_over_tolerance(got, want) <= 1.0
     control = _wgmma_arithmetic(q, k, v, window=window, softcap=0.0)
     assert ref.err_over_tolerance(control, want) > 1.0
+
+
+# mixtral-8x22b's widths (48 q-heads over 8 KV heads, hd 128, no softcap)
+@pytest.mark.parametrize("b,s,window", [
+    (1, 577, 0), (1, 577, 200), (2, 300, 37), (1, 129, 0)])
+def test_wgmma_arithmetic_hd128_within_one_bf16_ulp(b, s, window):
+    """The same rounding points at head_dim 128 stay within one bf16 ulp.
+    With no softcap to switch off, the control drops the band instead:
+    window 0 on a windowed case, no causal mask on the others."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(b, s, 48, 8, 128, q_scale=4.0))
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    got = _wgmma_arithmetic(q, k, v, window=window, softcap=0.0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert ref.err_over_tolerance(got, want) <= 1.0
+    control = _wgmma_arithmetic(q, k, v, window=0, softcap=0.0,
+                                causal=bool(window))
+    assert ref.err_over_tolerance(control, want) > 1.0
+
+
+@pytest.mark.parametrize("s,window", [(577, 0), (450, 100)])
+def test_single_rounding_of_p_misses_one_ulp_at_hd128(s, window):
+    """Why P stays two bf16 parts at head_dim 128: rounded once, it fails
+    the one-ulp check at mixtral-8x22b's widths too."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, s, 48, 8, 128, q_scale=4.0))
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    once = _wgmma_arithmetic(q, k, v, window=window, softcap=0.0, p_parts=1)
+    assert ref.err_over_tolerance(once, want) > 1.0
 
 
 @pytest.mark.parametrize("s,window", [(577, 0), (450, 100)])
@@ -282,20 +311,27 @@ def test_cross_attention_not_ported():
 
 
 # ---------------------------------------------------------------------------
-def _check_on_card(b, s, window, dtype, zero_heads=False):
+GEMMA2 = (16, 4, 256, 50.0)      # q-heads, KV heads, head_dim, softcap
+MIXTRAL = (48, 8, 128, 0.0)
+
+
+def _check_on_card(b, s, window, dtype, zero_heads=False, widths=GEMMA2):
     """Scores of std 4 (q at 4x) put the top scores on the softcap's curve;
     the kernel with the softcap off must fail the same check (with one key
-    the softcap cannot change the output).  The launch is counted under
-    the design that (dtype, head_dim 256) routes to."""
+    the softcap cannot change the output).  Without a softcap the control
+    drops the band: window 0 on a windowed case, no causal mask on the
+    others.  The launch is counted under the design that (dtype, head_dim)
+    routes to."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    arrays = _qkv(b, s, 16, 4, 256, q_scale=4.0)
+    h, kv, hd, softcap = widths
+    arrays = _qkv(b, s, h, kv, hd, q_scale=4.0)
     tensors = [torch.from_numpy(a).to("cuda", getattr(torch, dtype))
                for a in arrays]
     if zero_heads:                 # gemma2-2b's zero pad heads
         tensors[0][:, :, 8:] = 0
-    kw = dict(causal=True, window=window, softcap=50.0)
-    design = DESIGNS[(tensors[0].dtype, 256)]
+    kw = dict(causal=True, window=window, softcap=softcap)
+    design = DESIGNS[(tensors[0].dtype, hd)]
     before = KERNEL.launches
     by_design = KERNEL.launches_by_design[design]
     got = ops.flash_attention(*tensors, **kw)
@@ -306,7 +342,8 @@ def _check_on_card(b, s, window, dtype, zero_heads=False):
     assert got.dtype == tensors[0].dtype and got.shape == tensors[0].shape
     assert ref.err_over_tolerance(got, want) <= 1.0
     if s > 1:
-        control = KERNEL(*tensors, causal=True, window=window, softcap=0.0)
+        control = KERNEL(*tensors, causal=True, window=window, softcap=0.0) \
+            if softcap else KERNEL(*tensors, causal=bool(window), window=0)
         assert ref.err_over_tolerance(control, want) > 1.0
 
 
@@ -324,6 +361,24 @@ def _check_on_card(b, s, window, dtype, zero_heads=False):
     (4, 333, 150, "bfloat16")])
 def test_kernel_matches_plain_on_card(b, s, window, dtype):
     _check_on_card(b, s, window, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,window,dtype", [
+    # mixtral-8x22b's engines: two waves of batch 4, one windowed prompt
+    (4, 228, 0, "bfloat16"), (4, 123, 0, "bfloat16"),
+    (1, 4352, 4096, "bfloat16"),
+    (1, 1024, 0, "float32"), (1, 300, 100, "float32"), (1, 96, 0, "float32"),
+    # tile and ring edges at hd 128 (64 keys, 128 rows, 4 stages)
+    (1, 1, 0, "bfloat16"), (1, 63, 0, "bfloat16"), (1, 65, 0, "bfloat16"),
+    (1, 129, 0, "bfloat16"), (1, 256, 0, "bfloat16"),
+    (1, 257, 0, "bfloat16"), (1, 320, 0, "bfloat16"),
+    (1, 577, 0, "bfloat16"), (2, 1000, 0, "bfloat16"),
+    # windows off the tile grid, one under a tile, one over the ring
+    (1, 700, 100, "bfloat16"), (1, 300, 37, "bfloat16"),
+    (4, 333, 150, "bfloat16"), (1, 900, 300, "bfloat16")])
+def test_kernel_hd128_matches_plain_on_card(b, s, window, dtype):
+    _check_on_card(b, s, window, dtype, widths=MIXTRAL)
 
 
 @pytest.mark.gpu

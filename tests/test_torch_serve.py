@@ -1,5 +1,5 @@
 """The port's serving engine against ``repro.serve`` on the CPU: gemma2
-(attention) and mamba2 (SSM) smoke models."""
+(attention), mamba2 (SSM) and mixtral (MoE) smoke models."""
 import dataclasses
 
 import jax
@@ -14,7 +14,8 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import KERNEL
 from repro_torch.kernels.ssd_scan import KERNEL as SSD_KERNEL
-from repro_torch.models import init_decode_cache, init_lm, params_from_jax
+from repro_torch.models import (init_decode_cache, init_lm, moe,
+                                params_from_jax)
 from repro_torch.serve import Request, ServeEngine
 
 
@@ -36,22 +37,27 @@ def mamba_weights():
     return _weights("mamba2-780m")
 
 
-def _requests(cls, eos_ids, vocab=512):
+@pytest.fixture(scope="module")
+def mixtral_weights():
+    return _weights("mixtral-8x22b")
+
+
+def _requests(cls, eos_ids, vocab=512, lengths=(5, 11, 8)):
     """Three prompts of different lengths (left-padded in a wave of 2),
     then a third request alone in a wave with a pad slot."""
     rng = np.random.default_rng(0)
     return [cls(rid=i, prompt=rng.integers(1, vocab, size=n),
                 max_new_tokens=m, eos_id=eos)
-            for i, (n, m, eos) in enumerate(zip((5, 11, 8), (7, 5, 6),
+            for i, (n, m, eos) in enumerate(zip(lengths, (7, 5, 6),
                                                 eos_ids))]
 
 
-def _serve(jcfg, cfg, jp, p, eos_ids):
+def _serve(jcfg, cfg, jp, p, eos_ids, lengths=(5, 11, 8)):
     vocab = min(cfg.vocab_size, 512)
     ref = JaxServeEngine(jcfg, jp, batch_size=2, max_seq=48)
-    ref_out = ref.generate(_requests(JaxRequest, eos_ids, vocab))
+    ref_out = ref.generate(_requests(JaxRequest, eos_ids, vocab, lengths))
     port = ServeEngine(cfg, p, batch_size=2, max_seq=48, device="cpu")
-    port_out = port.generate(_requests(Request, eos_ids, vocab))
+    port_out = port.generate(_requests(Request, eos_ids, vocab, lengths))
     return ref, ref_out, port, port_out
 
 
@@ -86,6 +92,34 @@ def test_mamba2_generate_matches_jax(mamba_weights):
     assert len(port_out[1].output) == 2          # stopped at its eos_id
     assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
     assert SSD_KERNEL.launches == before         # the CPU path is plain
+
+
+def test_mixtral_generate_matches_jax(mixtral_weights, monkeypatch):
+    """The MoE model through the engine: the first wave left-pads prompt 0
+    from 3 to 20 tokens with token 0 and no pad mask.  The 17 pads route
+    alike and take capacity as the reference's do: C = 13 slots an expert
+    at S = 20, so pairs drop in that wave; decode routes with S = 1 (C =
+    4, nothing drops)."""
+    jcfg, cfg, jp, p = mixtral_weights
+    lengths = (3, 20, 9)
+    _, free_run, _, _ = _serve(jcfg, cfg, jp, p, (-1, -1, -1), lengths)
+    eos = free_run[2].output[3]
+    assert eos not in free_run[2].output[:3]
+    routings = []
+    route = moe.route
+    monkeypatch.setattr(moe, "route",
+                        lambda *a: routings.append(route(*a)) or routings[-1])
+    before = KERNEL.launches
+    ref, ref_out, port, port_out = _serve(jcfg, cfg, jp, p, (-1, -1, eos),
+                                          lengths)
+    assert [r.output for r in port_out] == [r.output for r in ref_out]
+    assert len(port_out[2].output) == 4          # stopped at its eos_id
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    first_wave = routings[:cfg.num_layers]
+    assert all(r.capacity == 13 and not r.kept.all() for r in first_wave)
+    decode = [r for r in routings if r.probs.shape[1] == 1]
+    assert decode and all(r.capacity == 4 and r.kept.all() for r in decode)
+    assert KERNEL.launches == before             # the CPU path is plain
 
 
 def test_sampling_is_seeded(weights):
