@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving paths and federation on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -52,11 +53,29 @@ any phase fails:
              ``wgmma`` design, with the share of each wave and decode
              step that the MoE layers, their routing and their expert
              products take;
-4. report  — one JSON line of kernel numbers, then the device line.
+4. federation — the port's data plane on the simulated engine, its
+             max-min solver on the card (torch ops):
+             G: the paper's §4.1 protocol at the five OSG sites (four
+             sequential fetches of each evaluation file: proxy cold and
+             warm, stash cold and warm) on solver "auto" and, with every
+             solve on the card, on "vector", within 1e-4 of "auto" and
+             equal byte for byte to its CPU run; download speeds and
+             Table 3 beside the paper's;
+             H: a restart storm over a 250-pod fleet (1,000 workers pull
+             a 2 GB checkpoint within 2 s), every solve on the card: its
+             counters against the reference's, a second run equal byte
+             for byte, the scalar solver's run with equal counters and
+             seconds within 1e-4, and at three recorded solves (the peak
+             among them) the card's rates against the float64 oracle and
+             the same ops on the CPU, each with a control that must fail;
+             solves, flows, rounds, host syncs and copies per solve, ms
+             per solve against the scalar solver's, the share of the wall
+             time spent solving;
+5. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path runs with every launch count set to 0 just before it
-and read just after.  Every line with a measured number names the card
-and its power limit.
+Each serving path and storm H runs with every launch count set to 0 just
+before it and read just after.  Every line with a measured number names
+the card and its power limit.
 """
 from __future__ import annotations
 
@@ -1022,6 +1041,315 @@ def phase_serve_mixtral(card: str, checked: dict):
 
 
 # ---------------------------------------------------------------------------
+# The federation: the paper's protocol (G) and a fleet restart storm (H)
+# ---------------------------------------------------------------------------
+PAPER_PHASES = ("proxy_cold", "proxy_warm", "stash_cold", "stash_warm")
+STORM_PODS, STORM_HOSTS = 250, 4         # FederationSpec.fleet(250, 4)
+# the reference's counts for storm H (JAX, solver "vector", on a CPU)
+STORM_WANT = {"requests": 1000, "cache_hits": 60_000,
+              "cache_misses": 20_000, "origin_egress_bytes": 500 * 10**9}
+STORM_MIN_SOLVES = 500
+SOLVER_RTOL = 1e-4                       # vector vs scalar seconds
+MAXMIN_REF_RTOL, MAXMIN_REF_ATOL = 2e-3, 1e3   # tests/test_maxmin.py's
+MAXMIN_CPU_RTOL = 1e-6
+
+
+def phase_federation_paper(card: str) -> None:
+    """G: the paper's §4.1 protocol.  At every OSG site, each evaluation
+    file goes through four sequential fetches (proxy cold, proxy warm,
+    stash cold, stash warm) on the simulated engine on the card, against
+    a fresh federation; solver "auto", as the paper's benchmark runs it
+    (one flow at a time stays below its threshold: the host's scalar
+    solver), and again "vector" (every solve on the card), which must
+    give equal counters and seconds within 1e-4.  The "vector" runs on
+    the card must equal the same runs on the CPU byte for byte."""
+    import dataclasses as dc
+
+    import repro_torch.core as core
+    from repro_torch.analysis.sanitize import (canonical_report_bytes,
+                                               close_reports)
+    from repro_torch.kernels import maxmin
+
+    t0 = time.perf_counter()
+    maxmin.COUNTS.reset()
+    rows = []
+    for site in core.PAPER_TABLE3:
+        for path, size in core.evaluation_fileset():
+            def spec(device, solver="auto"):
+                return core.ScenarioSpec(
+                    name=f"proxy_vs_stash/{site}",
+                    federation=core.FederationSpec.osg(),
+                    workload=[core.FetchRequest(path, site=site,
+                                                method=ph.split("_")[0],
+                                                size=size)
+                              for ph in PAPER_PHASES],
+                    sequential=True, engine="sim", solver=solver,
+                    device=device)
+            rep = core.run_scenario(spec("cuda"))
+            vector = core.run_scenario(spec("cuda", "vector"))
+            if canonical_report_bytes(vector) != canonical_report_bytes(
+                    core.run_scenario(spec("cpu", "vector"))):
+                raise AssertionError(f"G {site} {path}: the card's report "
+                                     f"differs from the CPU's")
+            close_reports(dc.asdict(vector), dc.asdict(rep), SOLVER_RTOL,
+                          f"G {site} {path}")
+            row = {"site": site, "path": path, "size": size}
+            for phase, r in zip(PAPER_PHASES, rep.results):
+                if not (r.ok and r.seconds > 0):
+                    raise AssertionError(f"G {site} {path} {phase}: {r}")
+                row[phase] = r.seconds
+            if not rep.results[3].cache_hit:
+                raise AssertionError(f"G {site} {path}: warm stash missed")
+            rows.append(row)
+    seconds = time.perf_counter() - t0
+    say(f"G (paper §4.1, {len(core.PAPER_TABLE3)} OSG sites x "
+        f"{len(core.evaluation_fileset())} files x 4 fetches, engine sim "
+        f"on cuda, solver auto; solver vector within {SOLVER_RTOL} of it "
+        f"and equal to its CPU run byte for byte): {seconds:.2f} s, "
+        f"{maxmin.COUNTS.solves_by_device.get('cuda', 0)} vector solves "
+        f"on cuda", card)
+    for row in rows:
+        say(f"G {row['site']:<10} {row['path']:<24} " + ", ".join(
+            f"{ph} {row['size'] / row[ph] / 1e6:.2f} MB/s"
+            for ph in PAPER_PHASES), card)
+    agree = 0
+    for row in rows:
+        label = ("2.3GB" if "p95" in row["path"]
+                 else "10GB" if "10gb" in row["path"] else None)
+        if label is None:
+            continue
+        proxy = (row["proxy_cold"] + row["proxy_warm"]) / 2
+        stash = (row["stash_cold"] + row["stash_warm"]) / 2
+        ours = 100.0 * (stash - proxy) / proxy
+        paper = core.PAPER_TABLE3[row["site"]][label]
+        agree += (ours < 0) == (paper < 0)
+        say(f"G Table 3 {row['site']:<10} {label:<5} StashCache vs proxy "
+            f"{ours:+.1f}% (paper {paper:+.1f}%)", card)
+    say(f"G Table 3: the sign agrees with the paper in {agree} of "
+        f"{2 * len(core.PAPER_TABLE3)} cells", card)
+
+
+def _storm_spec(core, solver: str, device: str, pods: int = STORM_PODS):
+    return core.ScenarioSpec(
+        name=f"restart-storm/{pods}x{STORM_HOSTS}",
+        federation=core.FederationSpec.fleet(num_pods=pods,
+                                             hosts_per_pod=STORM_HOSTS),
+        workload=core.WorkloadSpec(kind="storm", size=2 * 10**9,
+                                   workers_per_site=STORM_HOSTS,
+                                   jitter=2.0),
+        solver=solver, device=device)
+
+
+def _scalar_rates(link_caps, flow_links, flow_caps):
+    """The simulator's scalar solver on one problem: (rates, seconds)."""
+    import types
+
+    from repro_torch.core import FluidFlowSim, Topology
+    from repro_torch.core.simulator import Flow
+    links = [types.SimpleNamespace(bandwidth=c) for c in link_caps]
+    sim = FluidFlowSim(Topology(), solver="scalar", device="cpu")
+    sim.active = [Flow("s", "d", 1.0, 1, [links[i] for i in row], cap)
+                  for row, cap in zip(flow_links, flow_caps)]
+    t0 = time.perf_counter()
+    sim._reallocate_scalar()
+    return [f.rate for f in sim.active], time.perf_counter() - t0
+
+
+def _snapshot(problem, card: str, label: str) -> dict:
+    """Check 3 at one recorded solve: the card's rates against the float64
+    oracle (rtol 2e-3, atol 1e3) and against the same ops on the CPU
+    (1e-6 relative), each with a control (the most-shared saturated
+    link's capacity halved) that must fail it; then the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import maxmin
+    from repro_torch.kernels.ref import maxmin_ref
+
+    link_caps, flow_links, flow_caps = problem
+    F, L = len(flow_links), len(link_caps)
+    maxmin.COUNTS.reset()
+    card_rates = maxmin.maxmin_rates_sparse(link_caps, flow_links,
+                                            flow_caps, device="cuda")
+    rounds = maxmin.COUNTS.rounds
+    cpu_rates = maxmin.maxmin_rates_sparse(link_caps, flow_links, flow_caps,
+                                           device="cpu")
+    mem = np.zeros((F, L), bool)
+    for f, row in enumerate(flow_links):
+        mem[f, row] = True
+    oracle = maxmin_ref(link_caps, mem, flow_caps)
+    load = mem.T.astype(np.float64) @ oracle
+    saturated = np.flatnonzero(load >= 0.999 * np.asarray(link_caps))
+    if not saturated.size:
+        raise AssertionError(f"H snapshot {label}: no saturated link to "
+                             f"halve for the control")
+    halve = saturated[np.argmax(mem[:, saturated].sum(0))]
+    halved = list(link_caps)
+    halved[halve] /= 2
+    oracle_ctl = maxmin_ref(halved, mem, flow_caps)
+    cpu_ctl = maxmin.maxmin_rates_sparse(halved, flow_links, flow_caps,
+                                         device="cpu")
+
+    def ok_ref(want):
+        return np.allclose(card_rates, want, rtol=MAXMIN_REF_RTOL,
+                           atol=MAXMIN_REF_ATOL)
+
+    def ok_cpu(want):
+        return np.allclose(card_rates, want, rtol=MAXMIN_CPU_RTOL, atol=0)
+    if not (ok_ref(oracle) and ok_cpu(cpu_rates)):
+        raise AssertionError(f"H snapshot {label}: the card's rates miss "
+                             f"the oracle or the CPU run")
+    if ok_ref(oracle_ctl) or ok_cpu(cpu_ctl):
+        raise AssertionError(f"H snapshot {label}: a control passed (link "
+                             f"{halve} halved)")
+    rel_cpu = float(np.max(np.abs(card_rates - cpu_rates)
+                           / np.maximum(np.abs(cpu_rates), 1e-30)))
+    rel_ref = float(np.max(np.abs(card_rates - oracle)
+                           / np.maximum(np.abs(oracle), 1e-30)))
+    scalar_rates, _ = _scalar_rates(link_caps, flow_links, flow_caps)
+    if not np.allclose(card_rates, scalar_rates, rtol=MAXMIN_REF_RTOL,
+                       atol=MAXMIN_REF_ATOL):
+        raise AssertionError(f"H snapshot {label}: card vs scalar solver")
+
+    # times: the device loop alone (inputs resident; CUDA events), the
+    # whole call as the simulator pays it (host clock), the same ops on
+    # the CPU, and the scalar solver
+    width = maxmin._next_pow2(max(len(r) for r in flow_links), floor=4)
+    padded = maxmin.pad_problem(link_caps, flow_links, flow_caps,
+                                maxmin._next_pow2(F),
+                                maxmin._next_pow2(L + 1), width)
+    args = maxmin.device_problem(*padded, torch.device("cuda"))
+    loop_ms = time_ms(lambda: maxmin.solve_waterfill(*args), 50)
+
+    def host_ms(fn, iters):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / iters
+    call_ms = host_ms(lambda: maxmin.maxmin_rates_sparse(
+        link_caps, flow_links, flow_caps, device="cuda"), 50)
+    cpu_ms = host_ms(lambda: maxmin.maxmin_rates_sparse(
+        link_caps, flow_links, flow_caps, device="cpu"), 20)
+    scalar_ms = min(1e3 * _scalar_rates(link_caps, flow_links, flow_caps)[1]
+                    for _ in range(5))
+    # the least the solve must move: the whole problem fits in one SM's
+    # shared memory, so each input is read once and the rates written
+    # once: the flows' link indices (int32), the flow caps, the link
+    # caps and the rates (float32).  The floor that binds is the
+    # launches and host reads of ``rounds`` rounds, not these bytes.
+    table = args[3]
+    nnz = sum(len(r) for r in flow_links)
+    solve_bytes = 4 * nnz + 4 * F + 4 * L + 4 * F
+    bound_ms = 1e3 * solve_bytes / HBM_BYTES_PER_S
+    out = {"flows": F, "links": L, "memberships": nnz,
+           "padded": [len(padded[2]), len(padded[0]), width],
+           "table_degree": int(table.shape[1]), "rounds": rounds,
+           "max_abs_err": float(np.max(np.abs(card_rates - cpu_rates))),
+           "max_rel_err_cpu": rel_cpu, "max_rel_err_oracle": rel_ref,
+           "ms": loop_ms, "host_ms": call_ms, "plain_ms": cpu_ms,
+           "scalar_ms": scalar_ms, "bytes": solve_bytes,
+           "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+           "control_link": int(halve)}
+    say(f"H snapshot {label}: {F} flows over {L} links (padded "
+        f"{out['padded']}), {rounds} rounds; card vs oracle max rel "
+        f"{rel_ref:.2e} (tol {MAXMIN_REF_RTOL} + {MAXMIN_REF_ATOL:g}), vs "
+        f"CPU ops {rel_cpu:.2e} (tol {MAXMIN_CPU_RTOL}); controls (link "
+        f"{halve}, {int(mem[:, halve].sum())} flows, halved) fail both; "
+        f"device loop {loop_ms:.4f} ms (CUDA events), whole call "
+        f"{call_ms:.4f} ms (host clock), same ops on the CPU "
+        f"{cpu_ms:.4f} ms, scalar solver {scalar_ms:.4f} ms; bound "
+        f"{bound_ms:.6f} ms ({solve_bytes} B once at 3.35 TB/s)", card)
+    return out
+
+
+def phase_federation_storm(card: str) -> dict:
+    """H: a fleet restart storm (250 pods of 4 hosts, every worker pulls a
+    2 GB checkpoint within 2 s) on the simulated engine with every solve
+    on the card.  Returns the solver's numbers for the kernels line."""
+    import dataclasses as dc
+    import statistics
+
+    import repro_torch.core as core
+    from repro_torch.analysis.sanitize import (canonical_report_bytes,
+                                               close_reports)
+    from repro_torch.kernels import maxmin
+
+    core.run_scenario(_storm_spec(core, "vector", "cuda", pods=4))  # warm
+    counts = maxmin.COUNTS
+    counts.reset()                           # the storm's path starts here
+    t0 = time.perf_counter()
+    rep = core.run_scenario(_storm_spec(core, "vector", "cuda"))
+    wall = time.perf_counter() - t0
+    run = dc.replace(counts, solves_by_device=dict(
+        counts.solves_by_device))           # ... and ends here
+    solves = run.solves_by_device.get("cuda", 0)
+    got = {"requests": len(rep.results), "cache_hits": rep.cache_hits,
+           "cache_misses": rep.cache_misses,
+           "origin_egress_bytes": rep.origin_egress_bytes}
+    if got != STORM_WANT or not all(r.ok for r in rep.results):
+        raise AssertionError(f"H: counters {got}, the reference's "
+                             f"{STORM_WANT}")
+    if solves < STORM_MIN_SOLVES or solves != run.solves or \
+            solves != rep.reallocations:
+        raise AssertionError(f"H: {solves} vector solves on cuda of "
+                             f"{run.solves} ({rep.reallocations} "
+                             f"reallocations); at least "
+                             f"{STORM_MIN_SOLVES} must run on the card")
+    say(f"H (fleet {STORM_PODS} pods x {STORM_HOSTS} hosts, storm of "
+        f"{len(rep.results)} requests for 2 GB, jitter 2 s, solver vector "
+        f"on cuda): {wall:.2f} s wall, sim {rep.sim_seconds:.3f} s; hits "
+        f"{rep.cache_hits}, misses {rep.cache_misses}, evictions "
+        f"{rep.evictions}, origin egress {rep.origin_egress_bytes} B, "
+        f"bytes moved {rep.bytes_moved}", card)
+    # check 2: a second run, byte for byte; it also records the problems
+    recorded = []
+    solve = maxmin.maxmin_rates_sparse
+
+    def recorder(link_caps, flow_links, flow_caps, device=None):
+        recorded.append((list(link_caps), [list(r) for r in flow_links],
+                         list(flow_caps)))
+        return solve(link_caps, flow_links, flow_caps, device=device)
+    maxmin.maxmin_rates_sparse = recorder
+    try:
+        again = core.run_scenario(_storm_spec(core, "vector", "cuda"))
+    finally:
+        maxmin.maxmin_rates_sparse = solve
+    if canonical_report_bytes(again) != canonical_report_bytes(rep):
+        raise AssertionError("H: two vector runs on cuda differ")
+    sizes = [len(p[1]) for p in recorded]
+    say(f"H solver: {solves} solves on cuda; flows per solve median "
+        f"{statistics.median(sizes):.0f}, largest {max(sizes)} (the "
+        f"replay's); rounds per solve {run.rounds / solves:.3f}; host "
+        f"syncs {run.syncs / solves:.3f} and copies {run.h2d / solves:.3f}"
+        f" host->device, {run.d2h / solves:.3f} device->host per solve; "
+        f"{1e3 * run.host_seconds / solves:.4f} ms per solve (host clock, "
+        f"whole call), {run.host_seconds:.3f} s in solves = "
+        f"{100 * run.host_seconds / wall:.1f}% of the wall time", card)
+    # check 1: the scalar solver, counters equal, seconds within 1e-4
+    t0 = time.perf_counter()
+    scalar = core.run_scenario(_storm_spec(core, "scalar", "cuda"))
+    scalar_wall = time.perf_counter() - t0
+    close_reports(dc.asdict(rep), dc.asdict(scalar), SOLVER_RTOL, "H")
+    say(f"H checks: the replay's {len(canonical_report_bytes(rep))} "
+        f"report bytes are identical; solver scalar ({scalar_wall:.2f} s "
+        f"wall) gives equal counters, seconds within {SOLVER_RTOL}", card)
+    # check 3 at three snapshots, the peak among them
+    picks = {"peak": sizes.index(max(sizes)), "quarter": len(sizes) // 4,
+             "three-quarters": 3 * len(sizes) // 4}
+    snaps = {label: _snapshot(recorded[i], card, f"{label} (solve {i})")
+             for label, i in picks.items()}
+    for label in snaps:
+        snaps[label]["solve_index"] = picks[label]
+    return {"launches": solves, "solves": solves, "wall_s": wall,
+            "solve_host_s": run.host_seconds,
+            "flows_median": statistics.median(sizes),
+            "flows_max": max(sizes), "rounds": run.rounds,
+            "syncs": run.syncs, "h2d": run.h2d, "d2h": run.d2h,
+            "scalar_wall_s": scalar_wall, "snapshots": snaps}
+
+
+# ---------------------------------------------------------------------------
 def _entry(name: str, launches: int, case: dict, tolerance: str,
            shape: str, card: str) -> dict:
     source, replaces = KERNEL_FILES[name]
@@ -1046,6 +1374,28 @@ def _case(case: dict, shape: str, **extra) -> dict:
                                     "library_ms", "design", "tflops",
                                     "host_ms", "with_host_ms",
                                     "largest_leaf_ms") if k in case}}
+
+
+def _maxmin_entry(storm: dict, card: str) -> dict:
+    """The max-min solver's line: torch ops, not a hand kernel; its main
+    case is storm H's peak solve."""
+    peak = storm["snapshots"]["peak"]
+    return {"name": "maxmin", "route": "torch",
+            "source": "src/repro_torch/kernels/maxmin.py",
+            "replaces": "src/repro/kernels/maxmin.py:36",
+            "launches": storm["launches"],
+            **{k: peak[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "host_ms", "scalar_ms",
+                                    "max_rel_err_oracle", "rounds")},
+            "tolerance": f"card vs the same ops on the CPU "
+                         f"{MAXMIN_CPU_RTOL} relative; vs maxmin_ref rtol "
+                         f"{MAXMIN_REF_RTOL}, atol {MAXMIN_REF_ATOL:g}",
+            "shape": f"storm H's peak solve: {peak['flows']} flows, "
+                     f"{peak['links']} links, padded {peak['padded']}",
+            "card": card,
+            "storm": {k: v for k, v in storm.items() if k != "snapshots"},
+            "snapshots": storm["snapshots"]}
 
 
 def _free() -> None:
@@ -1083,6 +1433,9 @@ def main() -> int:
     _free()
     mixtral_flash, mixtral_sums, mixtral_checksum = phase_serve_mixtral(
         card, flash)
+    _free()
+    phase_federation_paper(card)
+    storm = phase_federation_storm(card)
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
@@ -1109,6 +1462,7 @@ def main() -> int:
         _entry("ssd_intra", ssd_launches, ssd[SSD_MAIN_CASE], SSD_TOLERANCE,
                f"{SSD_MAIN_CASE} float32", card),
         checksum_entry,
+        _maxmin_entry(storm, card),
     ]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

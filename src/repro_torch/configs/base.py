@@ -140,6 +140,52 @@ class ArchConfig:
                 f"pattern period {p}")
         return self.num_layers // p
 
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, f = self.d_model, self.d_ff
+        hd = self.resolved_head_dim
+        n = self.vocab_size * d
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        for spec in self.pattern() * self.num_groups():
+            if spec.mixer in (MIXER_ATTN, MIXER_ATTN_LOCAL, MIXER_XATTN):
+                # padded q-heads allocate real (zero) rows
+                n += d * hd * (self.resolved_num_heads
+                               + 2 * self.num_kv_heads)
+                n += self.resolved_num_heads * hd * d
+            elif spec.mixer == MIXER_SSM:
+                di, ns, hs = self.d_inner, self.ssm_state, self.ssm_heads
+                n += d * (2 * di + 2 * ns + hs)  # in_proj(z,x,B,C,dt)
+                n += di * d                       # out_proj
+                n += self.ssm_conv_width * (di + 2 * ns) + 2 * hs + di
+            if spec.ffn == FFN_DENSE:
+                n += 3 * d * f
+            elif spec.ffn == FFN_MOE:
+                n += d * self.num_experts + 3 * d * f * self.num_experts
+            n += 2 * d  # norms
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters doing useful work per token (MoE: routed experts
+        only; TP padding: zero pad-head rows excluded)."""
+        d, f = self.d_model, self.d_ff
+        total = self.param_count()
+        if self.padded_heads:
+            attn_layers = sum(
+                1 for s in self.pattern()
+                if s.mixer in (MIXER_ATTN, MIXER_ATTN_LOCAL, MIXER_XATTN)) \
+                * self.num_groups()
+            total -= attn_layers * 2 * d * self.resolved_head_dim * \
+                (self.padded_heads - self.num_heads)
+        if not self.num_experts:
+            return total
+        moe_layers = sum(1 for s in self.pattern() if s.ffn == FFN_MOE) \
+            * self.num_groups()
+        inactive = moe_layers * 3 * d * f * \
+            (self.num_experts - self.experts_per_token)
+        return total - inactive
+
 
 def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)

@@ -2,12 +2,15 @@
 
 A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor
 goes to the hand-written kernel, which raises on anything it cannot
-serve.  There is no fallback from one to the other.
+serve.  There is no fallback from one to the other.  ``maxmin_rates``
+is torch tensor ops (not a hand kernel) and runs the same ops on either
+device.
 """
 from __future__ import annotations
 
 import torch
 
+from . import maxmin as _maxmin
 from . import ref
 from .chunk_checksum import chunk_checksum as _checksum_kernel
 from .chunk_checksum import chunk_checksums as _checksums_kernel
@@ -53,3 +56,18 @@ def chunk_checksums(buffers, block: int = 1024, *,
             t.reshape(-1).view(torch.uint8) if as_bytes else t, block)[0]
             for t in buffers])
     return _checksums_kernel(buffers, block, as_bytes=as_bytes)
+
+
+def maxmin_rates(link_caps: torch.Tensor, membership: torch.Tensor,
+                 flow_caps: torch.Tensor) -> torch.Tensor:
+    """Max-min fair rates (F,) of link_caps (L,), a 0/1 membership (F, L)
+    and per-flow caps (F,), solved by the torch-ops waterfill on the
+    inputs' device; ``ref.maxmin_ref`` is its float64 oracle.  The
+    counterpart of ``ops.maxmin_rates`` in the reference, for tensors:
+    no caller in the system uses it (the simulator calls
+    ``maxmin.maxmin_rates_sparse``), and it copies through the host."""
+    rates = _maxmin.maxmin_rates(link_caps.cpu().numpy(),
+                                 membership.cpu().numpy(),
+                                 flow_caps.cpu().numpy(),
+                                 device=link_caps.device)
+    return torch.from_numpy(rates).to(link_caps.device)

@@ -112,3 +112,51 @@ def err_over_tolerance(got: torch.Tensor, want: torch.Tensor,
     got, want = got.float(), want.float()
     tol = 2.0 ** -7 * want.abs() + 1e-3 if bf16 else 1e-4 + rtol * want.abs()
     return ((got - want).abs() / tol).max().item()
+
+
+def maxmin_ref(link_caps, membership, flow_caps):
+    """Scalar max-min waterfilling oracle (per-link greedy fixing).
+
+    The simulator's dict-walking allocator on array inputs, in float64
+    numpy: link_caps (L,), membership (F, L) 0/1, flow_caps (F,).
+    Ground truth for ``repro_torch.kernels.maxmin.maxmin_rates``.
+    """
+    import numpy as np
+
+    membership = np.asarray(membership, dtype=bool)
+    num_flows, num_links = membership.shape
+    cap_left = np.asarray(link_caps, dtype=np.float64).copy()
+    flow_caps = np.asarray(flow_caps, dtype=np.float64)
+    rates = np.zeros(num_flows)
+    unfixed = set(range(num_flows))
+    link_flows = [np.nonzero(membership[:, l])[0] for l in range(num_links)]
+    while unfixed:
+        best_share, best_lid = float("inf"), None
+        for lid in range(num_links):
+            n = sum(1 for fi in link_flows[lid] if fi in unfixed)
+            if n == 0:
+                continue
+            share = cap_left[lid] / n
+            if share < best_share:
+                best_share, best_lid = share, lid
+        capped = [fi for fi in unfixed if flow_caps[fi] < best_share]
+        if capped:
+            for fi in capped:
+                rates[fi] = flow_caps[fi]
+                unfixed.discard(fi)
+                for lid in np.nonzero(membership[fi])[0]:
+                    cap_left[lid] = max(0.0, cap_left[lid] - rates[fi])
+            continue
+        if best_lid is None:
+            for fi in unfixed:
+                rates[fi] = flow_caps[fi]
+            break
+        fixed_now = [fi for fi in link_flows[best_lid] if fi in unfixed]
+        for fi in fixed_now:
+            rates[fi] = best_share
+            unfixed.discard(fi)
+            for lid in np.nonzero(membership[fi])[0]:
+                if lid != best_lid:
+                    cap_left[lid] = max(0.0, cap_left[lid] - best_share)
+        cap_left[best_lid] = 0.0
+    return rates
