@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths and federation on one
-CUDA card.
+"""Smoke run of the PyTorch port's serving paths, federation and sweeps on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,8 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 JAX.  Every phase raises on a mismatch, so the exit code is non-zero if
 any phase fails:
 
-1. build   — compile the three kernels from ``src/repro_torch`` (one
-             ``nvcc`` each, all started together); print what
+1. build   — compile the four kernel libraries from ``src/repro_torch``
+             (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
              warnings of both flash designs at every head_dim and both
              ssd_intra designs, ``wgmma`` and ``simt``), each design's
@@ -71,11 +71,24 @@ any phase fails:
              solves, flows, rounds, host syncs and copies per solve, ms
              per solve against the scalar solver's, the share of the wall
              time spent solving;
-5. report  — one JSON line of kernel numbers, then the device line.
+5. sweep   — I: an eviction sweep at a day's traffic (``run_sweep`` over
+             a 4-pod fleet, 4,000 zipf requests, capacity x policy x
+             admission x outage: 32 cells, all batched), its three scan
+             kernels (stack distances, the LRU/FIFO slot machine, the
+             FIFO frontier) and the batched max-min solver on the card:
+             totals equal to the reference's; every problem the sweep
+             handed a scan solved again by its plain version on the card,
+             exactly equal, with a control one byte below a deciding
+             capacity that must fail; the solver's rates against the same
+             ops on the CPU; four cells on the serial executor with the
+             eviction counters equal; each kernel's buckets, launches, ms
+             per launch, plain time and bound, the solver's rounds and
+             host reads, and the kernels' share of the wall time;
+6. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path and storm H runs with every launch count set to 0 just
-before it and read just after.  Every line with a measured number names
-the card and its power limit.
+Each serving path, storm H and sweep I runs with every launch count set
+to 0 just before it and read just after.  Every line with a measured
+number names the card and its power limit.
 """
 from __future__ import annotations
 
@@ -124,7 +137,13 @@ KERNEL_FILES = {
     "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan.py:24"),
     "chunk_checksum": ("src/repro_torch/kernels/csrc/chunk_checksum.cu",
-                       "src/repro/kernels/chunk_checksum.py:40")}
+                       "src/repro/kernels/chunk_checksum.py:40"),
+    "stack_distance": ("src/repro_torch/kernels/csrc/stack_distance.cu",
+                       "src/repro/kernels/stack_distance.py:75"),
+    "cache_sim": ("src/repro_torch/kernels/csrc/stack_distance.cu",
+                  "src/repro/kernels/stack_distance.py:101"),
+    "fifo_replay": ("src/repro_torch/kernels/csrc/stack_distance.cu",
+                    "src/repro/kernels/stack_distance.py:165")}
 
 
 def engine_a_lengths(rng):
@@ -228,9 +247,12 @@ def time_ms(fn, iters: int) -> float:
 
 def _kernels():
     from repro_torch.kernels import chunk_checksum, flash_attention, ssd_scan
+    from repro_torch.kernels import stack_distance as sd
     return {"flash_attention": flash_attention.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
-            "chunk_checksum": chunk_checksum.KERNEL}
+            "chunk_checksum": chunk_checksum.KERNEL,
+            "stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
+            "fifo_replay": sd.FIFO_REPLAY}
 
 
 def _reset_counts() -> None:
@@ -247,7 +269,8 @@ def phase_build(card: str) -> None:
     from repro_torch.kernels import chunk_checksum as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
-    libs = (fa.LIB, ssd_scan.LIB, cc.LIB)
+    from repro_torch.kernels import stack_distance as sd
+    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB)
     t0 = time.perf_counter()
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
@@ -1350,6 +1373,465 @@ def phase_federation_storm(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The sweeps: an eviction sweep at a day's traffic (I)
+# ---------------------------------------------------------------------------
+SWEEP_PODS, SWEEP_HOSTS = 4, 4           # FederationSpec.fleet(4, 4)
+SWEEP_REQUESTS = 4000
+SWEEP_AXES = {"federation.cache_capacity": [2e9, 8e9, 32e9, 32e12],
+              "federation.eviction_policy": ["lru", "fifo"],
+              "federation.admission_max_fraction": [1.0, 0.25],
+              "outage_rate": [0.0, 0.5]}
+# the reference's totals over sweep I's 32 cells (JAX, on a CPU)
+SWEEP_WANT = {"cache_hits": 1262846, "cache_misses": 2518530,
+              "origin_egress_bytes": 62291090882770,
+              "evictions": 1602456, "bytes_evicted": 39521117792682,
+              "admission_rejects": 521762, "bytes_moved": 93677581311872}
+SWEEP_WANT_FINISH_S = 42189.425549687745  # sum of storm_finish_seconds
+# the reference's EVICTION_PARITY_KEYS (benchmarks/bench_sweep.py:53)
+EVICTION_PARITY_KEYS = ("bytes_moved", "cache_hits", "cache_misses",
+                        "origin_egress_bytes", "evictions", "bytes_evicted",
+                        "admission_rejects")
+SCANS = {"stack_distance": "stack_distances", "cache_sim": "cache_sim",
+         "fifo_replay": "fifo_replay"}      # kernel → its ops function
+# bytes a reference moves at least (inputs read once, outputs written
+# once): prev, size and distance; key, admit, reset and hit; key, size,
+# admit, reset and hit
+SCAN_REF_BYTES = {"stack_distance": 24, "cache_sim": 7, "fifo_replay": 15}
+
+
+def _sweep_spec(core, device, n_requests=SWEEP_REQUESTS, axes=SWEEP_AXES):
+    base = core.ScenarioSpec(
+        name="eviction-sweep", engine="analytic",
+        federation=core.FederationSpec.fleet(num_pods=SWEEP_PODS,
+                                             hosts_per_pod=SWEEP_HOSTS),
+        workload=core.WorkloadSpec(kind="zipf", n_requests=n_requests,
+                                   working_set=1000, duration=86400.0),
+        device=device)
+    return core.SweepSpec(name="eviction-sweep", base=base, axes=axes)
+
+
+class _SweepRecorder:
+    """Wraps the three scans' ``ops`` functions and the sweep's batched
+    solver for one run: keeps every call's inputs and outputs (references,
+    no copies) and CUDA events around each scan call."""
+
+    def __init__(self) -> None:
+        self.calls = {name: [] for name in SCANS}
+        self.pricing = []
+
+    def __enter__(self):
+        import torch
+
+        import repro_torch.core.api as api
+        from repro_torch.kernels import ops
+        self._saved = [(ops, fn, getattr(ops, fn)) for fn in SCANS.values()]
+        self._saved.append((api, "maxmin_rates_batch",
+                            api.maxmin_rates_batch))
+        for name, fn in SCANS.items():
+            def wrapped(*args, _orig=getattr(ops, fn), _name=name):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _orig(*args)
+                end.record()
+                self.calls[_name].append((args, out, start, end))
+                return out
+            setattr(ops, fn, wrapped)
+
+        def pricing(problems, stats=None, device=None,
+                    _orig=api.maxmin_rates_batch):
+            rates = _orig(problems, stats=stats, device=device)
+            self.pricing.append((problems, rates))
+            return rates
+        api.maxmin_rates_batch = pricing
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for module, fn, orig in self._saved:
+            setattr(module, fn, orig)
+
+    def event_ms(self, name: str) -> float:
+        return sum(s.elapsed_time(e) for _, _, s, e in self.calls[name])
+
+
+def _scan_plain(name: str, args):
+    from repro_torch.kernels import ref
+    plain = {"stack_distance": ref.stack_distances_ref,
+             "cache_sim": ref.cache_sim_ref,
+             "fifo_replay": ref.fifo_replay_ref}[name]
+    return plain(*args[:-1])          # the plain versions take no lengths
+
+
+def _scan_equal(name: str, got, want, lengths) -> dict:
+    """Exact comparison of a scan's outputs within each problem's length:
+    distances (inf included), or hits, evictions and bytes evicted."""
+    import torch
+    if name == "stack_distance":
+        finite = torch.isfinite(want)
+        same = torch.equal(torch.isinf(got), torch.isinf(want)) and \
+            torch.equal(got[finite], want[finite])
+        err = float((got[finite] - want[finite]).abs().max()) \
+            if finite.any() else 0.0
+        return {"equal": same, "max_abs_err": err}
+    hits, ev, evb = got
+    w_hits, w_ev, w_evb = want
+    rows = all(torch.equal(hits[b, :n], w_hits[b, :n])
+               for b, n in enumerate(lengths.tolist()))
+    err = max(float((ev - w_ev).abs().max()),
+              float((evb - w_evb).abs().max()))
+    return {"equal": rows and torch.equal(ev, w_ev) and
+            torch.equal(evb, w_evb), "max_abs_err": err}
+
+
+def _exact_fill_capacities(keys, sizes, admit, reset):
+    """Capacities at which an insert exactly fills the cache before any
+    eviction or reset (every inserted key is still resident): at each, the
+    m-th insert fits (usage + size == capacity), and one byte less evicts
+    there; m = 64, 65, ..."""
+    seen, total, out = set(), 0.0, []
+    for t in range(len(keys)):
+        if reset[t]:
+            break
+        if keys[t] in seen or not admit[t]:
+            continue
+        seen.add(keys[t])
+        total += sizes[t]
+        if len(seen) >= 64:
+            out.append(total)
+    return out
+
+
+CONTROL_REFS = 2048        # the control problem: a prefix of a recorded one
+
+
+def _controls(rec, card: str) -> dict:
+    """The control of the exactness checks, for each replay: the first
+    recorded problem cut to its first 2,048 references, at the smallest
+    exact-fill capacity C (see above) where one byte decides the counters
+    (the kernel's answers at C and C - 1 differ).  The kernel at C must
+    equal the plain version at C, and the kernel at C - 1 (the control)
+    must fail that same check."""
+    import torch
+
+    from repro_torch.kernels import ops
+    per_ref = {"fifo_replay": 4, "cache_sim": 3}   # leading (B, Np) args
+    out = {}
+    for name in ("fifo_replay", "cache_sim"):
+        args = rec.calls[name][0][0]
+        n = min(int(args[-1][0]), CONTROL_REFS)
+        base = [t[:1, :n].clone() if i < per_ref[name] else t[:1].clone()
+                for i, t in enumerate(args[:-1])]
+        lengths = torch.full((1,), n, dtype=torch.int32,
+                             device=args[0].device)
+        cap_at = 5 if name == "fifo_replay" else 4
+        keys = base[0][0].cpu().numpy()
+        if name == "fifo_replay":
+            sizes = base[1][0].cpu().numpy()
+            admit, reset = base[2][0].cpu().numpy(), base[3][0].cpu().numpy()
+        else:
+            sizes = base[3][0].cpu().numpy()[keys]
+            admit, reset = base[1][0].cpu().numpy(), base[2][0].cpu().numpy()
+
+        def run(capacity, plain=False):
+            a = list(base)
+            a[cap_at] = torch.full((1,), capacity, dtype=torch.float64,
+                                   device=lengths.device)
+            if plain:
+                return _scan_plain(name, a + [None])
+            return getattr(ops, SCANS[name])(*a, lengths)
+        cap = next((c for c in _exact_fill_capacities(keys, sizes, admit,
+                                                      reset)
+                    if not _scan_equal(name, run(c), run(c - 1),
+                                       lengths)["equal"]), None)
+        if cap is None:
+            raise AssertionError(f"I control {name}: no exact-fill "
+                                 f"capacity decides the counters")
+        want = run(cap, plain=True)
+        exact = _scan_equal(name, run(cap), want, lengths)
+        control = _scan_equal(name, run(cap - 1), want, lengths)
+        if not exact["equal"] or control["equal"]:
+            raise AssertionError(f"I control {name}: the kernel equals the "
+                                 f"plain version at {cap:.0f} B: "
+                                 f"{exact['equal']}; at one byte less: "
+                                 f"{control['equal']}")
+        out[name] = {"capacity": cap, "refs": n,
+                     "evictions_plain": int(want[1][0]),
+                     "control_max_abs_err": control["max_abs_err"]}
+        say(f"I control {name}: the first problem's first {n} references "
+            f"at {cap:.0f} B, where an insert exactly fills the cache: the "
+            f"kernel equals the plain version ({out[name]['evictions_plain']}"
+            f" evictions); at {cap - 1:.0f} B it fails the same check (its "
+            f"counters off by up to {control['max_abs_err']:.0f}, or its "
+            f"hits differ), as it must", card)
+    return out
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _scan_numbers(name: str, rec, plain_s: list, clock_hz: float) -> dict:
+    """A scan's numbers at its largest bucket of the run: the kernel alone
+    (CUDA events, resident inputs), the plain version (host clock around
+    one synchronised call, on the card), and the bound: bytes (each
+    reference's inputs read once and outputs written once, the key state
+    once) at 3.35 TB/s, or for the replays the chain of the longest
+    problem's dependent steps at one clock each, whichever is larger."""
+    from repro_torch.kernels import ops
+    sizes = [args[0].numel() for args, _, _, _ in rec.calls[name]]
+    main = sizes.index(max(sizes))
+    args = rec.calls[name][main][0]
+    fn = getattr(ops, SCANS[name])
+    iters = 20 if name == "stack_distance" else 3
+    ms = time_ms(lambda: fn(*args), iters)
+    lengths = args[-1].tolist()
+    refs = sum(lengths)
+    nbytes = refs * SCAN_REF_BYTES[name]
+    if name != "stack_distance":
+        nbytes += args[3 if name == "cache_sim" else 4].numel() * 8
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    chain_ms = 0.0 if name == "stack_distance" else \
+        1e3 * max(lengths) / clock_hz
+    return {"bucket": list(args[0].shape) + (
+                [args[3 if name == "cache_sim" else 4].shape[1]]
+                if name != "stack_distance" else []),
+            "problems": sum(1 for n in lengths if n), "refs": refs,
+            "ms": ms, "plain_ms": 1e3 * plain_s[main], "bytes": nbytes,
+            "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "operations" if chain_ms > bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def _solver_numbers(rec, card: str) -> dict:
+    """The batched solver at the sweep's pricing: the card's rates against
+    the same ops on the CPU (1e-6 relative), the device loop on resident
+    inputs (CUDA events), the same ops on the CPU (host clock) and the
+    bytes bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import batched_maxmin, maxmin
+    problems, card_rates = rec.pricing[0]
+    cpu_rates = batched_maxmin.maxmin_rates_batch(problems, device="cpu")
+    rel = max(float(np.max(np.abs(c - w) / np.maximum(np.abs(w), 1e-30)))
+              for c, w in zip(card_rates, cpu_rates) if len(w))
+    err = max(float(np.max(np.abs(c - w)))
+              for c, w in zip(card_rates, cpu_rates) if len(w))
+    if rel > MAXMIN_CPU_RTOL:
+        raise AssertionError(f"I solver: card vs CPU ops, max rel {rel}")
+    buckets = {}
+    for p in problems:
+        buckets.setdefault(batched_maxmin._bucket_of(p), []).append(p)
+    (Fp, Lp, width), group = max(buckets.items(),
+                                 key=lambda kv: len(kv[1]) * kv[0][0])
+    B = maxmin._next_pow2(len(group), floor=1)
+    caps = np.full((B, Lp), np.inf, np.float32)
+    ids = np.full((B, Fp, width), Lp - 1, np.int32)
+    fcaps = np.zeros((B, Fp), np.float32)
+    for bi, p in enumerate(group):
+        caps[bi], ids[bi], fcaps[bi] = maxmin.pad_problem(
+            *p, Fp=Fp, Lp=Lp, width=width)
+    args = maxmin.device_problem(caps, ids, fcaps, torch.device("cuda"))
+    ms = time_ms(lambda: maxmin.solve_waterfill(*args), 5)
+    cpu_args = maxmin.device_problem(caps, ids, fcaps, torch.device("cpu"))
+    t0 = time.perf_counter()
+    maxmin.solve_waterfill(*cpu_args)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    nnz = sum(len(r) for p in group for r in p[1])
+    flows = sum(len(p[1]) for p in group)
+    links = sum(len(p[0]) for p in group)
+    nbytes = 4 * nnz + 8 * flows + 4 * links
+    return {"max_abs_err": err, "max_rel_err_cpu": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+            "bucket": [B, Fp, Lp, width], "problems": len(group),
+            "flows": flows}
+
+
+def phase_sweep(card: str) -> dict:
+    """I: an eviction sweep at a day's traffic on the card: 32 cells
+    (capacity × policy × admission × outage) over a 4-pod fleet, every
+    cell batched, hit/miss resolved by the three scan kernels and the
+    storms priced by the batched solver.  Returns the kernels' numbers."""
+    import torch
+
+    import repro_torch.core as core
+    from repro_torch.kernels import maxmin
+    from repro_torch.kernels import stack_distance as sd
+
+    core.run_sweep(_sweep_spec(core, "cuda", n_requests=200))   # warm
+    kernels = {"stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
+               "fifo_replay": sd.FIFO_REPLAY}
+    _reset_counts()
+    maxmin.COUNTS.reset()                 # the sweep's path starts here
+    with _SweepRecorder() as rec:
+        t0 = time.perf_counter()
+        rep = core.run_sweep(_sweep_spec(core, None))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    solver = dataclasses.replace(maxmin.COUNTS)   # ... and ends here
+    n_cells = len(rep.cells)
+    if (rep.batched_cells, rep.serial_cells) != (n_cells, 0) or \
+            n_cells != 32:
+        raise AssertionError(f"I: {rep.batched_cells} batched and "
+                             f"{rep.serial_cells} serial cells of {n_cells}")
+    if min(launches.values()) < 1 or solver.batched_calls < 1:
+        raise AssertionError(f"I: launches {launches}, batched solves "
+                             f"{solver.batched_calls}: every scan and the "
+                             f"solver must run on the sweep's path")
+    small = [c for c in rep.cells
+             if c.params["federation.cache_capacity"] == 2e9]
+    if not all(c.summary["evictions"] > 0 for c in small):
+        raise AssertionError("I: a cell at 2e9 evicted nothing")
+    got = {k: sum(c.summary[k] for c in rep.cells) for k in SWEEP_WANT}
+    if got != SWEEP_WANT:
+        raise AssertionError(f"I: totals {got}, the reference's "
+                             f"{SWEEP_WANT}")
+    finish = sum(c.pricing["storm_finish_seconds"] for c in rep.cells)
+    if abs(finish - SWEEP_WANT_FINISH_S) > SOLVER_RTOL * SWEEP_WANT_FINISH_S:
+        raise AssertionError(f"I: storm finish seconds {finish}, the "
+                             f"reference's {SWEEP_WANT_FINISH_S}")
+    scan_ms = {name: rec.event_ms(name) for name in SCANS}
+    say(f"I (eviction sweep, fleet {SWEEP_PODS} pods x {SWEEP_HOSTS} hosts, "
+        f"zipf {SWEEP_REQUESTS} requests over a day, {n_cells} cells: "
+        f"capacity x policy x admission x outage, device cuda): "
+        f"{wall:.2f} s wall (host clock); {rep.batched_cells} batched, "
+        f"{rep.serial_cells} serial; longest stream "
+        f"{rep.solver.get('max_stream_refs')} references; totals equal the "
+        f"reference's {SWEEP_WANT}; storm finish seconds {finish:.6f} "
+        f"(reference {SWEEP_WANT_FINISH_S:.6f}, within {SOLVER_RTOL})", card)
+    say(f"I kernels' share of the wall time: scans {sum(scan_ms.values()):.1f}"
+        f" ms (CUDA events around each call) = "
+        f"{100 * sum(scan_ms.values()) / 1e3 / wall:.2f}%; batched solver "
+        f"{1e3 * solver.host_seconds:.1f} ms (host clock) = "
+        f"{100 * solver.host_seconds / wall:.2f}%", card)
+    say(f"I solver: {solver.batched_calls} batched solve(s) on cuda over "
+        f"{solver.batched_problems} problems, buckets "
+        f"{rep.solver.get('buckets')}; {solver.rounds} rounds, "
+        f"{solver.syncs} host reads, {solver.h2d} copies host->device, "
+        f"{solver.d2h} device->host", card)
+    # every problem the sweep handed a scan, solved again by its plain
+    # version on the card, where its inputs already lie, exactly equal
+    plain_s = {name: [] for name in SCANS}
+    checked = {}
+    for name in SCANS:
+        worst = 0.0
+        problems = 0
+        for args, out, _, _ in rec.calls[name]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = _scan_plain(name, args)
+            torch.cuda.synchronize()
+            plain_s[name].append(time.perf_counter() - t0)
+            res = _scan_equal(name, out, want, args[-1])
+            if not res["equal"]:
+                raise AssertionError(f"I {name}: the kernel differs from "
+                                     f"its plain version on bucket "
+                                     f"{tuple(args[0].shape)}")
+            worst = max(worst, res["max_abs_err"])
+            problems += int((args[-1] > 0).sum())
+        checked[name] = {"problems": problems, "max_abs_err": worst}
+    controls = _controls(rec, card)
+    clock_hz = _max_sm_clock_hz()
+    out = {}
+    for name in SCANS:
+        nums = _scan_numbers(name, rec, plain_s[name], clock_hz)
+        nums.update(launches=launches[name],
+                    max_abs_err=checked[name]["max_abs_err"],
+                    err_over_tol=0.0, problems_checked=checked[name][
+                        "problems"],
+                    buckets=[list(a[0].shape) + (
+                        [] if name == "stack_distance" else
+                        [a[3 if name == "cache_sim" else 4].shape[1]])
+                        for a, _, _, _ in rec.calls[name]],
+                    event_ms_per_launch=scan_ms[name] / max(launches[name],
+                                                            1),
+                    control=controls.get(name))
+        out[name] = nums
+        say(f"I {name}: {launches[name]} launches on the sweep's path, "
+            f"buckets (B, Np[, Kp]) {nums['buckets']}; "
+            f"{nums['event_ms_per_launch']:.3f} ms per launch in the sweep "
+            f"(CUDA events); at its largest bucket {nums['bucket']} "
+            f"({nums['problems']} problems, {nums['refs']} references) "
+            f"{nums['ms']:.4f} ms alone (CUDA events), plain version on the "
+            f"card {nums['plain_ms']:.1f} ms (host clock); bound "
+            f"{nums['bound_ms']:.6f} ms by {nums['bound_by']} (bytes "
+            f"{nums['bytes_ms']:.6f} ms for {nums['bytes']} B at 3.35 TB/s; "
+            f"chain {nums['chain_ms']:.6f} ms: the longest problem's steps "
+            f"at one clock of {clock_hz / 1e6:.0f} MHz); all "
+            f"{checked[name]['problems']} problems exactly equal to the "
+            f"plain version", card)
+    out["batched_maxmin"] = _solver_numbers(rec, card)
+    out["batched_maxmin"].update(
+        launches=solver.batched_calls, rounds=solver.rounds,
+        syncs=solver.syncs, host_s=solver.host_seconds)
+    sm = out["batched_maxmin"]
+    say(f"I batched_maxmin: the card's rates vs the same ops on the CPU "
+        f"max rel {sm['max_rel_err_cpu']:.2e} (tol {MAXMIN_CPU_RTOL}); "
+        f"bucket {sm['bucket']} ({sm['problems']} problems, {sm['flows']} "
+        f"flows): device loop {sm['ms']:.3f} ms (CUDA events), same ops on "
+        f"the CPU {sm['plain_ms']:.1f} ms; bound {sm['bound_ms']:.6f} ms "
+        f"({sm['bytes']} B once at 3.35 TB/s)", card)
+    # the batched path against the serial one, at 2e9 and admission 0.25
+    serial_axes = {"federation.cache_capacity": [2e9],
+                   "federation.eviction_policy": ["lru", "fifo"],
+                   "federation.admission_max_fraction": [0.25],
+                   "outage_rate": [0.0, 0.5]}
+    t0 = time.perf_counter()
+    serial = core.run_sweep(_sweep_spec(core, None, axes=serial_axes),
+                            batched=False, price_contention=False)
+    serial_wall = time.perf_counter() - t0
+    for cell in serial.cells:
+        batched = rep.cell(**cell.params)
+        for k in EVICTION_PARITY_KEYS:
+            if cell.summary[k] != batched.summary[k]:
+                raise AssertionError(f"I serial vs batched {cell.params} "
+                                     f"{k}: {cell.summary[k]} != "
+                                     f"{batched.summary[k]}")
+    say(f"I serial executor: {len(serial.cells)} cells (lru and fifo, "
+        f"outage 0 and 0.5, 2e9, admission 0.25) in {serial_wall:.2f} s "
+        f"(host clock), {', '.join(EVICTION_PARITY_KEYS)} equal to the "
+        f"batched cells'", card)
+    out["wall_s"] = wall
+    out["serial_wall_s"] = serial_wall
+    out["scan_event_ms"] = scan_ms
+    return out
+
+
+def _scan_entry(name: str, nums: dict, card: str) -> dict:
+    entry = _entry(name, nums["launches"], nums, "exact",
+                   f"sweep I's largest bucket {nums['bucket']} (B, Np"
+                   f"{'' if name == 'stack_distance' else ', Kp'}), "
+                   f"{nums['problems']} problems, {nums['refs']} "
+                   f"references", card)
+    entry.update({k: nums[k] for k in ("buckets", "problems_checked",
+                                       "event_ms_per_launch", "bytes_ms",
+                                       "chain_ms", "control")})
+    return entry
+
+
+def _batched_maxmin_entry(nums: dict, card: str) -> dict:
+    return {"name": "batched_maxmin", "route": "torch",
+            "source": "src/repro_torch/kernels/batched_maxmin.py",
+            "replaces": "src/repro/kernels/batched_maxmin.py:38",
+            **{k: nums[k] for k in ("launches", "max_abs_err", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_rel_err_cpu",
+                                    "rounds", "syncs", "host_s")},
+            "tolerance": f"card vs the same ops on the CPU "
+                         f"{MAXMIN_CPU_RTOL} relative; storm finish "
+                         f"seconds vs the reference's {SOLVER_RTOL}",
+            "shape": f"sweep I's pricing bucket {nums['bucket']} (B, Fp, "
+                     f"Lp, width)", "card": card}
+
+
+# ---------------------------------------------------------------------------
 def _entry(name: str, launches: int, case: dict, tolerance: str,
            shape: str, card: str) -> dict:
     source, replaces = KERNEL_FILES[name]
@@ -1436,6 +1918,7 @@ def main() -> int:
     _free()
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
+    sweep = phase_sweep(card)
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
@@ -1463,6 +1946,8 @@ def main() -> int:
                f"{SSD_MAIN_CASE} float32", card),
         checksum_entry,
         _maxmin_entry(storm, card),
+        *[_scan_entry(name, sweep[name], card) for name in SCANS],
+        _batched_maxmin_entry(sweep["batched_maxmin"], card),
     ]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

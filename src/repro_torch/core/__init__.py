@@ -8,13 +8,16 @@ fluid-flow discrete-event simulator for contended-network evaluation,
 whose vector max-min solver runs as PyTorch tensor ops on the card.
 The federation is accessed through one typed data plane
 (``repro_torch.core.api``): ``DataPlane`` with ``AnalyticPlane`` /
-``SimulatedPlane`` engines and declarative ``ScenarioSpec`` +
-``run_scenario``.  Not ported yet: the batched sweeps (``SweepSpec``,
-``run_sweep``) and the capacity planner.
+``SimulatedPlane`` engines, declarative ``ScenarioSpec`` +
+``run_scenario``, and batched sweeps (``SweepSpec`` + ``run_sweep``),
+whose stack-distance scans are CUDA kernels and whose contention pricing
+is the batched max-min solver.  Not ported yet: the capacity planner
+(and with it ``run_sweep(fit=...)``).
 """
 from .api import (AnalyticPlane, ClientPlane, DataPlane, FetchRequest,
                   FetchResult, ScenarioReport, ScenarioSpec, SimulatedPlane,
-                  StatResult, WorkloadSpec, run_scenario)
+                  StatResult, SweepCell, SweepReport, SweepSpec,
+                  WorkloadSpec, run_scenario, run_sweep)
 from .cache import CacheServer, CacheStats
 from .chunk import (DEFAULT_CHUNK_SIZE, ChunkRef, ObjectMeta, Payload,
                     chunk_object, fnv1a64, synthetic_object)

@@ -35,28 +35,40 @@ objects, executes every request on the chosen engine and aggregates a
 scenario runs on both engines — which is what the engine-parity tests
 and the CI smoke assert.
 
-This is the port of the reference's ``repro.core.api`` up to
-``_report``; the batched sweeps (``SweepSpec``, ``run_sweep``) are not
-ported yet.  The simulated engine's max-min solver runs on a device:
-``ScenarioSpec.device`` and ``SimulatedPlane(device=...)`` name it,
-``None`` means ``cuda`` and raises without a card.  The analytic engine
-has no device work and takes none.
+This is the port of the reference's ``repro.core.api``, the batched
+sweeps (``SweepSpec``, ``run_sweep``) included; ``run_sweep(fit=...)``
+waits on the planner's slice.  Device work runs on a device:
+``ScenarioSpec.device`` and ``SimulatedPlane(device=...)`` name the
+simulated engine's, and a sweep's template ``SweepSpec.base.device``
+names its kernels' (the stack-distance scans and the batched max-min
+solver); ``None`` means ``cuda`` and raises without a card.  The analytic
+engine of ``run_scenario`` has no device work and takes none.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
+import re
+import time
 from typing import (Dict, Generator, List, Optional, Protocol, Sequence,
                     Set, Tuple, Union, runtime_checkable)
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..kernels.batched_maxmin import maxmin_rates_batch
+from ..kernels.stack_distance import (cache_sim_batch, fifo_sim_batch,
+                                      stack_distances_batch)
 from .client import StashClient
 from .controlplane import ControlPlane, ControlPlaneSpec
-from .federation import Federation, FederationSpec
+from .federation import Federation, FederationSpec, SiteSpec
 from .routing import RankingPolicy
 from .simclient import (OutageSchedule, ScenarioEngine, ScenarioReport,
                         apply_outage, tier_tallies)
-from .simulator import direct_download, proxy_download
+from .simulator import direct_download, proxy_download, sparse_flow_problem
+from .topology import Coord
 from .transfer import TransferStats
 from .workload import (AccessRequest, abusive_workload,
                        checkpoint_restart_workload, dataloader_workload,
@@ -1134,3 +1146,1529 @@ def _report(spec: ScenarioSpec, fed: Federation, plane: DataPlane,
         auto_ups=cp.auto_ups if cp else 0,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Batched scenario sweeps
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """A ScenarioSpec template crossed with parameter axes.
+
+    ``axes`` maps an axis name to its values; the sweep is the full
+    cross product in axis order (last axis fastest).  Axis names route
+    to the template:
+
+    * ``"workload.<field>"`` — a :class:`WorkloadSpec` field
+      (``zipf_a``, ``working_set``, ``n_requests``, ``seed``, ...);
+    * ``"federation.<field>"`` — a :class:`~repro_torch.core.federation.
+      FederationSpec` field, or a :class:`~repro_torch.core.federation.
+      SiteSpec` field (``cache_replicas``, ``cache_capacity``,
+      ``eviction_policy``, ``workers``, ...) applied to every matching
+      site;
+    * ``"outage_rate"`` — synthetic axis: that fraction of the
+      federation's caches cold-restarts mid-run (a
+      :meth:`~repro_torch.core.simclient.OutageSchedule.restart_storm` at
+      half the workload horizon, down for a quarter of it);
+    * any other name — a :class:`ScenarioSpec` field (``engine``,
+      ``method``, ``streams``, ``router``, ...).
+
+    The spec is inert data, like :class:`ScenarioSpec`: the same sweep
+    runs batched (:func:`run_sweep`) or serially (one
+    :func:`run_scenario` per cell), which is what the parity tests
+    compare.
+    """
+
+    name: str
+    base: ScenarioSpec
+    axes: Dict[str, Sequence] = dataclasses.field(default_factory=dict)
+
+    def __len__(self) -> int:
+        n = 1
+        for vals in self.axes.values():
+            n *= len(vals)
+        return n
+
+    def cells(self) -> List[Tuple[Dict[str, object], ScenarioSpec]]:
+        """Materialize every cell: ``(params, scenario)`` pairs in
+        cross-product order."""
+        names = list(self.axes)
+        out: List[Tuple[Dict[str, object], ScenarioSpec]] = []
+        for combo in itertools.product(*(self.axes[n] for n in names)):
+            params = dict(zip(names, combo))
+            spec = self.base
+            outage_rate = 0.0
+            for axis, value in params.items():
+                if axis == "outage_rate":
+                    outage_rate = float(value)
+                else:
+                    spec = _apply_axis(spec, axis, value)
+            if outage_rate > 0.0:
+                storm = _outage_storm_for(spec, outage_rate)
+                outages = (spec.outages.merge(storm)
+                           if spec.outages is not None else storm)
+                spec = dataclasses.replace(spec, outages=outages)
+            tag = ",".join(f"{k}={v}" for k, v in params.items())
+            spec = dataclasses.replace(
+                spec, name=f"{self.name}/{tag}" if tag else self.name)
+            out.append((params, spec))
+        return out
+
+
+_SCENARIO_FIELDS = {f.name for f in dataclasses.fields(ScenarioSpec)}
+
+
+def _apply_axis(spec: ScenarioSpec, axis: str, value) -> ScenarioSpec:
+    if axis.startswith("workload."):
+        field = axis[len("workload."):]
+        if not isinstance(spec.workload, WorkloadSpec):
+            raise ValueError(f"axis {axis!r} needs a WorkloadSpec workload")
+        if field not in {f.name for f in dataclasses.fields(WorkloadSpec)}:
+            raise ValueError(f"unknown workload axis {axis!r}")
+        return dataclasses.replace(
+            spec, workload=dataclasses.replace(spec.workload,
+                                               **{field: value}))
+    if axis.startswith("federation."):
+        field = axis[len("federation."):]
+        fed = spec.federation
+        fed_fields = {f.name for f in dataclasses.fields(FederationSpec)}
+        site_fields = {f.name for f in dataclasses.fields(SiteSpec)}
+        if field in fed_fields and field != "sites":
+            return dataclasses.replace(
+                spec, federation=dataclasses.replace(fed, **{field: value}))
+        m = re.fullmatch(r"tier(\d+)\.(\w+)", field)
+        if m:
+            # "federation.tier<k>.<field>" — a site knob applied only to
+            # the cache-bearing sites at hierarchy depth k (1 = edge),
+            # which is what an L1 × L2 split-sizing sweep crosses.
+            depth, sub = int(m.group(1)), m.group(2)
+            if sub not in site_fields or sub in ("name", "parent"):
+                raise ValueError(f"unknown federation axis {axis!r}")
+            tiers = fed.site_tiers()
+            if depth not in set(tiers.values()):
+                raise ValueError(
+                    f"axis {axis!r}: federation has no tier-{depth} sites")
+            sites = [dataclasses.replace(s, **{sub: value})
+                     if tiers.get(s.name) == depth else s
+                     for s in fed.sites]
+            return dataclasses.replace(
+                spec, federation=dataclasses.replace(fed, sites=sites))
+        if field not in site_fields or field == "name":
+            # "name" would rename every site identically — reject it
+            # like any other unsweepable axis rather than no-op.
+            raise ValueError(f"unknown federation axis {axis!r}")
+        # Site-level knob: apply to every site the field is meaningful
+        # for (cache knobs to cache-bearing sites, workers to
+        # worker-bearing ones), leaving pure-storage sites intact.
+        cache_knobs = field not in ("workers", "profile")
+        sites = [dataclasses.replace(s, **{field: value})
+                 if (s.has_cache if cache_knobs else s.workers > 0)
+                 else s
+                 for s in fed.sites]
+        return dataclasses.replace(
+            spec, federation=dataclasses.replace(fed, sites=sites))
+    if axis in _SCENARIO_FIELDS and axis not in ("name", "federation",
+                                                 "workload", "outages"):
+        return dataclasses.replace(spec, **{axis: value})
+    raise ValueError(f"unknown sweep axis {axis!r}")
+
+
+def _workload_horizon(workload) -> float:
+    if isinstance(workload, WorkloadSpec):
+        if workload.kind in ("zipf", "abusive", "flash_crowd", "serve"):
+            return workload.duration
+        if workload.kind == "dataloader":
+            shards_per_worker = -(-max(workload.n_objects, 1)
+                                  // max(workload.workers_per_site, 1))
+            return (workload.at + max(workload.waves, 1)
+                    * shards_per_worker * workload.step_gap + 60.0)
+        return workload.at + workload.jitter + 60.0
+    times = [r.at if isinstance(r, FetchRequest) else r.time
+             for r in workload]
+    return (max(times) if times else 0.0) + 60.0
+
+
+def _outage_storm_for(spec: ScenarioSpec, rate: float) -> OutageSchedule:
+    caches = spec.federation.cache_names()
+    k = min(len(caches), max(1, math.ceil(rate * len(caches))))
+    horizon = _workload_horizon(spec.workload)
+    return OutageSchedule.restart_storm(
+        caches[:k], at=0.5 * horizon, downtime=0.25 * horizon,
+        stagger=0.0, cold=True)
+
+
+@dataclasses.dataclass
+class SweepCell:
+    """One executed sweep cell: its parameter point, how it ran, and the
+    :meth:`~repro_torch.core.simclient.ScenarioReport.summary` gauges (exactly
+    what a serial :func:`run_scenario` of the same cell reports — the
+    parity tests hold the two equal).  ``pricing`` carries the batched
+    max-min gauges for cells priced by the vmapped waterfill."""
+
+    params: Dict[str, object]
+    name: str
+    engine: str
+    executor: str                     # "batched" | "serial"
+    summary: Dict[str, object]
+    pricing: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # ``fit=`` mode products (batched cells only; None otherwise).
+    # These ride on the cell, *not* inside ``summary``, so the
+    # batched-vs-serial parity comparisons stay byte-exact.
+    reuse_histogram: Optional[Dict[str, Dict]] = None   # cache -> buckets
+    models: Optional[Dict[str, object]] = None          # cache -> CacheModel
+
+
+@dataclasses.dataclass
+class SweepReport:
+    """What :func:`run_sweep` produced: every cell plus execution
+    telemetry (how many cells took the vectorized path, how many jitted
+    waterfill calls priced the whole sweep)."""
+
+    name: str
+    axes: Dict[str, List]
+    cells: List[SweepCell]
+    wall_seconds: float = 0.0
+    batched_cells: int = 0
+    serial_cells: int = 0
+    solver: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def cell(self, **params) -> SweepCell:
+        for c in self.cells:
+            if all(c.params.get(k) == v for k, v in params.items()):
+                return c
+        raise KeyError(f"no cell matches {params!r}")
+
+    def marginal(self, axis: str, metric: str) -> List[Tuple[object, float]]:
+        """Mean of ``metric`` per value of ``axis`` (cross-cell
+        aggregate, in axis-value order)."""
+        agg: Dict[object, List[float]] = {}
+        for c in self.cells:
+            agg.setdefault(c.params.get(axis), []).append(
+                float(c.summary.get(metric, 0.0)))
+        return [(v, sum(agg[v]) / len(agg[v]))
+                for v in self.axes.get(axis, sorted(agg))]
+
+    def fitted_models(self, **params) -> Dict[str, object]:
+        """Per-cache fitted cache models from a ``fit=`` sweep (the
+        planner's slice, not ported yet: empty here) — the cell matching
+        ``params``, else the first cell that carries models (cells of
+        one routing column share one model dict)."""
+        if params:
+            return self.cell(**params).models or {}
+        for c in self.cells:
+            if c.models:
+                return c.models
+        return {}
+
+    def reuse_histograms(self, **params) -> Dict[str, Dict]:
+        """Per-cache reuse-distance histograms (JSON-safe bucket dicts)
+        from a ``fit=`` sweep, resolved like :meth:`fitted_models`."""
+        if params:
+            return self.cell(**params).reuse_histogram or {}
+        for c in self.cells:
+            if c.reuse_histogram:
+                return c.reuse_histogram
+        return {}
+
+    def summary(self) -> Dict:
+        return {
+            "name": self.name,
+            "cells": len(self.cells),
+            "axes": {k: list(v) for k, v in self.axes.items()},
+            "wall_seconds": self.wall_seconds,
+            "batched_cells": self.batched_cells,
+            "serial_cells": self.serial_cells,
+            "fitted_cells": sum(1 for c in self.cells if c.models),
+            "solver": dict(self.solver),
+        }
+
+
+def _sweep_batchable(spec: ScenarioSpec) -> bool:
+    """Static eligibility for the vectorized analytic executor.
+
+    Evicting caches are *in* the regime: LRU cells resolve through the
+    stack-distance kernel, FIFO and size-aware-admission cells through
+    the vectorized cache state machine (both in
+    :mod:`repro_torch.kernels.stack_distance`).  Only victim orders the
+    kernels don't model (LFU frequency buckets, TTL expiry against the
+    accounted clock) still fall back to a serial :func:`run_scenario`.
+    """
+    if spec.engine != "analytic":
+        return False
+    if spec.control is not None:
+        # Control-plane cells carry cross-request queue/breaker state the
+        # vectorized kernels don't model; they run serially (and the
+        # sweep counts them in ``serial_cells``).
+        return False
+    if spec.method not in ("stash", "direct"):
+        return False
+    if spec.ranking not in (None, "static"):
+        # probe ranking re-orders chains from observed latency — the
+        # cross-request state the shared routing table can't carry
+        return False
+    if spec.outages is not None and any(
+            getattr(ev, "kind", "cache") != "cache" for ev in spec.outages):
+        # link degradation changes bandwidth mid-run; the batched
+        # executor precomputes its timing constants once per column
+        return False
+    if not isinstance(spec.workload, WorkloadSpec):
+        for r in spec.workload:
+            if isinstance(r, FetchRequest) and (
+                    r.method not in ("stash", "direct")
+                    or r.offset or r.length >= 0 or r.avoid):
+                # ranged / cache-avoiding requests move partial objects
+                # the whole-object kernels don't model
+                return False
+    for s in spec.federation.sites:
+        if s.has_cache and s.eviction_policy not in ("lru", "fifo"):
+            return False
+    if spec.federation.tier_depth() > 2:
+        # the two-round executor derives exactly one parent stream per
+        # fill target; deeper hierarchies replay serially
+        return False
+    return True
+
+
+# The per-site knobs that select cache *policy* rather than routing:
+# ranked chains, GeoIP order and ring ownership never read them, so
+# cells differing only here share one pristine federation, one routing
+# table and one set of per-cache request streams.
+_POLICY_KNOBS = ("cache_capacity", "eviction_policy", "ttl_seconds",
+                 "admission_max_fraction")
+_SITE_KNOB_DEFAULTS = {f.name: f.default
+                       for f in dataclasses.fields(SiteSpec)
+                       if f.name in _POLICY_KNOBS}
+
+
+def _routing_fedspec(fed: FederationSpec) -> FederationSpec:
+    """``fed`` with every cache-bearing site's policy knobs canonicalized
+    — the sharing key for federations, routing tables and streams."""
+    sites = [dataclasses.replace(s, **_SITE_KNOB_DEFAULTS)
+             if s.has_cache else s for s in fed.sites]
+    return dataclasses.replace(fed, sites=sites)
+
+
+def _cache_knobs(fed: FederationSpec) -> Dict[str, Tuple[float, str, float]]:
+    """Per cache-server name: ``(capacity_bytes, policy, admission
+    fraction)`` — the cell-specific half the shared federation lacks."""
+    out: Dict[str, Tuple[float, str, float]] = {}
+    for s in fed.sites:
+        for name in s.cache_names():
+            out[name] = (float(s.cache_capacity), s.eviction_policy,
+                         float(s.admission_max_fraction))
+    return out
+
+
+class _SharedFederations:
+    """Pristine federations shared across same-spec sweep cells.
+
+    The vectorized executor never publishes objects or mutates cache
+    storage, so every cell with an equal *routing-normalized*
+    :class:`FederationSpec` (policy knobs canonicalized — see
+    :func:`_routing_fedspec`) can route against one built federation —
+    and share its liveness-independent ``(site, path) -> ranked cache
+    names`` table, which is the expensive part of analytic routing."""
+
+    def __init__(self) -> None:
+        self._entries: List[Tuple[FederationSpec, Federation, Dict]] = []
+
+    def get(self, spec: FederationSpec) -> Tuple[Federation, Dict]:
+        for known, fed, routes in self._entries:
+            if known == spec:
+                return fed, routes
+        fed = spec.build()
+        state: Dict = {"routes": {}, "clients": {}, "cells": []}
+        self._entries.append((spec, fed, state))
+        return fed, state
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def _ranked_names(fed: Federation, state: Dict, site: str,
+                  path: str) -> List[str]:
+    key = (site, path)
+    chain = state["routes"].get(key)
+    if chain is None:
+        client = state["clients"].get(site)
+        if client is None:
+            client = state["clients"][site] = fed.client(site, 0)
+        chain = [c.name for c in client._ranked_caches(path=path)]
+        state["routes"][key] = chain
+    return chain
+
+
+def _worker_node(fed: Federation, site: str, worker: int) -> str:
+    """Ensure the worker node exists (mirrors ``Federation.client``
+    without paying for a StashClient)."""
+    name = f"{site}/worker{worker}"
+    if name not in fed.topology.nodes:
+        prof = fed.topology.profile(site)
+        fed.topology.add_node(name, Coord(site, rack=0, host=worker),
+                              prof.worker_nic)
+    return name
+
+
+class _CacheStream:
+    """One cache server's chunk reference stream for one routing cell —
+    everything a hit/miss kernel needs, all of it capacity- and
+    policy-independent (eviction never feeds back into routing: a cache
+    with nothing resident still *serves*, it just pulls first)."""
+
+    __slots__ = ("req", "size", "prev", "reset", "seg", "eff_obj",
+                 "miss_sec", "keys", "n_keys", "key_sizes",
+                 "total_key_bytes", "eff_const", "variants",
+                 "parent_ci", "fill_sec", "l2_sec", "l2_eff", "l2_seg",
+                 "gpos", "pj", "is_fill")
+
+    def __init__(self) -> None:
+        self.req: List[int] = []       # request index per reference
+        self.keys: List[int] = []      # stream-local (path, chunk) key id
+        self.size: List[int] = []      # chunk bytes per reference
+        self.prev: List[int] = []      # previous same-key ref (same
+        #                                cold-restart segment), else -1
+        self.reset: List[bool] = []    # cold restart before this ref
+        self.seg: List[int] = []       # cold-restart segment per ref
+        self.eff_obj: List[int] = []   # object size admission sees (the
+        #                                chunk itself until the serving
+        #                                cache has located the meta)
+        self.miss_sec: List[float] = []  # redirector RPC + origin pull
+        self.key_sizes: List[int] = []
+        # tier-fill lane, per reference (all liveness-resolved, so they
+        # are cell-policy-independent like everything else here):
+        self.parent_ci: List[int] = []   # epoch-alive parent cache (-1:
+        #                                  top tier / parent tier dead)
+        self.fill_sec: List[float] = []  # parent -> this cache transfer
+        self.l2_sec: List[float] = []    # parent's own origin-miss cost
+        self.l2_eff: List[int] = []      # admission basis at the parent
+        self.l2_seg: List[int] = []      # parent cold-restart segment
+        self.gpos: List[int] = []        # global arrival position (the
+        #                                  merge order for parent streams)
+        self.pj: List[int] = []          # federation-global chunk id
+        self.is_fill = None              # merged parent streams only
+        # stack-distance variants, keyed by admitted-key signature: the
+        # stream with one admission filter class applied (refused keys
+        # dropped — they never enter the stack), with byte distances
+        # and segment-end residency.  Shared by every cell whose
+        # (fraction × capacity) threshold induces the same filter.
+        self.variants: Dict[bytes, Dict[str, np.ndarray]] = {}
+
+    def arrays(self) -> None:
+        self.req = np.asarray(self.req, np.int64)
+        self.keys = np.asarray(self.keys, np.int32)
+        self.size = np.asarray(self.size, np.int64)
+        self.prev = np.asarray(self.prev, np.int64)
+        self.reset = np.asarray(self.reset, bool)
+        self.seg = np.asarray(self.seg, np.int64)
+        self.eff_obj = np.asarray(self.eff_obj, np.int64)
+        self.miss_sec = np.asarray(self.miss_sec, np.float64)
+        self.key_sizes = np.asarray(self.key_sizes, np.int64)
+        self.parent_ci = np.asarray(self.parent_ci, np.int64)
+        self.fill_sec = np.asarray(self.fill_sec, np.float64)
+        self.l2_sec = np.asarray(self.l2_sec, np.float64)
+        self.l2_eff = np.asarray(self.l2_eff, np.int64)
+        self.l2_seg = np.asarray(self.l2_seg, np.int64)
+        self.gpos = np.asarray(self.gpos, np.int64)
+        self.pj = np.asarray(self.pj, np.int64)
+        self.n_keys = len(self.key_sizes)
+        # conservative residency bound: a capacity at or above the whole
+        # distinct-key working set can never evict — those cells answer
+        # hit/miss by compulsory-miss logic alone, no kernel involved
+        self.total_key_bytes = int(self.key_sizes.sum())
+        # is the admission-relevant object size constant per key?  (It
+        # is, unless an outage made a non-head cache serve before the
+        # meta was located.)  Constant → a size-aware filter refuses a
+        # key always-or-never, which is what the filtered stack model
+        # needs; varying → the slot state machine.
+        if self.n_keys:
+            lo = np.full(self.n_keys, np.iinfo(np.int64).max, np.int64)
+            hi = np.zeros(self.n_keys, np.int64)
+            np.minimum.at(lo, self.keys, self.eff_obj)
+            np.maximum.at(hi, self.keys, self.eff_obj)
+            self.eff_const = bool((lo[self.keys] == hi[self.keys]).all())
+        else:
+            self.eff_const = True
+
+
+class _CellRouting:
+    """The cell-policy-independent product of the vectorized executor:
+    routing, liveness epochs, timing constants and per-cache reference
+    streams (with stack distances precomputed).  Shared by every sweep
+    cell that differs only in cache capacity / eviction policy /
+    admission — the axes the hit/miss kernels resolve per cell."""
+
+
+def _cell_routing(spec: ScenarioSpec, fed: Federation, state: Dict,
+                  telemetry: Dict) -> Optional[_CellRouting]:
+    """Route one analytic cell without touching cache policy: numpy
+    epoch accounting over liveness-independent ranked chains, exactly as
+    a serial :func:`run_scenario` would resolve it.
+
+    Returns ``None`` when the cell leaves the vectorizable regime
+    (unresolvable namespace — the serial path raises ``KeyError``),
+    in which case the caller falls back to the serial executor.
+    """
+    reqs = spec.requests(fed)
+    n = len(reqs)
+    default_site = next((s.name for s in fed.sites if s.workers > 0),
+                        fed.sites[0].name)
+
+    # ---- request arrays (original order) -----------------------------------
+    path_ids: Dict[str, int] = {}
+    sizes: List[int] = []
+    pid = np.empty(n, np.int64)
+    at = np.empty(n, np.float64)
+    sites: List[str] = []
+    workers = np.empty(n, np.int64)
+    methods: List[str] = []
+    streams = np.empty(n, np.int64)
+    for i, r in enumerate(reqs):
+        p = path_ids.setdefault(r.path, len(path_ids))
+        if p == len(sizes):
+            sizes.append(0)
+        sizes[p] = max(sizes[p], r.size)
+        pid[i] = p
+        at[i] = r.at
+        sites.append(r.site or default_site)
+        workers[i] = r.worker
+        methods.append(r.method)
+        streams[i] = r.streams or spec.streams
+    P = len(path_ids)
+    paths = list(path_ids)
+    size = np.asarray(sizes, np.int64)
+    found = size > 0
+
+    owners: List[Optional[object]] = []
+    for p in range(P):
+        owner = fed.resolve_origin(paths[p])
+        if owner is None and found[p]:
+            return None  # serial run_scenario raises KeyError here
+        owners.append(owner)
+    # chunk count per path, from the owning origin's chunking (what a
+    # serial run_scenario's publish would have produced)
+    nchunks = np.asarray(
+        [-(-size[p] // owners[p].chunk_size) if found[p] else 1
+         for p in range(P)], np.int64)
+
+    site_ids: Dict[str, int] = {}
+    sid = np.asarray([site_ids.setdefault(s, len(site_ids)) for s in sites])
+    site_names = list(site_ids)
+    method_is_direct = np.asarray([m == "direct" for m in methods])
+
+    # ---- routing (liveness-independent chains, shared across cells) --------
+    cache_ids = {name: ci for ci, name in enumerate(fed.caches)}
+    chains: Dict[Tuple[int, int], List[int]] = {}
+    for si, pi in {(int(s), int(p))
+                   for s, p, d in zip(sid, pid, method_is_direct) if not d}:
+        names = _ranked_names(fed, state, site_names[si], paths[pi])
+        chains[(si, pi)] = [cache_ids[nm] for nm in names]
+    group_of = {c.name: g for g in fed.groups.values() for c in g.members}
+    # primary cache (nearest group's ring owner) per chain — the one
+    # whose liveness decides a counted group failover.
+    primary: Dict[Tuple[int, int], int] = {}
+    cache_names = list(fed.caches)
+    for key, chain in chains.items():
+        prim = -1
+        for ci in chain:
+            if cache_names[ci] in group_of:
+                prim = ci
+                break
+        primary[key] = prim if prim >= 0 else (chain[0] if chain else -1)
+
+    # ---- network constants (per site / cache / owner) ----------------------
+    net, topo = fed.net, fed.topology
+    wnode: Dict[Tuple[int, int], str] = {}
+    for si, w in {(int(s), int(w)) for s, w in zip(sid, workers)}:
+        wnode[(si, w)] = _worker_node(fed, site_names[si], w)
+
+    # ---- chronological epochs between outage events ------------------------
+    order = np.argsort(at, kind="stable")
+    op = np.empty(n, np.int64)               # arrival rank per request
+    op[order] = np.arange(n)
+    events = list(spec.outages) if spec.outages is not None else []
+    for ev in events:
+        if ev.cache not in group_of and ev.cache not in fed.caches:
+            raise KeyError(ev.cache)  # same failure as the serial plane
+    alive = np.ones(len(cache_ids), bool)
+    was_counted = {"outages": 0, "recoveries": 0}
+    # cold-restart positions per cache, as arrival ranks: requests with
+    # op >= the recorded rank see that cache's disk wiped
+    resets: Dict[int, List[int]] = {}
+    processed = 0
+
+    chosen = np.full(n, -1, np.int64)        # serving cache (-1: none)
+    parent_of = np.full(n, -1, np.int64)     # epoch-alive fill parent
+    dead_before = np.zeros(n, np.int64)
+    primary_dead = np.zeros(n, bool)
+    fallback = np.zeros(n, bool)
+    ok = np.ones(n, bool)
+
+    caches = list(fed.caches.values())
+    pchains: Dict[Tuple[int, int], List[int]] = {}
+
+    def _parent_chain(serve_ci: int, pi: int) -> Sequence[int]:
+        """The serving cache's parent-tier fill chain for one path —
+        consistent-hash order, liveness-independent (aliveness is the
+        per-epoch filter, exactly as ``CacheServer.parent_caches``)."""
+        pg = caches[serve_ci].parent_group
+        if pg is None:
+            return ()
+        key = (id(pg), pi)
+        chain = pchains.get(key)
+        if chain is None:
+            chain = pchains[key] = [cache_ids[c.name]
+                                    for c in pg.fill_chain(paths[pi])]
+        return chain
+
+    def apply_event(ev) -> None:
+        ci = cache_ids[ev.cache]
+        if ev.action == "down":
+            if alive[ci]:
+                alive[ci] = False
+                if ev.cache in group_of:
+                    was_counted["outages"] += 1
+        else:
+            if not alive[ci]:
+                alive[ci] = True
+                if ev.cache in group_of:
+                    was_counted["recoveries"] += 1
+                if ev.cold:
+                    resets.setdefault(ci, []).append(processed)
+
+    def run_epoch(idx: np.ndarray) -> None:
+        """Vectorized routing for one liveness epoch (``idx`` are
+        request indices in arrival order).  Hit/miss is *not* resolved
+        here — that is the kernels' job, per cell — only which cache
+        serves whom."""
+        if idx.size == 0:
+            return
+        allstash = idx[~method_is_direct[idx]]
+        stash = allstash[found[pid[allstash]]]
+        # liveness-resolved serving cache per (site, path) this epoch
+        for key, chain in chains.items():
+            si, pi = key
+            sel = allstash[(sid[allstash] == si) & (pid[allstash] == pi)]
+            if sel.size == 0:
+                continue
+            # every stash request — found or not — walks the ranked
+            # chain, so a dead ring owner counts its group failovers
+            primary_dead[sel] = (primary[key] >= 0
+                                 and not alive[primary[key]])
+            fsel = sel[found[pid[sel]]]
+            if fsel.size == 0:
+                continue
+            serve, dead = -1, 0
+            for ci in chain:
+                if alive[ci]:
+                    serve = ci
+                    break
+                dead += 1
+            chosen[fsel] = serve
+            dead_before[fsel] = dead
+            if serve >= 0:
+                par = -1
+                for qi in _parent_chain(serve, pi):
+                    if alive[qi] and qi != serve:
+                        par = qi
+                        break
+                parent_of[fsel] = par
+        fallback[stash] = chosen[stash] < 0
+        # not-found stash requests fail visibly, as on the serial plane
+        nf = idx[~method_is_direct[idx] & ~found[pid[idx]]]
+        ok[nf] = False
+        direct = idx[method_is_direct[idx]]
+        ok[direct] = found[pid[direct]]
+
+    ei = 0
+    pending: List[int] = []
+    for i in order:
+        while ei < len(events) and events[ei].time <= at[i]:
+            run_epoch(np.asarray(pending, np.int64))
+            processed += len(pending)
+            pending = []
+            apply_event(events[ei])
+            ei += 1
+        pending.append(int(i))
+    run_epoch(np.asarray(pending, np.int64))
+    processed += len(pending)
+    while ei < len(events):
+        apply_event(events[ei])
+        ei += 1
+    served_mask = chosen >= 0
+
+    # ---- when does each cache learn an object's size? ----------------------
+    # Admission sees the whole object only once the serving cache has
+    # the meta cached — and only the liveness-independent chain *head*
+    # is ever asked to locate it (``StashClient._meta`` returns at the
+    # first non-None ``locate_meta``).  So a non-head cache serving
+    # under an outage judges admission by the chunk payload until some
+    # request whose chain it heads has touched the path.
+    meta_rank: Dict[Tuple[int, int], int] = {}
+    for i in range(n):
+        if method_is_direct[i] or not found[pid[i]]:
+            continue
+        chain = chains.get((int(sid[i]), int(pid[i])))
+        if chain:
+            key = (chain[0], int(pid[i]))
+            r = meta_rank.get(key)
+            if r is None or op[i] < r:
+                meta_rank[key] = int(op[i])
+
+    # ---- timing constants + per-cache chunk reference streams --------------
+    lookup = fed.geoip.lookup_latency
+    bw_serve: Dict[Tuple[int, int], float] = {}
+    rtt_serve: Dict[Tuple[int, int], float] = {}
+    rpc_red: Dict[int, float] = {}
+    bw_pull: Dict[Tuple[int, int], float] = {}
+    rtt_pull: Dict[Tuple[int, int], float] = {}
+    bw_fill: Dict[Tuple[int, int], float] = {}
+    rtt_fill: Dict[Tuple[int, int], float] = {}
+    red_node = fed.redirectors.members[0].node.name
+    nreq = nchunks[pid]
+    serve_base = np.zeros(n, np.float64)   # hit-path seconds per request
+    streams_by_cache: Dict[int, _CacheStream] = {}
+    key_ids: Dict[int, Dict[Tuple[int, int], int]] = {}
+    last_ref: Dict[int, Dict[int, Tuple[int, int]]] = {}
+    last_seg: Dict[int, int] = {}
+    Cmax = int(nchunks.max()) if P else 1
+    gpos = 0
+
+    def _chunk_len(p: int, j: int) -> int:
+        cs = owners[p].chunk_size
+        return int(min(cs, size[p] - j * cs)) if size[p] else 0
+
+    for i in order:
+        if chosen[i] < 0:
+            continue
+        i, ci, p = int(i), int(chosen[i]), int(pid[i])
+        si = int(sid[i])
+        wn = wnode[(si, int(workers[i]))]
+        cnode = caches[ci].node.name
+        k = (ci, si)
+        if k not in bw_serve:
+            bw_serve[k] = net.effective_bandwidth(cnode, wn, streams=8)
+            rtt_serve[k] = topo.rtt(cnode, wn)
+        pk = (ci, p)
+        if pk not in bw_pull:
+            onode = owners[p].node.name
+            bw_pull[pk] = net.effective_bandwidth(onode, cnode, streams=8)
+            rtt_pull[pk] = topo.rtt(onode, cnode)
+            if ci not in rpc_red:
+                rpc_red[ci] = net.rpc_time(cnode, red_node)
+        q = int(parent_of[i])
+        if q >= 0:
+            # miss fills cache-to-cache: parent -> this cache transfer,
+            # plus the parent's own redirector RPC + origin pull if the
+            # parent misses too (resolved by the round-2 kernels)
+            pnode = caches[q].node.name
+            fk = (q, ci)
+            if fk not in bw_fill:
+                bw_fill[fk] = net.effective_bandwidth(pnode, cnode,
+                                                      streams=8)
+                rtt_fill[fk] = topo.rtt(pnode, cnode)
+            qk = (q, p)
+            if qk not in bw_pull:
+                onode = owners[p].node.name
+                bw_pull[qk] = net.effective_bandwidth(onode, pnode,
+                                                      streams=8)
+                rtt_pull[qk] = topo.rtt(onode, pnode)
+            if q not in rpc_red:
+                rpc_red[q] = net.rpc_time(pnode, red_node)
+            l2_base = rpc_red[q] + rtt_pull[qk]
+            qcuts = resets.get(q, ())
+            qseg = sum(1 for c in qcuts if c <= op[i])
+        stream = streams_by_cache.get(ci)
+        if stream is None:
+            stream = streams_by_cache[ci] = _CacheStream()
+            key_ids[ci] = {}
+            last_ref[ci] = {}
+            last_seg[ci] = 0
+        cuts = resets.get(ci, ())
+        seg = sum(1 for c in cuts if c <= op[i])
+        fresh_seg = seg != last_seg[ci] and len(stream.req) > 0
+        last_seg[ci] = seg
+        known = meta_rank.get((ci, p), n + 1) <= op[i]
+        # the *parent's* admission basis: the child forwards its located
+        # object size upstream; failing that the parent falls back to
+        # its own meta knowledge, then the chunk payload
+        l2_known = known or (q >= 0
+                             and meta_rank.get((q, p), n + 1) <= op[i])
+        secs = lookup + nreq[i] * rtt_serve[k]
+        miss_base = rpc_red[ci] + rtt_pull[pk]
+        for j in range(int(nchunks[p])):
+            csize = _chunk_len(p, j)
+            kid = key_ids[ci].setdefault((p, j), len(key_ids[ci]))
+            if kid == len(stream.key_sizes):
+                stream.key_sizes.append(csize)
+            prev_entry = last_ref[ci].get(kid)
+            prev = (prev_entry[0] if prev_entry is not None
+                    and prev_entry[1] == seg else -1)
+            last_ref[ci][kid] = (len(stream.req), seg)
+            basis = int(size[p]) if known else csize
+            cap = caches[ci].serve_rate_cap(basis)
+            secs += csize / (min(bw_serve[k], cap) if cap else bw_serve[k])
+            stream.req.append(i)
+            stream.keys.append(kid)
+            stream.size.append(csize)
+            stream.prev.append(prev)
+            stream.reset.append(fresh_seg and j == 0)
+            stream.seg.append(seg)
+            stream.eff_obj.append(int(size[p]) if known else csize)
+            stream.miss_sec.append(miss_base + csize / bw_pull[pk])
+            stream.parent_ci.append(q)
+            stream.gpos.append(gpos)
+            stream.pj.append(p * Cmax + j)
+            if q >= 0:
+                stream.fill_sec.append(rtt_fill[fk] + csize / bw_fill[fk])
+                stream.l2_sec.append(l2_base + csize / bw_pull[qk])
+                stream.l2_eff.append(int(size[p]) if l2_known else csize)
+                stream.l2_seg.append(qseg)
+            else:
+                stream.fill_sec.append(0.0)
+                stream.l2_sec.append(0.0)
+                stream.l2_eff.append(csize)
+                stream.l2_seg.append(0)
+            gpos += 1
+        serve_base[i] = secs
+
+    direct_like = ok & (fallback | method_is_direct)
+    direct_sec = np.zeros(n, np.float64)
+    for i in np.nonzero(direct_like)[0]:
+        onode = owners[pid[i]].node.name
+        wn = wnode[(int(sid[i]), int(workers[i]))]
+        direct_sec[i] = net.transfer_time(onode, wn, int(size[pid[i]]),
+                                          streams=int(streams[i]))
+
+    for stream in streams_by_cache.values():
+        stream.arrays()
+    # The distance/replay scans are O(N) per reference (O(N²) per
+    # stream); surface the longest stream so a sweep that drifts into
+    # that regime is diagnosable from report.solver.
+    if streams_by_cache:
+        telemetry["max_stream_refs"] = max(
+            telemetry.get("max_stream_refs", 0),
+            max(len(s.req) for s in streams_by_cache.values()))
+
+    # ---- cell-independent counters and flow constants ----------------------
+    cache_failovers = int((nreq[served_mask] * dead_before[served_mask])
+                          .sum())
+    ranked_len = np.asarray([len(chains.get((int(s), int(p)), []))
+                             for s, p in zip(sid, pid)])
+    cache_failovers += int(2 * ranked_len[fallback].sum())
+    # ranked-cache calls per request: n+2 (served), 6 (fallback: two
+    # method attempts of meta+monitor+chunk0), 2 (not found: meta per
+    # method) — each counting one group failover iff the nearest ring
+    # owner is dead.
+    stash_mask = ~method_is_direct
+    calls = np.zeros(n, np.int64)
+    calls[served_mask] = nreq[served_mask] + 2
+    calls[fallback] = 6
+    calls[stash_mask & ~ok] = 2
+
+    serve_flow: Dict[int, Tuple[List, float]] = {}
+    pull_flow: Dict[Tuple[int, int], Tuple[List, float]] = {}
+    for i in range(n):
+        if not ok[i]:
+            continue
+        p = int(pid[i])
+        wn = wnode[(int(sid[i]), int(workers[i]))]
+        if method_is_direct[i] or fallback[i]:
+            src = owners[p].node.name
+            links = topo.path(src, wn)
+            cap_f = max(1, int(streams[i])) * net.per_stream_cap(
+                topo.rtt(src, wn))
+        else:
+            ci = int(chosen[i])
+            cnode = caches[ci].node.name
+            q = int(parent_of[i])
+            if q >= 0:
+                # tiered miss path: child pulls from its parent, the
+                # parent (on its own miss) pulls from the origin
+                pnode = caches[q].node.name
+                if (ci, p) not in pull_flow:
+                    pull_flow[(ci, p)] = (
+                        topo.path(pnode, cnode),
+                        4 * net.per_stream_cap(topo.rtt(pnode, cnode)))
+                if (q, p) not in pull_flow:
+                    onode = owners[p].node.name
+                    pull_flow[(q, p)] = (
+                        topo.path(onode, pnode),
+                        4 * net.per_stream_cap(topo.rtt(onode, pnode)))
+            elif (ci, p) not in pull_flow:
+                onode = owners[p].node.name
+                pull_flow[(ci, p)] = (
+                    topo.path(onode, cnode),
+                    4 * net.per_stream_cap(topo.rtt(onode, cnode)))
+            links = topo.path(cnode, wn)
+            cap_f = max(1, spec.streams) * net.per_stream_cap(
+                topo.rtt(cnode, wn))
+            rc = caches[ci].serve_rate_cap(int(size[p]))
+            if rc:
+                cap_f = min(cap_f, rc)
+        serve_flow[i] = (links, cap_f)
+
+    fill_targets: Set[int] = set()
+    for s in streams_by_cache.values():
+        fill_targets.update(int(x) for x in np.unique(s.parent_ci)
+                            if x >= 0)
+    for q in fill_targets:
+        sq = streams_by_cache.get(q)
+        if sq is not None and (sq.parent_ci >= 0).any():
+            # a fill target that itself fills upstream needs a third
+            # kernel round; replay such cells serially
+            return None
+
+    routing = _CellRouting()
+    routing.n = n
+    routing.paths = paths
+    routing.size = size
+    routing.pid = pid
+    routing.at = at
+    routing.nchunks = nchunks
+    routing.nreq = nreq
+    routing.methods = methods
+    routing.method_is_direct = method_is_direct
+    routing.owner_names = [o.name if o is not None else "" for o in owners]
+    routing.cache_names = cache_names
+    routing.chosen = chosen
+    routing.fallback = fallback
+    routing.ok = ok
+    routing.served_mask = served_mask
+    routing.serve_base = serve_base
+    routing.direct_sec = direct_sec
+    routing.streams = streams_by_cache
+    routing.fill_targets = fill_targets
+    routing.cache_tier = [c.tier for c in caches]
+    routing.all_tiers = sorted({c.tier for c in caches})
+    routing.Cmax = Cmax
+    routing.l2_cache = {}
+    routing.counters = {
+        "cache_failovers": cache_failovers,
+        "group_failovers": int(calls[primary_dead].sum()),
+        "origin_fallbacks": int(fallback.sum()),
+        "outages": was_counted["outages"],
+        "recoveries": was_counted["recoveries"],
+    }
+    routing.serve_flow = serve_flow
+    routing.pull_flow = pull_flow
+    # byte counters that never depend on cache policy
+    sz_int = size[pid]
+    moved = ok & (served_mask | fallback | method_is_direct)
+    routing.bytes_moved = int(sz_int[moved].sum())
+    routing.direct_egress = int(
+        sz_int[ok & (fallback | method_is_direct)].sum())
+    return routing
+
+
+def _resolve_distances(wanted: Sequence[Tuple[_CacheStream, bytes,
+                                              np.ndarray]],
+                       telemetry: Dict, device: torch.device) -> None:
+    """Build every stack-distance variant the sweep's cells asked for —
+    one bucketed kernel call for the whole sweep, which is the "one
+    pass prices every capacity in the column" contract.
+
+    A variant is the stream restricted to one admission filter class
+    (``mask`` marks admitted keys; refused keys never perturb the LRU
+    stack, so dropping their references is exact)."""
+    pending: List[Tuple[_CacheStream, bytes, np.ndarray]] = []
+    seen_sigs: Set[Tuple[int, bytes]] = set()
+    for stream, sig, mask in wanted:
+        if sig in stream.variants or (id(stream), sig) in seen_sigs:
+            continue
+        seen_sigs.add((id(stream), sig))
+        pending.append((stream, sig, mask))
+    if not pending:
+        return
+    problems = []
+    selections = []
+    for stream, sig, mask in pending:
+        sel = np.nonzero(mask[stream.keys])[0]
+        fkeys, fseg = stream.keys[sel], stream.seg[sel]
+        prev: List[int] = []
+        last: Dict[int, Tuple[int, int]] = {}
+        for fi, (k, sg) in enumerate(zip(fkeys, fseg)):
+            entry = last.get(int(k))
+            prev.append(entry[0] if entry is not None
+                        and entry[1] == sg else -1)
+            last[int(k)] = (fi, int(sg))
+        selections.append((sel, fkeys, fseg))
+        problems.append((prev, stream.size[sel].astype(np.float64)))
+    kstats: Dict = {}
+    dists = stack_distances_batch(problems, stats=kstats, device=device)
+    telemetry["stack_calls"] = (telemetry.get("stack_calls", 0)
+                                + kstats["solve_calls"])
+    telemetry["stack_variants"] = (telemetry.get("stack_variants", 0)
+                                   + len(pending))
+    for (stream, sig, _), (sel, fkeys, fseg), dist in zip(
+            pending, selections, dists):
+        fsizes = stream.size[sel]
+        # distance from each key's final per-segment reference to its
+        # segment's end: resident at the wipe (or run end) iff
+        # end_dist + size <= capacity, so at capacity C the eviction
+        # count is (admitted misses) − (keys resident at segment ends)
+        end_dist, end_size = [], []
+        tot: Dict[int, int] = {}
+        seen: Set[Tuple[int, int]] = set()
+        for r in range(len(sel) - 1, -1, -1):
+            sk = (int(fseg[r]), int(fkeys[r]))
+            if sk in seen:
+                continue
+            seen.add(sk)
+            end_dist.append(tot.get(sk[0], 0))
+            end_size.append(int(fsizes[r]))
+            tot[sk[0]] = tot.get(sk[0], 0) + int(fsizes[r])
+        stream.variants[sig] = {
+            "sel": sel, "dist": dist, "sizes": fsizes,
+            "end_dist": np.asarray(end_dist, np.float64),
+            "end_size": np.asarray(end_size, np.int64),
+        }
+
+
+def _merged_parent_stream(routing: _CellRouting, q: int,
+                          hits_by_child: Dict[int, np.ndarray]
+                          ) -> Optional[_CacheStream]:
+    """The round-2 reference stream of one fill-target (parent-tier)
+    cache: its directly-routed references merged, in global arrival
+    order, with the cache-to-cache fills induced by every child miss
+    under the cell's L1 policy points.  Shared by every cell whose
+    children resolve identically (the L1 knob signature), so an
+    L1 × L2 split-sizing sweep builds each parent stream once per L1
+    point and answers every L2 capacity from it."""
+    r = routing
+    parts: List[Tuple[np.ndarray, ...]] = []
+    sq = r.streams.get(q)
+    if sq is not None and len(sq.req):
+        m = len(sq.req)
+        parts.append((sq.gpos, sq.req, sq.pj, sq.size, sq.seg,
+                      sq.eff_obj, sq.miss_sec, np.zeros(m, bool)))
+    for ci, s in r.streams.items():
+        if ci == q or not len(s.req):
+            continue
+        mask = s.parent_ci == q
+        if not mask.any():
+            continue
+        sel = mask & ~hits_by_child[ci]
+        if not sel.any():
+            continue
+        parts.append((s.gpos[sel], s.req[sel], s.pj[sel], s.size[sel],
+                      s.l2_seg[sel], s.l2_eff[sel], s.l2_sec[sel],
+                      np.ones(int(sel.sum()), bool)))
+    if not parts:
+        return None
+    gp = np.concatenate([p[0] for p in parts])
+    o = np.argsort(gp, kind="stable")
+    m = _CacheStream()
+    m.gpos = gp[o]
+    m.req = np.concatenate([p[1] for p in parts])[o]
+    m.pj = np.concatenate([p[2] for p in parts])[o]
+    m.size = np.concatenate([p[3] for p in parts])[o]
+    m.seg = np.concatenate([p[4] for p in parts])[o]
+    m.eff_obj = np.concatenate([p[5] for p in parts])[o]
+    m.miss_sec = np.concatenate([p[6] for p in parts])[o]
+    m.is_fill = np.concatenate([p[7] for p in parts])[o]
+    uniq, inv = np.unique(m.pj, return_inverse=True)
+    m.keys = inv.astype(np.int32)
+    key_sizes = np.zeros(len(uniq), np.int64)
+    key_sizes[inv] = m.size
+    m.key_sizes = key_sizes
+    nref = len(m.req)
+    m.reset = np.zeros(nref, bool)
+    if nref > 1:
+        m.reset[1:] = m.seg[1:] != m.seg[:-1]
+    # previous same-key reference within the same cold-restart segment
+    idx = np.arange(nref)
+    by_key = np.lexsort((idx, m.seg, m.keys))
+    sk, ss = m.keys[by_key], m.seg[by_key]
+    m.prev = np.full(nref, -1, np.int64)
+    if nref > 1:
+        same = (sk[1:] == sk[:-1]) & (ss[1:] == ss[:-1])
+        m.prev[by_key[1:]] = np.where(same, by_key[:-1], -1)
+    m.parent_ci = np.full(nref, -1, np.int64)
+    m.fill_sec = np.zeros(nref, np.float64)
+    m.l2_sec = np.zeros(nref, np.float64)
+    m.l2_eff = np.zeros(nref, np.int64)
+    m.l2_seg = np.zeros(nref, np.int64)
+    m.arrays()
+    return m
+
+
+class _CellPlan:
+    """One batched cell, waiting on its hit/miss resolution.
+
+    Construction decides, per cache, how the cell's policy point is
+    evaluated against the shared :class:`_CellRouting` streams:
+
+    * capacity at or above the stream's whole distinct-key working set
+      with nothing refused → nothing can ever evict: hit iff not a
+      compulsory miss, no kernel involved;
+    * ``lru`` whose admission filter is constant per key (always, bar
+      outage meta-location races) → stack distances over the filtered
+      stream (refused keys never enter the stack), computed lazily in
+      one batched kernel call for the whole sweep and shared by every
+      cell with the same filter class: ``hit iff distance + size <=
+      capacity``; evictions = admitted misses − keys resident at each
+      segment end;
+    * ``fifo`` → the O(N log N) byte-frontier replay
+      (:func:`~repro_torch.kernels.stack_distance.fifo_sim_batch`), which
+      takes per-reference admit bits directly;
+    * the residue (LRU whose admission basis flips mid-stream) → the
+      exact slot state machine
+      (:func:`~repro_torch.kernels.stack_distance.cache_sim_batch`).
+
+    ``finalize`` then folds per-reference hits into the cell's
+    :class:`~repro_torch.core.simclient.ScenarioReport` and pricing flow set.
+    """
+
+    def __init__(self, cspec: ScenarioSpec, routing: _CellRouting) -> None:
+        self.spec = cspec
+        self.routing = routing
+        self.offset = 0                  # slot in the global sim problem list
+        self.fifo_offset = 0             # slot in the global fifo list
+        self.problems: List[Tuple] = []      # pending cache_sim problems
+        self.fifo_problems: List[Tuple] = []  # pending fifo_sim problems
+        self.dist_wanted: List[Tuple[_CacheStream, bytes, np.ndarray]] = []
+        self._order: List[Tuple[int, str, object]] = []  # (cache, mode, arg)
+        # round-2 state: parent-tier caches resolve against merged
+        # direct+fill streams that depend on the children's hits, so
+        # their problems are classified in prepare_l2, after round 1
+        self.l2_offset = 0
+        self.l2_fifo_offset = 0
+        self.l2_problems: List[Tuple] = []
+        self.l2_fifo_problems: List[Tuple] = []
+        self.l2_dist_wanted: List[Tuple[_CacheStream, bytes,
+                                        np.ndarray]] = []
+        self._l2_order: List[Tuple[int, _CacheStream, str, object]] = []
+        self._l1_res: Dict[int, Tuple] = {}
+        self.knobs = knobs = _cache_knobs(cspec.federation)
+        for ci in sorted(routing.streams):
+            stream = routing.streams[ci]
+            if not len(stream.req) or ci in routing.fill_targets:
+                continue
+            cap, policy, frac = knobs[routing.cache_names[ci]]
+            mode, arg = self._classify(stream, cap, policy, frac,
+                                       self.problems, self.fifo_problems,
+                                       self.dist_wanted)
+            self._order.append((ci, mode, arg))
+
+    @staticmethod
+    def _classify(stream: _CacheStream, cap: float, policy: str,
+                  frac: float, problems: List, fifo_problems: List,
+                  dist_wanted: List) -> Tuple[str, object]:
+        refused = stream.size > cap
+        if frac < 1.0:
+            refused = refused | (stream.eff_obj > frac * cap)
+        if not refused.any() and cap >= stream.total_key_bytes:
+            return "fits", None
+        if policy == "fifo":
+            fifo_problems.append(
+                (stream.keys, stream.size.astype(np.float64),
+                 ~refused, stream.reset, stream.n_keys, float(cap)))
+            return "fifo", len(fifo_problems) - 1
+        if stream.eff_const:
+            # the filter refuses a key always or never → exact as a
+            # filtered stack; cells sharing the filter class share
+            # the variant
+            admitted = np.ones(stream.n_keys, bool)
+            admitted[stream.keys[refused]] = False
+            sig = admitted.tobytes()
+            dist_wanted.append((stream, sig, admitted))
+            return "dist", sig
+        problems.append(
+            (stream.keys, ~refused, stream.reset,
+             stream.key_sizes.astype(np.float64), float(cap), False))
+        return "sim", len(problems) - 1
+
+    def _resolve(self, stream: _CacheStream, cap: float, frac: float,
+                 mode: str, arg: object, sim_results: Sequence,
+                 fifo_results: Sequence, sim_base: int,
+                 fifo_base: int) -> Tuple:
+        """(hits, evictions, bytes_evicted, admission_rejects) for one
+        stream at one policy point, from the batched kernel answers."""
+        policy_refused = (stream.eff_obj > frac * cap if frac < 1.0
+                          else None)
+        if mode == "fits":
+            hits = stream.prev >= 0
+            ev = evb = rejects = 0
+        elif mode == "dist":
+            v = stream.variants[arg]
+            fhits = v["dist"] + v["sizes"] <= cap
+            hits = np.zeros(len(stream.req), bool)
+            hits[v["sel"][fhits]] = True
+            resident = v["end_dist"] + v["end_size"] <= cap
+            ev = int((~fhits).sum() - resident.sum())
+            evb = int(v["sizes"][~fhits].sum()
+                      - v["end_size"][resident].sum())
+            # a constantly-refused key is never resident: every one of
+            # its references re-asks admission
+            rejects = (int(policy_refused.sum())
+                       if policy_refused is not None else 0)
+        else:
+            results = fifo_results if mode == "fifo" else sim_results
+            base = fifo_base if mode == "fifo" else sim_base
+            hits, ev, evb = results[base + arg]
+            rejects = (int((~hits & policy_refused).sum())
+                       if policy_refused is not None else 0)
+        return hits, ev, evb, rejects
+
+    def _resolve_l1(self, sim_results: Sequence,
+                    fifo_results: Sequence) -> None:
+        if self._l1_res:
+            return
+        r = self.routing
+        for ci, mode, arg in self._order:
+            cap, _policy, frac = self.knobs[r.cache_names[ci]]
+            self._l1_res[ci] = self._resolve(
+                r.streams[ci], cap, frac, mode, arg, sim_results,
+                fifo_results, self.offset, self.fifo_offset)
+
+    def prepare_l2(self, sim_results: Sequence,
+                   fifo_results: Sequence) -> None:
+        """Resolve the children, derive (or reuse) each fill target's
+        merged stream, and classify its round-2 problem."""
+        r = self.routing
+        if not r.fill_targets:
+            return
+        self._resolve_l1(sim_results, fifo_results)
+        hits_by_child = {ci: res[0] for ci, res in self._l1_res.items()}
+        for q in sorted(r.fill_targets):
+            children = tuple(
+                (ci, self.knobs[r.cache_names[ci]])
+                for ci in sorted(r.streams)
+                if ci != q and len(r.streams[ci].req)
+                and (r.streams[ci].parent_ci == q).any())
+            lkey = (q, children)
+            if lkey not in r.l2_cache:
+                r.l2_cache[lkey] = _merged_parent_stream(r, q,
+                                                         hits_by_child)
+            stream = r.l2_cache[lkey]
+            if stream is None:
+                continue
+            capq, policyq, fracq = self.knobs[r.cache_names[q]]
+            mode, arg = self._classify(stream, capq, policyq, fracq,
+                                       self.l2_problems,
+                                       self.l2_fifo_problems,
+                                       self.l2_dist_wanted)
+            self._l2_order.append((q, stream, mode, arg))
+
+    def finalize(self, sim_results: List, fifo_results: List,
+                 l2_sim_results: Sequence = (),
+                 l2_fifo_results: Sequence = ()
+                 ) -> Tuple[ScenarioReport, Tuple]:
+        r = self.routing
+        knobs = self.knobs
+        n = r.n
+        self._resolve_l1(sim_results, fifo_results)
+        hit_chunks = np.zeros(n, np.int64)
+        miss_chunks = np.zeros(n, np.int64)
+        miss_secs = np.zeros(n, np.float64)
+        egress = r.direct_egress
+        evictions = bytes_evicted = admission_rejects = 0
+        total_hits = total_misses = parent_fill = 0
+        tier_hits = {t: 0 for t in r.all_tiers}
+        tier_misses = {t: 0 for t in r.all_tiers}
+        tier_fill = {t: 0 for t in r.all_tiers}
+        req_pulled = np.zeros(n, bool)       # request had >= 1 miss
+        l2_pulled: Set[Tuple[int, int]] = set()
+        for ci, mode, arg in self._order:
+            stream = r.streams[ci]
+            hits, ev, evb, rejects = self._l1_res[ci]
+            evictions += ev
+            bytes_evicted += evb
+            admission_rejects += rejects
+            miss = ~hits
+            np.add.at(hit_chunks, stream.req[hits], 1)
+            np.add.at(miss_chunks, stream.req[miss], 1)
+            # a miss with a live parent fills cache-to-cache (no
+            # redirector RPC at the child); otherwise it pulls straight
+            # from the origin, which is the only path that counts egress
+            tiered = stream.parent_ci >= 0
+            cost = np.where(tiered, stream.fill_sec, stream.miss_sec)
+            np.add.at(miss_secs, stream.req[miss], cost[miss])
+            egress += int(stream.size[miss & ~tiered].sum())
+            parent_fill += int(stream.size[miss & tiered].sum())
+            t = r.cache_tier[ci]
+            nh, nm = int(hits.sum()), int(miss.sum())
+            tier_hits[t] += nh
+            tier_misses[t] += nm
+            tier_fill[t] += int(stream.size[miss].sum())
+            total_hits += nh
+            total_misses += nm
+            req_pulled[stream.req[miss]] = True
+        for q, stream, mode, arg in self._l2_order:
+            capq, _policyq, fracq = knobs[r.cache_names[q]]
+            hits, ev, evb, rejects = self._resolve(
+                stream, capq, fracq, mode, arg, l2_sim_results,
+                l2_fifo_results, self.l2_offset, self.l2_fifo_offset)
+            evictions += ev
+            bytes_evicted += evb
+            admission_rejects += rejects
+            miss = ~hits
+            # only directly-routed references touch request-level
+            # counters; fill references surface as the parent's own
+            # hit/miss tallies plus upstream seconds on the child's
+            # request when the parent misses through to the origin
+            direct = ~stream.is_fill
+            np.add.at(hit_chunks, stream.req[hits & direct], 1)
+            np.add.at(miss_chunks, stream.req[miss & direct], 1)
+            np.add.at(miss_secs, stream.req[miss], stream.miss_sec[miss])
+            egress += int(stream.size[miss].sum())
+            t = r.cache_tier[q]
+            nh, nm = int(hits.sum()), int(miss.sum())
+            tier_hits[t] += nh
+            tier_misses[t] += nm
+            tier_fill[t] += int(stream.size[miss].sum())
+            total_hits += nh
+            total_misses += nm
+            req_pulled[stream.req[miss & direct]] = True
+            for p in np.unique(stream.pj[miss] // r.Cmax):
+                l2_pulled.add((q, int(p)))
+
+        seconds = r.serve_base + miss_secs + r.direct_sec
+
+        results: List[FetchResult] = []
+        flow_specs: List[Tuple[List, float]] = []
+        flow_bytes: List[float] = []
+        pulled: set = set()
+        for i in range(n):
+            p = int(r.pid[i])
+            if not r.ok[i]:
+                results.append(FetchResult(
+                    path=r.paths[p], method=r.methods[i], plane="analytic",
+                    start=r.at[i], ok=False,
+                    error=f"FileNotFoundError: {r.paths[p]}"))
+                continue
+            if r.method_is_direct[i] or r.fallback[i]:
+                results.append(FetchResult(
+                    path=r.paths[p], size=int(r.size[p]),
+                    method=("direct" if r.method_is_direct[i]
+                            else "origin-direct"),
+                    plane="analytic", seconds=seconds[i],
+                    bytes=int(r.size[p]), chunks=int(r.nchunks[p]),
+                    cache_misses=int(r.nchunks[p]),
+                    source=r.owner_names[p], start=r.at[i]))
+            else:
+                ci = int(r.chosen[i])
+                if req_pulled[i] and (ci, p) not in pulled:
+                    pulled.add((ci, p))
+                    links, cap_f = r.pull_flow[(ci, p)]
+                    flow_specs.append((links, cap_f))
+                    flow_bytes.append(float(r.size[p]))
+                hit = miss_chunks[i] == 0
+                results.append(FetchResult(
+                    path=r.paths[p], size=int(r.size[p]), method="stash",
+                    plane="analytic", seconds=seconds[i],
+                    bytes=int(r.size[p]), chunks=int(r.nchunks[p]),
+                    cache_hit=bool(hit), cache_hits=int(hit_chunks[i]),
+                    cache_misses=int(miss_chunks[i]),
+                    source=r.cache_names[ci], start=r.at[i]))
+            links, cap_f = r.serve_flow[i]
+            flow_specs.append((links, cap_f))
+            flow_bytes.append(float(r.size[p]))
+        for q, p in sorted(l2_pulled):
+            # the parent's own origin pulls (fill misses); direct misses
+            # at the parent were already priced through ``pulled``
+            if (q, p) in pulled:
+                continue
+            entry = r.pull_flow.get((q, p))
+            if entry is not None:
+                links, cap_f = entry
+                flow_specs.append((links, cap_f))
+                flow_bytes.append(float(r.size[p]))
+
+        report = ScenarioReport(
+            name=self.spec.name, engine="analytic", results=results,
+            bytes_moved=r.bytes_moved,
+            cache_hits=total_hits,
+            cache_misses=total_misses,
+            origin_egress_bytes=egress,
+            parent_fill_bytes=parent_fill,
+            tier_hits=tier_hits, tier_misses=tier_misses,
+            tier_fill_bytes=tier_fill,
+            evictions=evictions, bytes_evicted=bytes_evicted,
+            admission_rejects=admission_rejects,
+            **r.counters)
+        return report, (flow_specs, flow_bytes)
+
+
+def _plan_cell_vectorized(cspec: ScenarioSpec, routing_fed: FederationSpec,
+                          fed: Federation, state: Dict,
+                          telemetry: Dict) -> Optional[_CellPlan]:
+    """Build (or reuse) the cell's routing product and wrap it in a
+    policy-point plan.  Routing is cached by the cell spec with its
+    *name* cleared and its federation replaced by ``routing_fed`` (the
+    normalized spec the caller already built to pick the shared
+    federation) — the whole cache-policy sweep column shares one
+    entry."""
+    key = dataclasses.replace(cspec, name="", federation=routing_fed)
+    routing = None
+    for known, cached in state["cells"]:
+        if known == key:
+            routing = cached
+            break
+    if routing is None:
+        routing = _cell_routing(key, fed, state, telemetry)
+        if routing is None:
+            return None
+        state["cells"].append((key, routing))
+    return _CellPlan(cspec, routing)
+
+
+def run_sweep(spec: SweepSpec, batched: bool = True,
+              price_contention: bool = True, fit=False) -> SweepReport:
+    """Execute every cell of a sweep.
+
+    ``batched=True`` routes eligible analytic cells through the
+    vectorized executor: pristine federations, routing tables and
+    per-cache request streams shared across each cache-policy sweep
+    column; hit/miss resolved by the stack-distance scan (one pass
+    answers every LRU capacity in the column), the FIFO byte-frontier
+    replay or the LRU/FIFO slot machine (capacity × policy × admission
+    points of one stream share a call); and every cell's contention — the
+    all-at-once storm counterfactual of its workload — priced by the
+    pow2-bucketed batched max-min solver.  A handful of calls covers the
+    whole sweep (``report.solver``).  The scans and the solver run on
+    ``spec.base.device`` (``None`` means ``cuda`` and raises without a
+    card; pass ``"cpu"`` for the plain PyTorch versions).  Ineligible
+    cells (sim engine, proxy/cvmfs methods, LFU/TTL victim orders,
+    control planes) fall back to a serial :func:`run_scenario`, so a
+    mixed sweep still completes with identical semantics.
+    ``batched=False`` is the all-serial baseline the parity tests compare
+    against.
+
+    ``fit`` (the reference's fitted reuse-distance models) needs the
+    planner's cache models, which are not ported yet: a truthy ``fit``
+    raises ``NotImplementedError``.  ``SweepCell.reuse_histogram`` and
+    ``models`` stay ``None``.
+    """
+    if fit:
+        raise NotImplementedError(
+            "run_sweep(fit=...) needs kernels/cache_model.py, the planner's "
+            "slice (ROADMAP queue 1, item 1: the planner), not ported yet")
+    t0 = time.perf_counter()
+    device = resolve_device(spec.base.device) if batched else None
+    shared = _SharedFederations()
+    telemetry: Dict[str, object] = {}
+    entries: List[Tuple[Dict, ScenarioSpec, Optional[_CellPlan],
+                        Optional[ScenarioReport]]] = []
+    sim_problems: List[Tuple] = []
+    fifo_problems: List[Tuple] = []
+    dist_wanted: List[Tuple[_CacheStream, bytes, np.ndarray]] = []
+    batched_cells = serial_cells = 0
+    for params, cspec in spec.cells():
+        plan = None
+        if batched and _sweep_batchable(cspec):
+            routing_fed = _routing_fedspec(cspec.federation)
+            fed, state = shared.get(routing_fed)
+            plan = _plan_cell_vectorized(cspec, routing_fed, fed, state,
+                                         telemetry)
+        if plan is not None:
+            plan.offset = len(sim_problems)
+            plan.fifo_offset = len(fifo_problems)
+            sim_problems.extend(plan.problems)
+            fifo_problems.extend(plan.fifo_problems)
+            dist_wanted.extend(plan.dist_wanted)
+            batched_cells += 1
+            entries.append((dict(params), cspec, plan, None))
+        else:
+            serial_cells += 1
+            entries.append((dict(params), cspec, None, run_scenario(cspec)))
+
+    if dist_wanted:
+        _resolve_distances(dist_wanted, telemetry, device)
+    sim_results: List = []
+    fifo_results: List = []
+    if fifo_problems:
+        fifo_stats: Dict = {}
+        fifo_results = fifo_sim_batch(fifo_problems, stats=fifo_stats,
+                                      device=device)
+        telemetry["fifo_calls"] = fifo_stats["solve_calls"]
+        telemetry["fifo_problems"] = fifo_stats["problems"]
+    if sim_problems:
+        sim_stats: Dict = {}
+        sim_results = cache_sim_batch(sim_problems, stats=sim_stats,
+                                      device=device)
+        telemetry["cache_sim_calls"] = sim_stats["solve_calls"]
+        telemetry["cache_sim_problems"] = sim_stats["problems"]
+
+    # round 2: parent-tier caches see their direct references merged
+    # with the fills the children's misses induced, so their problems
+    # only exist once round 1 is resolved — same batched kernels, one
+    # more pass, still zero serial cells
+    l2_sim_problems: List[Tuple] = []
+    l2_fifo_problems: List[Tuple] = []
+    l2_dist_wanted: List[Tuple[_CacheStream, bytes, np.ndarray]] = []
+    for params, cspec, plan, report in entries:
+        if plan is not None and plan.routing.fill_targets:
+            plan.prepare_l2(sim_results, fifo_results)
+            plan.l2_offset = len(l2_sim_problems)
+            plan.l2_fifo_offset = len(l2_fifo_problems)
+            l2_sim_problems.extend(plan.l2_problems)
+            l2_fifo_problems.extend(plan.l2_fifo_problems)
+            l2_dist_wanted.extend(plan.l2_dist_wanted)
+    if l2_dist_wanted:
+        _resolve_distances(l2_dist_wanted, telemetry, device)
+    l2_sim_results: List = []
+    l2_fifo_results: List = []
+    if l2_fifo_problems:
+        l2_fifo_stats: Dict = {}
+        l2_fifo_results = fifo_sim_batch(l2_fifo_problems,
+                                         stats=l2_fifo_stats, device=device)
+        telemetry["fifo_calls"] = (telemetry.get("fifo_calls", 0)
+                                   + l2_fifo_stats["solve_calls"])
+        telemetry["fifo_problems"] = (telemetry.get("fifo_problems", 0)
+                                      + l2_fifo_stats["problems"])
+    if l2_sim_problems:
+        l2_sim_stats: Dict = {}
+        l2_sim_results = cache_sim_batch(l2_sim_problems,
+                                         stats=l2_sim_stats, device=device)
+        telemetry["cache_sim_calls"] = (
+            telemetry.get("cache_sim_calls", 0)
+            + l2_sim_stats["solve_calls"])
+        telemetry["cache_sim_problems"] = (
+            telemetry.get("cache_sim_problems", 0)
+            + l2_sim_stats["problems"])
+    if l2_sim_problems or l2_fifo_problems or l2_dist_wanted:
+        telemetry["tier_rounds"] = 2
+
+    cells: List[SweepCell] = []
+    problems = []
+    problem_bytes = []
+    problem_cells: List[SweepCell] = []
+    for params, cspec, plan, report in entries:
+        if plan is not None:
+            report, (flow_specs, flow_bytes) = plan.finalize(
+                sim_results, fifo_results, l2_sim_results,
+                l2_fifo_results)
+            executor = "batched"
+        else:
+            flow_specs = flow_bytes = None
+            executor = "serial"
+        cell = SweepCell(params=params, name=cspec.name,
+                         engine=cspec.engine, executor=executor,
+                         summary=report.summary())
+        if executor == "batched" and price_contention and flow_specs:
+            problems.append(sparse_flow_problem(flow_specs))
+            problem_bytes.append(np.asarray(flow_bytes))
+            problem_cells.append(cell)
+        cells.append(cell)
+    solver: Dict[str, object] = {"solve_calls": 0, "priced_cells": 0}
+    solver.update(telemetry)
+    if problems:
+        stats: Dict = {}
+        rates = maxmin_rates_batch(problems, stats=stats, device=device)
+        solver.update(stats)
+        solver["priced_cells"] = len(problems)
+        for cell, nbytes, rr in zip(problem_cells, problem_bytes, rates):
+            rr = np.maximum(rr, 1e-9)
+            cell.pricing = {
+                "peak_flows": int(len(rr)),
+                "min_rate": float(rr.min()) if len(rr) else 0.0,
+                "mean_rate": float(rr.mean()) if len(rr) else 0.0,
+                "storm_finish_seconds": float((nbytes / rr).max())
+                if len(rr) else 0.0,
+            }
+    return SweepReport(
+        name=spec.name, axes={k: list(v) for k, v in spec.axes.items()},
+        cells=cells, wall_seconds=time.perf_counter() - t0,
+        batched_cells=batched_cells, serial_cells=serial_cells,
+        solver=solver)

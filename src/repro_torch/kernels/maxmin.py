@@ -51,7 +51,10 @@ from ..device import resolve_device
 class SolverCounts:
     """What the solver did since the last ``reset``.  ``syncs`` and the
     copies count only solves on the card: on the CPU a read is no
-    device sync and ``torch.from_numpy`` copies nothing."""
+    device sync and ``torch.from_numpy`` copies nothing.  ``solves``
+    counts single problems (the simulator's); the sweeps' batched solver
+    counts its bucket solves and their problems apart, and adds to the
+    rounds, reads, copies and host seconds."""
 
     solves: int = 0
     rounds: int = 0
@@ -59,6 +62,8 @@ class SolverCounts:
     h2d: int = 0              # host → device copies
     d2h: int = 0              # device → host copies
     host_seconds: float = 0.0  # host clock around whole solves
+    batched_calls: int = 0    # maxmin_rates_batch's bucket solves
+    batched_problems: int = 0
     solves_by_device: Dict[str, int] = dataclasses.field(
         default_factory=dict)
 
@@ -94,31 +99,45 @@ def link_table(link_ids: np.ndarray, num_links: int) -> np.ndarray:
 def solve_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
                     flow_caps: torch.Tensor, table: torch.Tensor
                     ) -> torch.Tensor:
-    """The waterfilling core on the device of its inputs.
+    """The waterfilling core on the device of its inputs, for one problem
+    or a batch of independent ones (a leading dimension B on every input).
 
-    link_caps: (L,) float32 with a trailing dummy-inf slot; link_ids:
-    (F + 1, K) int64 rows of link indices, the last row the sentinel
-    (all dummy); flow_caps: (F + 1,) float32, the sentinel's 0;
-    table: ``link_table`` of the rows → per-flow rates (F + 1,)."""
+    link_caps: ([B,] L) float32 with a trailing dummy-inf slot; link_ids:
+    ([B,] F + 1, K) int64 rows of link indices, the last row the sentinel
+    (all dummy); flow_caps: ([B,] F + 1) float32, the sentinel's 0;
+    table: ([B,] L, D) ``link_table`` of each problem's rows, padded with
+    the sentinel to the batch's largest degree → per-flow rates ([B,]
+    F + 1).  Every reduction is per problem (over its own flows or
+    links), so one problem's bottleneck never retires another's flows; a
+    round costs one host read for the whole batch, and a problem that has
+    converged is left as it is while the others finish."""
+    single = link_caps.dim() == 1
+    if single:
+        link_caps, link_ids, flow_caps, table = (
+            t.unsqueeze(0) for t in (link_caps, link_ids, flow_caps, table))
     on_card = link_caps.device.type != "cpu"
-    num_flows, num_links = link_ids.shape[0] - 1, link_caps.shape[0]
+    num_flows, num_links = link_ids.shape[1] - 1, link_caps.shape[1]
+    flat_ids = link_ids.reshape(link_ids.shape[0], -1)
+    flat_table = table.reshape(table.shape[0], -1)
     inf = float("inf")        # a Python scalar: no copy to the device
 
     def seg_sum(per_flow: torch.Tensor) -> torch.Tensor:
         """Each link's sum of a per-flow value, in the table's order."""
-        return per_flow[table].sum(1)
+        return per_flow.gather(1, flat_table).view(table.shape).sum(2)
 
     rates = torch.zeros_like(flow_caps)
-    active = (link_ids < num_links - 1).any(dim=1)  # padded rows retired
+    active = (link_ids < num_links - 1).any(dim=2)  # padded rows retired
     cap_left = link_caps
     for _ in range(num_flows + num_links + 2):
         COUNTS.rounds += 1
         n = seg_sum(active.to(torch.float32))
         share = torch.where(n > 0, cap_left / n.clamp(min=1.0), inf)
-        flow_share = share[link_ids].amin(dim=1)        # tightest link
-        best = torch.where(active, flow_share, inf).amin()
+        flow_share = share.gather(1, flat_ids).view(
+            link_ids.shape).amin(dim=2)                   # tightest link
+        best = torch.where(active, flow_share, inf).amin(dim=1,
+                                                         keepdim=True)
         capped = active & (flow_caps < best)
-        any_capped = capped.any()
+        any_capped = capped.any(dim=1, keepdim=True)
         no_links = torch.isinf(best)
         # lax.cond's arms, selected on the device: capped flows take
         # their own cap; with no capacity-bearing link left, every
@@ -140,7 +159,7 @@ def solve_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
             COUNTS.d2h += 1
         if not bool(active.any()):
             break
-    return rates
+    return rates[0] if single else rates
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -180,23 +199,37 @@ def pad_problem(link_caps: Sequence[float],
 
 def device_problem(caps: np.ndarray, ids: np.ndarray, fcaps: np.ndarray,
                    device: torch.device):
-    """``solve_waterfill``'s inputs on ``device`` from a padded problem:
-    the sentinel row appended and the link table built on the host, then
-    two copies, one of the floats and one of the indices."""
-    Fp, width = ids.shape
-    Lp = caps.shape[0]
+    """``solve_waterfill``'s inputs on ``device`` from a padded problem, or
+    from a batch of them stacked on a leading dimension: the sentinel row
+    appended and each problem's link table built on the host (padded with
+    the sentinel to the batch's largest degree), then two copies, one of
+    the floats and one of the indices."""
+    single = caps.ndim == 1
+    if single:
+        caps, ids, fcaps = caps[None], ids[None], fcaps[None]
+    num, Fp, width = ids.shape
+    Lp = caps.shape[1]
     ids_ext = np.concatenate(
-        [ids.astype(np.int64), np.full((1, width), Lp - 1, np.int64)])
-    table = link_table(ids, Lp)         # its padding: the sentinel, Fp
-    floats = np.concatenate([caps, fcaps, np.zeros(1, np.float32)])
+        [ids.astype(np.int64), np.full((num, 1, width), Lp - 1, np.int64)],
+        axis=1)
+    tables = [link_table(row, Lp) for row in ids]  # padding: the sentinel
+    degree = max(t.shape[1] for t in tables)
+    table = np.full((num, Lp, degree), Fp, np.int64)
+    for b, t in enumerate(tables):
+        table[b, :, :t.shape[1]] = t
+    fcaps_ext = np.concatenate([fcaps, np.zeros((num, 1), np.float32)], 1)
+    floats = np.concatenate([caps.reshape(-1), fcaps_ext.reshape(-1)])
     ints = np.concatenate([ids_ext.reshape(-1), table.reshape(-1)])
     floats_t = torch.from_numpy(floats).to(device)
     ints_t = torch.from_numpy(ints).to(device)
     if device.type != "cpu":
         COUNTS.h2d += 2
-    n_ids = ids_ext.size
-    return (floats_t[:Lp], ints_t[:n_ids].view(Fp + 1, width),
-            floats_t[Lp:], ints_t[n_ids:].view(table.shape))
+    n_caps, n_ids = caps.size, ids_ext.size
+    out = (floats_t[:n_caps].view(num, Lp),
+           ints_t[:n_ids].view(num, Fp + 1, width),
+           floats_t[n_caps:].view(num, Fp + 1),
+           ints_t[n_ids:].view(table.shape))
+    return tuple(t[0] for t in out) if single else out
 
 
 def maxmin_rates_sparse(link_caps: Sequence[float],

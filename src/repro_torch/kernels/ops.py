@@ -12,6 +12,7 @@ import torch
 
 from . import maxmin as _maxmin
 from . import ref
+from . import stack_distance as _sd
 from .chunk_checksum import chunk_checksum as _checksum_kernel
 from .chunk_checksum import chunk_checksums as _checksums_kernel
 from .flash_attention import KERNEL as _flash_kernel
@@ -71,3 +72,37 @@ def maxmin_rates(link_caps: torch.Tensor, membership: torch.Tensor,
                                  flow_caps.cpu().numpy(),
                                  device=link_caps.device)
     return torch.from_numpy(rates).to(link_caps.device)
+
+
+def stack_distances(prev: torch.Tensor, sizes: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """Byte-weighted stack distances (B, Np) float64 of prev (B, Np) int64
+    and sizes (B, Np) float64; ``inf`` on compulsory misses."""
+    if prev.device.type == "cpu":
+        return ref.stack_distances_ref(prev, sizes)
+    return _sd.DISTANCES(prev, sizes, lengths)
+
+
+def cache_sim(keys: torch.Tensor, admit: torch.Tensor, reset: torch.Tensor,
+              key_sizes: torch.Tensor, capacity: torch.Tensor,
+              fifo: torch.Tensor, lengths: torch.Tensor):
+    """The LRU/FIFO slot machine: (hits (B, Np) bool, evictions (B,)
+    int32, bytes evicted (B,) float64)."""
+    if keys.device.type == "cpu":
+        return ref.cache_sim_ref(keys, admit, reset, key_sizes, capacity,
+                                 fifo)
+    return _sd.CACHE_SIM(keys, admit, reset, key_sizes, capacity, fifo,
+                         lengths)
+
+
+def fifo_replay(keys: torch.Tensor, sizes: torch.Tensor, admit: torch.Tensor,
+                reset: torch.Tensor, kcum0: torch.Tensor,
+                capacity: torch.Tensor,
+                lengths: torch.Tensor):
+    """The byte-frontier FIFO replay: (hits (B, Np) bool, evictions (B,)
+    int32, bytes evicted (B,) float64)."""
+    if keys.device.type == "cpu":
+        return ref.fifo_replay_ref(keys, sizes, admit, reset, kcum0,
+                                   capacity)
+    return _sd.FIFO_REPLAY(keys, sizes, admit, reset, kcum0, capacity,
+                           lengths)

@@ -160,3 +160,141 @@ def maxmin_ref(link_caps, membership, flow_caps):
                     cap_left[lid] = max(0.0, cap_left[lid] - best_share)
         cap_left[best_lid] = 0.0
     return rates
+
+
+# ---------------------------------------------------------------------------
+# The sweeps' three scans, batched over a leading problem dimension.  Each
+# is the reference's ``lax.scan`` step written as a Python loop of torch
+# ops over the (B, ...) state, with the same arithmetic: every byte count
+# is an integer below 2**53, so the float64 sums are exact in any order and
+# the results equal the reference's exactly.  Padded references (key 0,
+# admit and reset false, size 0) change no counter.
+# ---------------------------------------------------------------------------
+def stack_distances_ref(prev: torch.Tensor, sizes: torch.Tensor
+                        ) -> torch.Tensor:
+    """Byte-weighted Mattson stack distances: prev (B, N) int64, the index
+    of the previous reference to the same key (-1: none), sizes (B, N)
+    float64 → (B, N) float64, ``inf`` on a compulsory miss.
+
+    Marker j holds sizes[j] while j is the latest reference to its key;
+    reference i's distance is the sum of the markers strictly between its
+    previous reference and i."""
+    num, n = prev.shape
+    idx = torch.arange(n, device=prev.device)
+    rows = torch.arange(num, device=prev.device)
+    markers = torch.zeros_like(sizes)
+    out = torch.empty_like(sizes)
+    for i in range(n):
+        p = prev[:, i]
+        d = torch.where(idx > p[:, None], markers, 0.0).sum(1)
+        markers[rows, torch.where(p >= 0, p, i)] = 0.0
+        markers[:, i] = sizes[:, i]
+        out[:, i] = torch.where(p >= 0, d, float("inf"))
+    return out
+
+
+def cache_sim_ref(keys: torch.Tensor, admit: torch.Tensor,
+                  reset: torch.Tensor, key_sizes: torch.Tensor,
+                  capacity: torch.Tensor, fifo: torch.Tensor):
+    """Exact LRU/FIFO replay at one capacity per problem: keys (B, N) int,
+    admit and reset (B, N) bool, key_sizes (B, K) float64, capacity (B,)
+    float64, fifo (B,) bool → (hits (B, N) bool, evictions (B,) int32,
+    bytes evicted (B,) float64).
+
+    Slot t is written only at step t, so slot order is victim order: an
+    admitted miss evicts the lowest occupied slots while the bytes freed
+    before each are short of ``usage + size - capacity`` (an exclusive
+    cumsum over the slots), then occupies slot t; an LRU hit moves its key
+    to slot t.  A reset empties every slot without counting evictions."""
+    num, n = keys.shape
+    dev = keys.device
+    rows = torch.arange(num, device=dev)
+    slot_bytes = torch.zeros(num, n, dtype=torch.float64, device=dev)
+    slot_key = torch.zeros(num, n, dtype=torch.int64, device=dev)
+    resident = torch.zeros(key_sizes.shape, dtype=torch.bool, device=dev)
+    key_slot = torch.zeros(key_sizes.shape, dtype=torch.int64, device=dev)
+    usage = torch.zeros(num, dtype=torch.float64, device=dev)
+    ev = torch.zeros(num, dtype=torch.int32, device=dev)
+    evb = torch.zeros(num, dtype=torch.float64, device=dev)
+    hits = torch.zeros(num, n, dtype=torch.bool, device=dev)
+    for t in range(n):
+        k, a, r = keys[:, t].long(), admit[:, t], reset[:, t]
+        slot_bytes = torch.where(r[:, None], 0.0, slot_bytes)
+        resident = resident & ~r[:, None]
+        usage = torch.where(r, 0.0, usage)
+        s = key_sizes[rows, k]
+        hit = resident[rows, k]
+        do_insert = ~hit & a
+        need = torch.where(do_insert, usage + s - capacity, 0.0)
+        excl = slot_bytes.cumsum(1) - slot_bytes
+        evict = (slot_bytes > 0) & (excl < need[:, None])
+        freed = torch.where(evict, slot_bytes, 0.0).sum(1)
+        # stale slot_key duplicates carry zero bytes: the max is exact
+        gone = torch.zeros(key_sizes.shape, dtype=torch.int32,
+                           device=dev).scatter_reduce(
+            1, slot_key, evict.to(torch.int32), "amax")
+        resident = resident & (gone == 0)
+        slot_bytes = torch.where(evict, 0.0, slot_bytes)
+        usage = usage - freed
+        touch = do_insert | (hit & ~fifo)
+        old = key_slot[rows, k]
+        slot_bytes[rows, old] = torch.where(hit & touch, 0.0,
+                                            slot_bytes[rows, old])
+        slot_bytes[:, t] = torch.where(touch, s, 0.0)
+        slot_key[:, t] = k
+        key_slot[rows, k] = torch.where(touch, t, old)
+        resident[rows, k] = hit | do_insert
+        usage = usage + torch.where(do_insert, s, 0.0)
+        ev += evict.sum(1, dtype=torch.int32)
+        evb += freed
+        hits[:, t] = hit
+    return hits, ev, evb
+
+
+def fifo_replay_ref(keys: torch.Tensor, sizes: torch.Tensor,
+                    admit: torch.Tensor, reset: torch.Tensor,
+                    kcum0: torch.Tensor, capacity: torch.Tensor):
+    """Exact FIFO replay as a byte frontier: keys (B, N) int, sizes (B, N)
+    float64, admit and reset (B, N) bool, kcum0 (B, K) float64 zeros,
+    capacity (B,) float64 → (hits, evictions int32, bytes evicted float64).
+
+    Eviction only ever consumes a prefix of the admit sequence, so the
+    cache is a frontier E over the cumulative admitted bytes: a key is
+    resident iff its latest admit's cumulative total exceeds E, and an
+    insert moves E to the first cumulative total (``searchsorted``, left)
+    that brings the resident bytes under the capacity."""
+    num, n = keys.shape
+    dev = keys.device
+    rows = torch.arange(num, device=dev)
+    cum_b = torch.full((num, n), float("inf"), dtype=torch.float64,
+                       device=dev)
+    cum_n = torch.zeros(num, n, dtype=torch.int32, device=dev)
+    kcum = kcum0.clone()
+    zero_f = torch.zeros(num, dtype=torch.float64, device=dev)
+    zero_i = torch.zeros(num, dtype=torch.int32, device=dev)
+    total, e, evb = zero_f, zero_f, zero_f
+    tot_n, e_n, ev = zero_i, zero_i, zero_i
+    hits = torch.zeros(num, n, dtype=torch.bool, device=dev)
+    for t in range(n):
+        k, s = keys[:, t].long(), sizes[:, t]
+        a, r = admit[:, t], reset[:, t]
+        e = torch.where(r, total, e)
+        e_n = torch.where(r, tot_n, e_n)
+        hit = kcum[rows, k] > e
+        ins = ~hit & a
+        target = total + s - capacity
+        do_evict = ins & (target > e)
+        j = torch.searchsorted(cum_b, target[:, None]).squeeze(1)
+        j = j.clamp(max=n - 1)          # the reference's gather clamps
+        new_e = torch.where(do_evict, cum_b[rows, j], e)
+        new_n = torch.where(do_evict, cum_n[rows, j], e_n)
+        ev = ev + (new_n - e_n)
+        evb = evb + (new_e - e)
+        e, e_n = new_e, new_n
+        total = total + torch.where(ins, s, 0.0)
+        tot_n = tot_n + ins.to(torch.int32)
+        cum_b[:, t] = total
+        cum_n[:, t] = tot_n
+        kcum[rows, k] = torch.where(ins, total, kcum[rows, k])
+        hits[:, t] = hit
+    return hits, ev, evb
