@@ -8,12 +8,14 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 JAX.  Every phase raises on a mismatch, so the exit code is non-zero if
 any phase fails:
 
-1. build   — compile the four kernel libraries from ``src/repro_torch``
+1. build   — compile the five kernel libraries from ``src/repro_torch``
              (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
              warnings of both flash designs at every head_dim and both
              ssd_intra designs, ``wgmma`` and ``simt``), each design's
-             shared memory, and the count of HGMMA instructions in the
+             shared memory (the waterfill's at H's and I's buckets, the
+             FIFO replay's two designs), and the count of HGMMA
+             instructions in the
              flash and ssd_scan libraries' SASS, neither of which may be 0;
 2. kernel  — each kernel against its plain PyTorch version:
              flash attention at gemma2-2b's widths (hd 256, softcap 50) and
@@ -54,7 +56,8 @@ any phase fails:
              step that the MoE layers, their routing and their expert
              products take;
 4. federation — the port's data plane on the simulated engine, its
-             max-min solver on the card (torch ops):
+             max-min solver on the card (the ``maxmin_waterfill`` kernel,
+             one launch a solve):
              G: the paper's §4.1 protocol at the five OSG sites (four
              sequential fetches of each evaluation file: proxy cold and
              warm, stash cold and warm) on solver "auto" and, with every
@@ -62,28 +65,34 @@ any phase fails:
              equal byte for byte to its CPU run; download speeds and
              Table 3 beside the paper's;
              H: a restart storm over a 250-pod fleet (1,000 workers pull
-             a 2 GB checkpoint within 2 s), every solve on the card: its
-             counters against the reference's, a second run equal byte
-             for byte, the scalar solver's run with equal counters and
-             seconds within 1e-4, and at three recorded solves (the peak
-             among them) the card's rates against the float64 oracle and
-             the same ops on the CPU, each with a control that must fail;
-             solves, flows, rounds, host syncs and copies per solve, ms
-             per solve against the scalar solver's, the share of the wall
-             time spent solving;
+             a 2 GB checkpoint within 2 s), every solve on the card, one
+             kernel launch each (counted): its counters against the
+             reference's, a second run equal byte for byte, the scalar
+             solver's run with equal counters and seconds within 1e-4,
+             and at three recorded solves (the peak among them) the
+             card's rates against the float64 oracle and the plain
+             version on the CPU and on the card, each with a control that
+             must fail; solves, launches, flows, rounds, host syncs and
+             copies per solve, ms per solve against the scalar solver's,
+             the share of the wall time spent solving; the kernel alone
+             (a CUDA graph of launches), the plain version, and the whole
+             call split into host packing, copy, launch and read;
 5. sweep   — I: an eviction sweep at a day's traffic (``run_sweep`` over
              a 4-pod fleet, 4,000 zipf requests, capacity x policy x
              admission x outage: 32 cells, all batched), its three scan
              kernels (stack distances, the LRU/FIFO slot machine, the
-             FIFO frontier) and the batched max-min solver on the card:
+             FIFO frontier, every launch of it on the ``smem`` design)
+             and the batched max-min solver (one waterfill launch a
+             bucket) on the card:
              totals equal to the reference's; every problem the sweep
              handed a scan solved again by its plain version on the card,
              exactly equal, with a control one byte below a deciding
-             capacity that must fail; the solver's rates against the same
-             ops on the CPU; four cells on the serial executor with the
-             eviction counters equal; each kernel's buckets, launches, ms
-             per launch, plain time and bound, the solver's rounds and
-             host reads, and the kernels' share of the wall time;
+             capacity that must fail; the solver's rates against the
+             plain version on the CPU; four cells on the serial executor
+             with the eviction counters equal; each kernel's buckets,
+             launches, ms per launch, µs per dependent step of the
+             replays, plain time and bound, the solver's rounds and host
+             reads, and the kernels' share of the wall time;
 6. report  — one JSON line of kernel numbers, then the device line.
 
 Each serving path, storm H and sweep I runs with every launch count set
@@ -143,7 +152,11 @@ KERNEL_FILES = {
     "cache_sim": ("src/repro_torch/kernels/csrc/stack_distance.cu",
                   "src/repro/kernels/stack_distance.py:101"),
     "fifo_replay": ("src/repro_torch/kernels/csrc/stack_distance.cu",
-                    "src/repro/kernels/stack_distance.py:165")}
+                    "src/repro/kernels/stack_distance.py:165"),
+    "maxmin": ("src/repro_torch/kernels/csrc/maxmin.cu",
+               "src/repro/kernels/maxmin.py:36"),
+    "batched_maxmin": ("src/repro_torch/kernels/csrc/maxmin.cu",
+                       "src/repro/kernels/batched_maxmin.py:38")}
 
 
 def engine_a_lengths(rng):
@@ -245,14 +258,42 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """The device time of one call of ``fn`` (a kernel's launch alone):
+    ``launches`` calls captured in a CUDA graph, replayed ``replays``
+    times between CUDA events, so the host's work around each launch
+    (the wrapper's checks and allocation) stays out of the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def _kernels():
-    from repro_torch.kernels import chunk_checksum, flash_attention, ssd_scan
+    from repro_torch.kernels import chunk_checksum, flash_attention, maxmin
+    from repro_torch.kernels import ssd_scan
     from repro_torch.kernels import stack_distance as sd
     return {"flash_attention": flash_attention.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
             "chunk_checksum": chunk_checksum.KERNEL,
             "stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
-            "fifo_replay": sd.FIFO_REPLAY}
+            "fifo_replay": sd.FIFO_REPLAY, "maxmin": maxmin.WATERFILL}
 
 
 def _reset_counts() -> None:
@@ -268,9 +309,9 @@ def phase_build(card: str) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import chunk_checksum as cc
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
-    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB)
+    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB, maxmin.LIB)
     t0 = time.perf_counter()
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
@@ -296,7 +337,16 @@ def phase_build(card: str) -> None:
         + ", " + ", ".join(f"ssd_intra {ssd_scan.KERNEL.design(p, n)} "
                            f"(P {p}, N {n}, Q 256): "
                            f"{ssd_scan.KERNEL.smem_bytes(p, n, 256)} B"
-                           for p, n in ssd_scan.DESIGNS), card)
+                           for p, n in ssd_scan.DESIGNS)
+        + ", " + ", ".join(
+            f"maxmin_waterfill (Fp {f}, Lp {lp}, width {w}): "
+            f"{maxmin.WATERFILL.smem_bytes(f, lp, w)} B, "
+            f"{maxmin.WATERFILL.threads(f)} threads"
+            for f, lp, w in ((512, 512, 8), (8192, 32, 8)))
+        + ", " + ", ".join(
+            f"fifo_replay {sd.FIFO_REPLAY.design(kp)} (Kp {kp}): "
+            f"{sd.FIFO_REPLAY.smem_bytes(kp)} B" for kp in (16384, 32768)),
+        card)
     for lib in (fa.LIB, ssd_scan.LIB):
         sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                                str(lib.path)], capture_output=True,
@@ -1234,56 +1284,120 @@ def _snapshot(problem, card: str, label: str) -> dict:
                        atol=MAXMIN_REF_ATOL):
         raise AssertionError(f"H snapshot {label}: card vs scalar solver")
 
-    # times: the device loop alone (inputs resident; CUDA events), the
-    # whole call as the simulator pays it (host clock), the same ops on
-    # the CPU, and the scalar solver
+    # times: the kernel alone (inputs resident; CUDA events), the plain
+    # version on the card (the torch-ops loop, host clock around
+    # synchronised calls), the whole call as the simulator pays it and its
+    # four parts, the plain version on the CPU, and the scalar solver
+    F_p = maxmin._next_pow2(F)
+    L_p = maxmin._next_pow2(L + 1)
     width = maxmin._next_pow2(max(len(r) for r in flow_links), floor=4)
-    padded = maxmin.pad_problem(link_caps, flow_links, flow_caps,
-                                maxmin._next_pow2(F),
-                                maxmin._next_pow2(L + 1), width)
-    args = maxmin.device_problem(*padded, torch.device("cuda"))
-    loop_ms = time_ms(lambda: maxmin.solve_waterfill(*args), 50)
+    staging = maxmin.Staging(1, F_p, L_p, width, torch.device("cuda"))
+    maxmin.pad_problem(link_caps, flow_links, flow_caps, F_p, L_p, width,
+                       out=staging.problem(0))
+    args = staging.views(staging.upload())
+    kernel_ms = graph_ms(lambda: maxmin.WATERFILL(*args))
+    card_plain = maxmin.plain_waterfill(*args)[0, :F].cpu().numpy()
+    for f, row in enumerate(flow_links):
+        if not row:                      # the host's loopback fix-up
+            card_plain[f] = flow_caps[f]
+    rel_plain = float(np.max(np.abs(card_rates - card_plain)
+                             / np.maximum(np.abs(card_plain), 1e-30)))
+    if rel_plain > MAXMIN_CPU_RTOL:
+        raise AssertionError(f"H snapshot {label}: kernel vs the plain "
+                             f"version on the card, max rel {rel_plain}")
 
     def host_ms(fn, iters):
         fn()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / iters
+    plain_ms = host_ms(lambda: maxmin.plain_waterfill(*args), 20)
     call_ms = host_ms(lambda: maxmin.maxmin_rates_sparse(
-        link_caps, flow_links, flow_caps, device="cuda"), 50)
+        link_caps, flow_links, flow_caps, device="cuda"), 200)
+    split = _call_split(problem, 200)
     cpu_ms = host_ms(lambda: maxmin.maxmin_rates_sparse(
         link_caps, flow_links, flow_caps, device="cpu"), 20)
     scalar_ms = min(1e3 * _scalar_rates(link_caps, flow_links, flow_caps)[1]
                     for _ in range(5))
-    # the least the solve must move: the whole problem fits in one SM's
-    # shared memory, so each input is read once and the rates written
-    # once: the flows' link indices (int32), the flow caps, the link
-    # caps and the rates (float32).  The floor that binds is the
-    # launches and host reads of ``rounds`` rounds, not these bytes.
-    table = args[3]
+    # the bound: the problem's bytes (the flows' link indices as int32,
+    # the flow caps and the link caps read once, the rates written once)
+    # at 3.35 TB/s, or the rounds' chain: per round four barriers and the
+    # block's min (log2 of its threads shuffle steps), one clock each at
+    # the maximum SM clock; the larger binds
     nnz = sum(len(r) for r in flow_links)
     solve_bytes = 4 * nnz + 4 * F + 4 * L + 4 * F
-    bound_ms = 1e3 * solve_bytes / HBM_BYTES_PER_S
+    bytes_ms = 1e3 * solve_bytes / HBM_BYTES_PER_S
+    chain_steps = rounds * (3 + maxmin.WATERFILL.threads(F_p).bit_length())
+    chain_ms = 1e3 * chain_steps / _max_sm_clock_hz()
     out = {"flows": F, "links": L, "memberships": nnz,
-           "padded": [len(padded[2]), len(padded[0]), width],
-           "table_degree": int(table.shape[1]), "rounds": rounds,
+           "padded": [F_p, L_p, width], "rounds": rounds,
            "max_abs_err": float(np.max(np.abs(card_rates - cpu_rates))),
            "max_rel_err_cpu": rel_cpu, "max_rel_err_oracle": rel_ref,
-           "ms": loop_ms, "host_ms": call_ms, "plain_ms": cpu_ms,
+           "max_rel_err_card_plain": rel_plain,
+           "ms": kernel_ms, "host_ms": call_ms, "split_ms": split,
+           "plain_ms": plain_ms, "cpu_plain_ms": cpu_ms,
            "scalar_ms": scalar_ms, "bytes": solve_bytes,
-           "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-           "control_link": int(halve)}
+           "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+           "bound_ms": max(bytes_ms, chain_ms),
+           "bound_by": "operations" if chain_ms > bytes_ms else "bytes",
+           "library_ms": None, "control_link": int(halve)}
     say(f"H snapshot {label}: {F} flows over {L} links (padded "
         f"{out['padded']}), {rounds} rounds; card vs oracle max rel "
         f"{rel_ref:.2e} (tol {MAXMIN_REF_RTOL} + {MAXMIN_REF_ATOL:g}), vs "
-        f"CPU ops {rel_cpu:.2e} (tol {MAXMIN_CPU_RTOL}); controls (link "
-        f"{halve}, {int(mem[:, halve].sum())} flows, halved) fail both; "
-        f"device loop {loop_ms:.4f} ms (CUDA events), whole call "
-        f"{call_ms:.4f} ms (host clock), same ops on the CPU "
-        f"{cpu_ms:.4f} ms, scalar solver {scalar_ms:.4f} ms; bound "
-        f"{bound_ms:.6f} ms ({solve_bytes} B once at 3.35 TB/s)", card)
+        f"the plain version on the CPU {rel_cpu:.2e} and on the card "
+        f"{rel_plain:.2e} (tol {MAXMIN_CPU_RTOL}); controls (link {halve}, "
+        f"{int(mem[:, halve].sum())} flows, halved) fail both; kernel "
+        f"{kernel_ms:.4f} ms (a CUDA graph of launches, CUDA events), "
+        f"plain version on the card {plain_ms:.4f} ms, whole call "
+        f"{call_ms:.4f} ms (host clock; packing {split['pack']:.4f}, copy "
+        f"{split['copy']:.4f} and launch {split['launch']:.4f} by CUDA "
+        f"events, read {split['read']:.4f}), "
+        f"plain version on the CPU {cpu_ms:.4f} ms, scalar solver "
+        f"{scalar_ms:.4f} ms; bound {out['bound_ms']:.6f} ms by "
+        f"{out['bound_by']} (bytes {bytes_ms:.6f} ms for {solve_bytes} B; "
+        f"chain {chain_ms:.6f} ms: {chain_steps} steps)", card)
     return out
+
+
+def _call_split(problem, iters: int) -> dict:
+    """``maxmin_rates_sparse``'s call on the card in four parts, ms each:
+    host packing (``Staging`` and ``pad_problem``, host clock), the copy
+    to the card and the launch (CUDA events: the launch's includes the
+    wrapper's host work, while the card waits), and the read of the
+    result (host clock around the copy back, after the launch ended)."""
+    import torch
+
+    from repro_torch.kernels import maxmin
+    link_caps, flow_links, flow_caps = problem
+    F_p = maxmin._next_pow2(len(flow_links))
+    L_p = maxmin._next_pow2(len(link_caps) + 1)
+    width = maxmin._next_pow2(max(len(r) for r in flow_links), floor=4)
+    dev = torch.device("cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    parts = dict.fromkeys(("pack", "copy", "launch", "read"), 0.0)
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        staging = maxmin.Staging(1, F_p, L_p, width, dev)
+        maxmin.pad_problem(link_caps, flow_links, flow_caps, F_p, L_p,
+                           width, out=staging.problem(0))
+        t1 = time.perf_counter()
+        ev[0].record()
+        buf = staging.upload()
+        ev[1].record()
+        out = maxmin.WATERFILL(*staging.views(buf))
+        ev[2].record()
+        ev[2].synchronize()
+        t2 = time.perf_counter()
+        out.cpu()
+        t3 = time.perf_counter()
+        parts["pack"] += 1e3 * (t1 - t0)
+        parts["copy"] += ev[0].elapsed_time(ev[1])
+        parts["launch"] += ev[1].elapsed_time(ev[2])
+        parts["read"] += 1e3 * (t3 - t2)
+    return {k: v / iters for k, v in parts.items()}
 
 
 def phase_federation_storm(card: str) -> dict:
@@ -1300,10 +1414,12 @@ def phase_federation_storm(card: str) -> dict:
 
     core.run_scenario(_storm_spec(core, "vector", "cuda", pods=4))  # warm
     counts = maxmin.COUNTS
+    _reset_counts()
     counts.reset()                           # the storm's path starts here
     t0 = time.perf_counter()
     rep = core.run_scenario(_storm_spec(core, "vector", "cuda"))
     wall = time.perf_counter() - t0
+    launches = maxmin.WATERFILL.launches
     run = dc.replace(counts, solves_by_device=dict(
         counts.solves_by_device))           # ... and ends here
     solves = run.solves_by_device.get("cuda", 0)
@@ -1319,6 +1435,9 @@ def phase_federation_storm(card: str) -> dict:
                              f"{run.solves} ({rep.reallocations} "
                              f"reallocations); at least "
                              f"{STORM_MIN_SOLVES} must run on the card")
+    if launches != solves:
+        raise AssertionError(f"H: {launches} maxmin_waterfill launches for "
+                             f"{solves} solves on the card")
     say(f"H (fleet {STORM_PODS} pods x {STORM_HOSTS} hosts, storm of "
         f"{len(rep.results)} requests for 2 GB, jitter 2 s, solver vector "
         f"on cuda): {wall:.2f} s wall, sim {rep.sim_seconds:.3f} s; hits "
@@ -1341,7 +1460,8 @@ def phase_federation_storm(card: str) -> dict:
     if canonical_report_bytes(again) != canonical_report_bytes(rep):
         raise AssertionError("H: two vector runs on cuda differ")
     sizes = [len(p[1]) for p in recorded]
-    say(f"H solver: {solves} solves on cuda; flows per solve median "
+    say(f"H solver: {solves} solves on cuda, {launches} launches of "
+        f"maxmin_waterfill; flows per solve median "
         f"{statistics.median(sizes):.0f}, largest {max(sizes)} (the "
         f"replay's); rounds per solve {run.rounds / solves:.3f}; host "
         f"syncs {run.syncs / solves:.3f} and copies {run.h2d / solves:.3f}"
@@ -1364,7 +1484,7 @@ def phase_federation_storm(card: str) -> dict:
              for label, i in picks.items()}
     for label in snaps:
         snaps[label]["solve_index"] = picks[label]
-    return {"launches": solves, "solves": solves, "wall_s": wall,
+    return {"launches": launches, "solves": solves, "wall_s": wall,
             "solve_host_s": run.host_seconds,
             "flows_median": statistics.median(sizes),
             "flows_max": max(sizes), "rounds": run.rounds,
@@ -1604,14 +1724,19 @@ def _scan_numbers(name: str, rec, plain_s: list, clock_hz: float) -> dict:
             "bytes_ms": bytes_ms, "chain_ms": chain_ms,
             "bound_ms": max(bytes_ms, chain_ms),
             "bound_by": "operations" if chain_ms > bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": None,
+            "us_per_step": None if name == "stack_distance" else
+            1e3 * ms / max(lengths)}
 
 
-def _solver_numbers(rec, card: str) -> dict:
+def _solver_numbers(rec, card: str, clock_hz: float) -> dict:
     """The batched solver at the sweep's pricing: the card's rates against
-    the same ops on the CPU (1e-6 relative), the device loop on resident
-    inputs (CUDA events), the same ops on the CPU (host clock) and the
-    bytes bound."""
+    the plain version on the CPU (1e-6 relative); at the largest bucket
+    the kernel alone on resident inputs (CUDA events), the plain version
+    (the torch-ops loop) on the card and on the CPU (host clock), and the
+    bound: the bucket's bytes, or the rounds' chain of its slowest
+    problem (four barriers and log2(threads) shuffle steps a round, one
+    clock each), whichever is larger."""
     import numpy as np
     import torch
 
@@ -1630,27 +1755,41 @@ def _solver_numbers(rec, card: str) -> dict:
     (Fp, Lp, width), group = max(buckets.items(),
                                  key=lambda kv: len(kv[1]) * kv[0][0])
     B = maxmin._next_pow2(len(group), floor=1)
-    caps = np.full((B, Lp), np.inf, np.float32)
-    ids = np.full((B, Fp, width), Lp - 1, np.int32)
-    fcaps = np.zeros((B, Fp), np.float32)
+    staging = maxmin.Staging(B, Fp, Lp, width, torch.device("cuda"))
+    staging.caps.fill(np.inf)
+    staging.ids.fill(Lp - 1)
+    staging.fcaps.fill(0.0)
     for bi, p in enumerate(group):
-        caps[bi], ids[bi], fcaps[bi] = maxmin.pad_problem(
-            *p, Fp=Fp, Lp=Lp, width=width)
-    args = maxmin.device_problem(caps, ids, fcaps, torch.device("cuda"))
-    ms = time_ms(lambda: maxmin.solve_waterfill(*args), 5)
-    cpu_args = maxmin.device_problem(caps, ids, fcaps, torch.device("cpu"))
+        maxmin.pad_problem(*p, Fp=Fp, Lp=Lp, width=width,
+                           out=staging.problem(bi))
+    args = staging.views(staging.upload())
+    ms = graph_ms(lambda: maxmin.WATERFILL(*args))
+    rounds = maxmin.WATERFILL(*args)[:, Fp].cpu()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    maxmin.solve_waterfill(*cpu_args)
+    maxmin.plain_waterfill(*args)
+    torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_args = [a.cpu() for a in args]
+    t0 = time.perf_counter()
+    maxmin.plain_waterfill(*cpu_args)
+    cpu_plain_ms = 1e3 * (time.perf_counter() - t0)
     nnz = sum(len(r) for p in group for r in p[1])
     flows = sum(len(p[1]) for p in group)
     links = sum(len(p[0]) for p in group)
     nbytes = 4 * nnz + 8 * flows + 4 * links
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    chain_steps = int(rounds.max()) * (
+        3 + maxmin.WATERFILL.threads(Fp).bit_length())
+    chain_ms = 1e3 * chain_steps / clock_hz
     return {"max_abs_err": err, "max_rel_err_cpu": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-            "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+            "plain_ms": plain_ms, "cpu_plain_ms": cpu_plain_ms,
+            "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "operations" if chain_ms > bytes_ms else "bytes",
+            "library_ms": None, "bytes": nbytes,
             "bucket": [B, Fp, Lp, width], "problems": len(group),
-            "flows": flows}
+            "flows": flows, "max_rounds": int(rounds.max())}
 
 
 def phase_sweep(card: str) -> dict:
@@ -1675,6 +1814,8 @@ def phase_sweep(card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    fifo_designs = dict(sd.FIFO_REPLAY.launches_by_design)
+    solver_launches = maxmin.WATERFILL.launches
     solver = dataclasses.replace(maxmin.COUNTS)   # ... and ends here
     n_cells = len(rep.cells)
     if (rep.batched_cells, rep.serial_cells) != (n_cells, 0) or \
@@ -1685,6 +1826,14 @@ def phase_sweep(card: str) -> dict:
         raise AssertionError(f"I: launches {launches}, batched solves "
                              f"{solver.batched_calls}: every scan and the "
                              f"solver must run on the sweep's path")
+    if solver_launches != solver.batched_calls:
+        raise AssertionError(f"I: {solver_launches} maxmin_waterfill "
+                             f"launches for {solver.batched_calls} batched "
+                             f"solves")
+    if fifo_designs["smem"] != launches["fifo_replay"]:
+        raise AssertionError(f"I: fifo_replay launches by design "
+                             f"{fifo_designs}: every one must keep its key "
+                             f"state in shared memory")
     small = [c for c in rep.cells
              if c.params["federation.cache_capacity"] == 2e9]
     if not all(c.summary["evictions"] > 0 for c in small):
@@ -1711,7 +1860,8 @@ def phase_sweep(card: str) -> dict:
         f"{100 * sum(scan_ms.values()) / 1e3 / wall:.2f}%; batched solver "
         f"{1e3 * solver.host_seconds:.1f} ms (host clock) = "
         f"{100 * solver.host_seconds / wall:.2f}%", card)
-    say(f"I solver: {solver.batched_calls} batched solve(s) on cuda over "
+    say(f"I solver: {solver.batched_calls} batched solve(s) on cuda, "
+        f"{solver_launches} launch(es) of maxmin_waterfill, over "
         f"{solver.batched_problems} problems, buckets "
         f"{rep.solver.get('buckets')}; {solver.rounds} rounds, "
         f"{solver.syncs} host reads, {solver.h2d} copies host->device, "
@@ -1767,17 +1917,26 @@ def phase_sweep(card: str) -> dict:
             f"at one clock of {clock_hz / 1e6:.0f} MHz); all "
             f"{checked[name]['problems']} problems exactly equal to the "
             f"plain version", card)
-    out["batched_maxmin"] = _solver_numbers(rec, card)
+    say(f"I fifo_replay launches by design: {fifo_designs}; "
+        f"{out['fifo_replay']['us_per_step']:.4f} us a dependent step at "
+        f"its largest bucket, cache_sim "
+        f"{out['cache_sim']['us_per_step']:.4f} us", card)
+    out["fifo_replay"]["launches_by_design"] = fifo_designs
+    out["batched_maxmin"] = _solver_numbers(rec, card, clock_hz)
     out["batched_maxmin"].update(
-        launches=solver.batched_calls, rounds=solver.rounds,
+        launches=solver_launches, rounds=solver.rounds,
         syncs=solver.syncs, host_s=solver.host_seconds)
     sm = out["batched_maxmin"]
-    say(f"I batched_maxmin: the card's rates vs the same ops on the CPU "
-        f"max rel {sm['max_rel_err_cpu']:.2e} (tol {MAXMIN_CPU_RTOL}); "
+    say(f"I batched_maxmin: the card's rates vs the plain version on the "
+        f"CPU max rel {sm['max_rel_err_cpu']:.2e} (tol {MAXMIN_CPU_RTOL}); "
         f"bucket {sm['bucket']} ({sm['problems']} problems, {sm['flows']} "
-        f"flows): device loop {sm['ms']:.3f} ms (CUDA events), same ops on "
-        f"the CPU {sm['plain_ms']:.1f} ms; bound {sm['bound_ms']:.6f} ms "
-        f"({sm['bytes']} B once at 3.35 TB/s)", card)
+        f"flows, up to {sm['max_rounds']} rounds): kernel {sm['ms']:.4f} ms "
+        f"(a CUDA graph of launches, CUDA events), plain version on the card {sm['plain_ms']:.1f} ms "
+        f"and on the CPU {sm['cpu_plain_ms']:.1f} ms (host clock); bound "
+        f"{sm['bound_ms']:.6f} ms by {sm['bound_by']} (bytes "
+        f"{sm['bytes_ms']:.6f} ms for {sm['bytes']} B; chain "
+        f"{sm['chain_ms']:.6f} ms); the whole batched call "
+        f"{1e3 * solver.host_seconds:.1f} ms (host clock)", card)
     # the batched path against the serial one, at 2e9 and admission 0.25
     serial_axes = {"federation.cache_capacity": [2e9],
                    "federation.eviction_policy": ["lru", "fifo"],
@@ -1812,19 +1971,22 @@ def _scan_entry(name: str, nums: dict, card: str) -> dict:
                    f"references", card)
     entry.update({k: nums[k] for k in ("buckets", "problems_checked",
                                        "event_ms_per_launch", "bytes_ms",
-                                       "chain_ms", "control")})
+                                       "chain_ms", "us_per_step", "control",
+                                       "launches_by_design") if k in nums})
     return entry
 
 
 def _batched_maxmin_entry(nums: dict, card: str) -> dict:
-    return {"name": "batched_maxmin", "route": "torch",
-            "source": "src/repro_torch/kernels/batched_maxmin.py",
-            "replaces": "src/repro/kernels/batched_maxmin.py:38",
+    source, replaces = KERNEL_FILES["batched_maxmin"]
+    return {"name": "batched_maxmin", "route": "cuda", "source": source,
+            "replaces": replaces,
             **{k: nums[k] for k in ("launches", "max_abs_err", "ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "max_rel_err_cpu",
-                                    "rounds", "syncs", "host_s")},
-            "tolerance": f"card vs the same ops on the CPU "
+                                    "cpu_plain_ms", "bytes_ms", "chain_ms",
+                                    "rounds", "max_rounds", "syncs",
+                                    "host_s")},
+            "tolerance": f"card vs the plain version on the CPU "
                          f"{MAXMIN_CPU_RTOL} relative; storm finish "
                          f"seconds vs the reference's {SOLVER_RTOL}",
             "shape": f"sweep I's pricing bucket {nums['bucket']} (B, Fp, "
@@ -1859,20 +2021,20 @@ def _case(case: dict, shape: str, **extra) -> dict:
 
 
 def _maxmin_entry(storm: dict, card: str) -> dict:
-    """The max-min solver's line: torch ops, not a hand kernel; its main
-    case is storm H's peak solve."""
+    """The max-min kernel's line; its main case is storm H's peak solve."""
     peak = storm["snapshots"]["peak"]
-    return {"name": "maxmin", "route": "torch",
-            "source": "src/repro_torch/kernels/maxmin.py",
-            "replaces": "src/repro/kernels/maxmin.py:36",
-            "launches": storm["launches"],
+    source, replaces = KERNEL_FILES["maxmin"]
+    return {"name": "maxmin", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": storm["launches"],
             **{k: peak[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
-                                    "host_ms", "scalar_ms",
+                                    "bytes_ms", "chain_ms", "host_ms",
+                                    "split_ms", "cpu_plain_ms",
+                                    "scalar_ms",
                                     "max_rel_err_oracle", "rounds")},
-            "tolerance": f"card vs the same ops on the CPU "
-                         f"{MAXMIN_CPU_RTOL} relative; vs maxmin_ref rtol "
-                         f"{MAXMIN_REF_RTOL}, atol {MAXMIN_REF_ATOL:g}",
+            "tolerance": f"card vs the plain version on the CPU and on the "
+                         f"card {MAXMIN_CPU_RTOL} relative; vs maxmin_ref "
+                         f"rtol {MAXMIN_REF_RTOL}, atol {MAXMIN_REF_ATOL:g}",
             "shape": f"storm H's peak solve: {peak['flows']} flows, "
                      f"{peak['links']} links, padded {peak['padded']}",
             "card": card,

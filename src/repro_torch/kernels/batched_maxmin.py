@@ -9,12 +9,13 @@ module
 * pads each problem to a power-of-two ``(Fp, Lp, width)`` bucket with the
   dummy-link layout of :func:`repro_torch.kernels.maxmin.pad_problem`,
 * stacks same-bucket problems into a ``(B, ...)`` batch (B padded to a
-  power of two with all-dummy problems), each with its own link table,
-* and solves each batch with one call of the batched
-  :func:`~repro_torch.kernels.maxmin.solve_waterfill` on ``device``:
-  torch ops, every reduction per problem, one host read a round for the
-  whole batch; a problem that has converged is left as it is while the
-  others finish, as under the reference's ``vmap`` of a ``while_loop``.
+  power of two with all-dummy problems) in one staging buffer,
+* and solves each batch with one call of ``ops.maxmin_waterfill`` on
+  ``device``: on the card one launch of the ``maxmin_waterfill`` kernel,
+  a block a problem, each running its own rounds to its end (as under
+  the reference's ``vmap`` of a ``while_loop``, a converged problem is
+  left as it is), between one copy there and one back; on the CPU the
+  plain version, every reduction per problem.
 
 ``stats`` carries the reference's telemetry (``solve_calls``,
 ``buckets``, ``problems``, ``padded_problems``); ``maxmin.COUNTS`` counts
@@ -29,8 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .maxmin import COUNTS, _next_pow2, device_problem, pad_problem, \
-    solve_waterfill
+from .maxmin import COUNTS, Staging, _next_pow2, fix_loopback, pad_problem
 
 # One problem: (link_caps, flow_links, flow_caps) in the same layout as
 # maxmin_rates_sparse — per-flow rows of link indices, per-flow caps.
@@ -39,8 +39,7 @@ Problem = Tuple[Sequence[float], Sequence[Sequence[int]], Sequence[float]]
 
 def _bucket_of(problem: Problem) -> Tuple[int, int, int]:
     link_caps, flow_links, _ = problem
-    width = _next_pow2(max((len(ls) for ls in flow_links), default=1),
-                       floor=4)
+    width = _next_pow2(max(map(len, flow_links), default=1), floor=4)
     return (_next_pow2(len(flow_links)),
             _next_pow2(len(link_caps) + 1),
             width)
@@ -67,17 +66,14 @@ def maxmin_rates_batch(problems: Sequence[Problem],
         by_bucket.setdefault(_bucket_of(p), []).append(i)
     for (Fp, Lp, width), idxs in sorted(by_bucket.items()):
         B = _next_pow2(len(idxs), floor=1)
-        caps = np.full((B, Lp), np.inf, np.float32)
-        ids = np.full((B, Fp, width), Lp - 1, np.int32)
-        fcaps = np.zeros((B, Fp), np.float32)
+        staging = Staging(B, Fp, Lp, width, dev)
+        staging.caps.fill(np.inf)
+        staging.ids.fill(Lp - 1)
+        staging.fcaps.fill(0.0)
         for bi, i in enumerate(idxs):
-            caps[bi], ids[bi], fcaps[bi] = pad_problem(
-                *problems[i], Fp=Fp, Lp=Lp, width=width)
-        rates = solve_waterfill(*device_problem(caps, ids, fcaps, dev))
-        rates = rates[:, :Fp].cpu().numpy()
-        if dev.type != "cpu":
-            COUNTS.d2h += 1
-            COUNTS.syncs += 1
+            pad_problem(*problems[i], Fp=Fp, Lp=Lp, width=width,
+                        out=staging.problem(bi))
+        rates = staging.solve()[:, :Fp]
         COUNTS.batched_calls += 1
         COUNTS.batched_problems += len(idxs)
         if stats is not None:
@@ -86,12 +82,9 @@ def maxmin_rates_batch(problems: Sequence[Problem],
             stats["padded_problems"] += B - len(idxs)
         for bi, i in enumerate(idxs):
             _, flow_links_i, flow_caps_i = problems[i]
-            res = rates[bi, :len(flow_links_i)].astype(np.float64)
-            # An all-dummy row is indistinguishable from padding inside
-            # the solve but is a real flow bound only by its own cap.
-            for fi, ls in enumerate(flow_links_i):
-                if not ls:
-                    res[fi] = flow_caps_i[fi]
+            F = len(flow_links_i)
+            res = rates[bi, :F].astype(np.float64)
+            fix_loopback(res, staging.ids[bi, :F], flow_caps_i, Lp)
             out[i] = res
     COUNTS.host_seconds += time.perf_counter() - t0
     return [r if r is not None else np.zeros(0) for r in out]

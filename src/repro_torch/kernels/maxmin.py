@@ -1,9 +1,10 @@
-"""Vectorized max-min fair-share waterfilling as PyTorch tensor ops.
+"""Max-min fair-share waterfilling: one CUDA launch a solve on the card,
+tensor ops as its plain version.
 
 The port of ``repro.kernels.maxmin``: the fluid-flow simulator re-solves
 the max-min bandwidth allocation on every change of its active flow set,
-and this module batches the whole waterfilling across flows on the
-simulator's device, in float32 like the reference.
+and the sweeps price every cell's storm with the same solve over a batch
+(``batched_maxmin``), in float32 like the reference.
 
 Membership is kept *sparse*: each flow carries a fixed-width row of link
 indices, and every round is a segment-sum (active flows per link), a
@@ -15,29 +16,39 @@ gather (each flow's tightest link share) and a second segment-sum
   → fix flows whose own TCP cap binds below the bottleneck, else
   → fix every flow whose tightest share equals the bottleneck
 
-Where the reference scatter-adds under ``lax.while_loop``, this port
-differs in two ways:
+``solve_padded`` solves padded problems through ``ops.maxmin_waterfill``:
+on the card, ``csrc/maxmin.cu`` (``WATERFILL``: one block a problem,
+every round inside the launch, the per-link flow lists built on the
+device); the host packs the problems into one pinned buffer, makes one
+copy to the card and one back (rates and round counts).  On the CPU,
+``solve_waterfill``, the plain version: torch ops that differ from the
+reference's ``lax.while_loop`` in three ways, all shared with the
+kernel:
 
 * **The segment sums gather.**  ``index_add_`` on CUDA sums in atomic
-  order, so two runs could differ in the last bit, and the determinism
-  sanitizer demands byte-identical replays.  Each link instead owns a
-  row of a (links × max degree) table of the flows that cross it
-  (padding points at a sentinel flow whose values are always 0); a
-  segment sum is one gather and one ``sum(1)``, whose order is fixed by
-  the table, so a problem always gives the same bits on one device.
+  order, and the determinism sanitizer demands byte-identical replays.
+  Each link owns a row of a (links × max degree) table of the flows that
+  cross it (padding points at a sentinel flow whose values are always
+  0), so a segment sum is one gather and one ``sum(1)``.
+* **The retired capacity is summed in float64** and rounded once to
+  float32: exact in any order for caps within 29 binary orders of
+  magnitude of each other, so the kernel's sums (in its own fixed order)
+  give the same bits.
 * **The branches are ``torch.where``.**  Both of ``lax.cond``'s arms are
-  computed and one is selected on the device, so a round costs one host
-  read: ``active.any()``, which ends the loop.  The body is idempotent
-  once ``active`` empties, as the reference's is.
+  computed and one is selected, so a round costs one check of
+  ``active.any()``, which ends the loop.
 
 Shapes keep the reference's power-of-two buckets (``pad_problem``), which
 the sweeps' batched solver shares.  ``COUNTS`` counts solves, rounds,
-host reads and host↔device copies, as the kernels' wrappers count
-launches.  ``repro_torch.kernels.ref.maxmin_ref`` is the float64 oracle.
+host reads and host↔device copies, and ``WATERFILL.launches`` the
+kernel's launches.  ``repro_torch.kernels.ref.maxmin_ref`` is the float64
+oracle.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import itertools
 import time
 from typing import Dict, List, Sequence, Union
 
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ._build import CudaLibrary
 
 
 @dataclasses.dataclass
@@ -97,25 +109,24 @@ def link_table(link_ids: np.ndarray, num_links: int) -> np.ndarray:
 
 
 def solve_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
-                    flow_caps: torch.Tensor, table: torch.Tensor
-                    ) -> torch.Tensor:
-    """The waterfilling core on the device of its inputs, for one problem
-    or a batch of independent ones (a leading dimension B on every input).
+                    flow_caps: torch.Tensor, table: torch.Tensor):
+    """The waterfilling core as torch ops (the kernel's plain version), for
+    one problem or a batch of independent ones (a leading dimension B on
+    every input).
 
     link_caps: ([B,] L) float32 with a trailing dummy-inf slot; link_ids:
     ([B,] F + 1, K) int64 rows of link indices, the last row the sentinel
     (all dummy); flow_caps: ([B,] F + 1) float32, the sentinel's 0;
     table: ([B,] L, D) ``link_table`` of each problem's rows, padded with
-    the sentinel to the batch's largest degree → per-flow rates ([B,]
-    F + 1).  Every reduction is per problem (over its own flows or
-    links), so one problem's bottleneck never retires another's flows; a
-    round costs one host read for the whole batch, and a problem that has
+    the sentinel to the batch's largest degree → (per-flow rates ([B,]
+    F + 1), rounds ([B,]) int64: the rounds each problem ran with a flow
+    still active).  Every reduction is per problem, so one problem's
+    bottleneck never retires another's flows; a problem that has
     converged is left as it is while the others finish."""
     single = link_caps.dim() == 1
     if single:
         link_caps, link_ids, flow_caps, table = (
             t.unsqueeze(0) for t in (link_caps, link_ids, flow_caps, table))
-    on_card = link_caps.device.type != "cpu"
     num_flows, num_links = link_ids.shape[1] - 1, link_caps.shape[1]
     flat_ids = link_ids.reshape(link_ids.shape[0], -1)
     flat_table = table.reshape(table.shape[0], -1)
@@ -127,9 +138,13 @@ def solve_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
 
     rates = torch.zeros_like(flow_caps)
     active = (link_ids < num_links - 1).any(dim=2)  # padded rows retired
+    rounds = torch.zeros(link_caps.shape[0], dtype=torch.int64,
+                         device=link_caps.device)
     cap_left = link_caps
     for _ in range(num_flows + num_links + 2):
-        COUNTS.rounds += 1
+        if not bool(active.any()):
+            break
+        rounds += active.any(dim=1)
         n = seg_sum(active.to(torch.float32))
         share = torch.where(n > 0, cap_left / n.clamp(min=1.0), inf)
         flow_share = share.gather(1, flat_ids).view(
@@ -139,27 +154,106 @@ def solve_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
         capped = active & (flow_caps < best)
         any_capped = capped.any(dim=1, keepdim=True)
         no_links = torch.isinf(best)
-        # lax.cond's arms, selected on the device: capped flows take
-        # their own cap; with no capacity-bearing link left, every
-        # active flow does (the scalar fallback); else the flows on the
-        # bottleneck take its share and its links saturate.
+        # lax.cond's arms, selected per problem: capped flows take their
+        # own cap; with no capacity-bearing link left, every active flow
+        # does (the scalar fallback); else the flows on the bottleneck
+        # take its share and its links saturate.
         by_cap = any_capped | no_links
         mask = torch.where(any_capped, capped,
                            torch.where(no_links, active,
                                        active & (flow_share <= best)))
         rate = torch.where(by_cap, flow_caps, best)
         rates = torch.where(mask, rate, rates)
-        used = seg_sum(torch.where(mask, rate, 0.0))
+        used = seg_sum(torch.where(mask, rate, 0.0).double()).float()
         cap_left = (cap_left - used).clamp(min=0.0)
         # float-safety: argmin links are saturated by construction
         cap_left = torch.where(~by_cap & (share <= best), 0.0, cap_left)
         active = active & ~mask
-        if on_card:
-            COUNTS.syncs += 1
-            COUNTS.d2h += 1
-        if not bool(active.any()):
-            break
-    return rates[0] if single else rates
+    return (rates[0], rounds[0]) if single else (rates, rounds)
+
+
+def plain_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
+                    flow_caps: torch.Tensor) -> torch.Tensor:
+    """The kernel's contract on the inputs' device by ``solve_waterfill``:
+    link_caps (B, Lp) float32, link_ids (B, Fp, width) int32, flow_caps
+    (B, Fp) float32 → (B, Fp + 1) float32, each problem's rates and then
+    its round count.  The link tables are built on the host."""
+    num, Fp, width = link_ids.shape
+    Lp = link_caps.shape[1]
+    dev = link_caps.device
+    ids = link_ids.cpu().numpy()
+    tables = [link_table(row, Lp) for row in ids]  # padding: the sentinel
+    degree = max(t.shape[1] for t in tables)
+    table = np.full((num, Lp, degree), Fp, np.int64)
+    for b, t in enumerate(tables):
+        table[b, :, :t.shape[1]] = t
+    ids_ext = torch.cat([link_ids.long(), torch.full(
+        (num, 1, width), Lp - 1, dtype=torch.int64, device=dev)], 1)
+    fcaps_ext = torch.cat([flow_caps, torch.zeros(
+        num, 1, dtype=torch.float32, device=dev)], 1)
+    rates, rounds = solve_waterfill(link_caps, ids_ext, fcaps_ext,
+                                    torch.from_numpy(table).to(dev))
+    return torch.cat([rates[:, :Fp], rounds[:, None].float()], 1)
+
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = CudaLibrary("maxmin", {
+    "maxmin_waterfill": ([_vp] * 3 + [_ci] * 4 + [_vp] * 2, _ci),
+    "maxmin_smem_bytes": ([_ci] * 3, ctypes.c_longlong),
+    "maxmin_threads": ([_ci], _ci)})
+
+
+class WaterfillKernel:
+    """``csrc/maxmin.cu``'s ``maxmin_waterfill``: the whole solve of each
+    problem of a batch in one block of one launch.  ``launches`` is raised
+    once per launch that the card accepted."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def smem_bytes(self, Fp: int, Lp: int, width: int) -> int:
+        return int(LIB.load().maxmin_smem_bytes(Fp, Lp, width))
+
+    def threads(self, Fp: int) -> int:
+        return int(LIB.load().maxmin_threads(Fp))
+
+    def __call__(self, link_caps: torch.Tensor, link_ids: torch.Tensor,
+                 flow_caps: torch.Tensor) -> torch.Tensor:
+        """link_caps (B, Lp) float32, link_ids (B, Fp, width) int32,
+        flow_caps (B, Fp) float32, on one CUDA device → (B, Fp + 1)
+        float32: each problem's rates, then its round count.  Raises on
+        other inputs, and when the card refuses the launch (a bucket whose
+        lists need more shared memory than a block has)."""
+        num, Fp, width = link_ids.shape
+        Lp = link_caps.shape[1]
+        dev = link_caps.device
+        if dev.type != "cuda":
+            raise ValueError(f"maxmin kernel: inputs are on {dev}, not a "
+                             f"CUDA device")
+        for label, t, dtype, shape in (
+                ("link_caps", link_caps, torch.float32, (num, Lp)),
+                ("link_ids", link_ids, torch.int32, (num, Fp, width)),
+                ("flow_caps", flow_caps, torch.float32, (num, Fp))):
+            if t.device != dev or t.dtype != dtype or \
+                    tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"maxmin kernel: {label} must be a "
+                                 f"contiguous {dtype} {shape} tensor on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+        out = torch.empty(num, Fp + 1, dtype=torch.float32, device=dev)
+        lib = LIB.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.maxmin_waterfill(
+                link_caps.data_ptr(), flow_caps.data_ptr(),
+                link_ids.data_ptr(), num, Fp, Lp, width, out.data_ptr(),
+                stream)
+        LIB.check(err, "maxmin")
+        self.launches += 1
+        return out
+
+
+WATERFILL = WaterfillKernel()
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:
@@ -172,64 +266,109 @@ def _next_pow2(n: int, floor: int = 8) -> int:
 def pad_problem(link_caps: Sequence[float],
                 flow_links: Sequence[Sequence[int]],
                 flow_caps: Sequence[float],
-                Fp: int, Lp: int, width: int):
+                Fp: int, Lp: int, width: int, out=None):
     """Pad one (flows, links) problem into the reference's layout.
 
     Returns ``(caps, ids, fcaps)`` numpy arrays of shapes (Lp,), (Fp,
     width), (Fp,): real link capacities followed by infinite-capacity
     slots (the last is the dummy every padding id points at), per-flow
-    link-index rows, zero-capped padding flows."""
+    link-index rows, zero-capped padding flows.  ``out``, when given, is
+    three arrays of those shapes that are filled instead (views of a
+    staging buffer)."""
     F, L = len(flow_links), len(link_caps)
     if L + 1 > Lp or F > Fp:
         raise ValueError(f"problem ({F} flows, {L} links) exceeds "
                          f"bucket (Fp={Fp}, Lp={Lp})")
-    dummy = Lp - 1
-    ids = np.full((Fp, width), dummy, np.int32)
-    for fi, ls in enumerate(flow_links):
-        if len(ls) > width:
-            raise ValueError(f"flow {fi} crosses {len(ls)} links > "
-                             f"bucket width {width}")
-        ids[fi, :len(ls)] = ls
-    caps = np.full(Lp, np.inf, np.float32)
+    lens = np.fromiter(map(len, flow_links), np.int64, F)
+    if F and lens.max() > width:
+        fi = int(np.argmax(lens > width))
+        raise ValueError(f"flow {fi} crosses {int(lens[fi])} links > "
+                         f"bucket width {width}")
+    if out is None:
+        out = (np.empty(Lp, np.float32), np.empty((Fp, width), np.int32),
+               np.empty(Fp, np.float32))
+    caps, ids, fcaps = out
+    ids.fill(Lp - 1)
+    flat = np.fromiter(itertools.chain.from_iterable(flow_links), np.int32,
+                       int(lens.sum()))
+    starts = np.cumsum(lens) - lens
+    rows = np.repeat(np.arange(F), lens)
+    ids[rows, np.arange(flat.size) - starts[rows]] = flat
+    caps.fill(np.inf)
     caps[:L] = link_caps
-    fcaps = np.zeros(Fp, np.float32)
+    fcaps.fill(0.0)
     fcaps[:F] = flow_caps
     return caps, ids, fcaps
 
 
-def device_problem(caps: np.ndarray, ids: np.ndarray, fcaps: np.ndarray,
-                   device: torch.device):
-    """``solve_waterfill``'s inputs on ``device`` from a padded problem, or
-    from a batch of them stacked on a leading dimension: the sentinel row
-    appended and each problem's link table built on the host (padded with
-    the sentinel to the batch's largest degree), then two copies, one of
-    the floats and one of the indices."""
-    single = caps.ndim == 1
-    if single:
-        caps, ids, fcaps = caps[None], ids[None], fcaps[None]
-    num, Fp, width = ids.shape
-    Lp = caps.shape[1]
-    ids_ext = np.concatenate(
-        [ids.astype(np.int64), np.full((num, 1, width), Lp - 1, np.int64)],
-        axis=1)
-    tables = [link_table(row, Lp) for row in ids]  # padding: the sentinel
-    degree = max(t.shape[1] for t in tables)
-    table = np.full((num, Lp, degree), Fp, np.int64)
-    for b, t in enumerate(tables):
-        table[b, :, :t.shape[1]] = t
-    fcaps_ext = np.concatenate([fcaps, np.zeros((num, 1), np.float32)], 1)
-    floats = np.concatenate([caps.reshape(-1), fcaps_ext.reshape(-1)])
-    ints = np.concatenate([ids_ext.reshape(-1), table.reshape(-1)])
-    floats_t = torch.from_numpy(floats).to(device)
-    ints_t = torch.from_numpy(ints).to(device)
-    if device.type != "cpu":
-        COUNTS.h2d += 2
-    n_caps, n_ids = caps.size, ids_ext.size
-    out = (floats_t[:n_caps].view(num, Lp),
-           ints_t[:n_ids].view(num, Fp + 1, width),
-           floats_t[n_caps:].view(num, Fp + 1),
-           ints_t[n_ids:].view(table.shape))
-    return tuple(t[0] for t in out) if single else out
+class Staging:
+    """A batch of padded problems ``(num, Fp, Lp, width)`` as numpy views
+    (``caps``, ``ids``, ``fcaps``) over one host buffer, pinned when the
+    solve runs on the card (PyTorch's host allocator caches pinned blocks,
+    and reuses one only once the copy from it is done), so that the whole
+    batch goes over in one copy."""
+
+    def __init__(self, num: int, Fp: int, Lp: int, width: int,
+                 device: torch.device) -> None:
+        self.shape = (num, Fp, Lp, width)
+        self.device = device
+        self.buffer = torch.empty(num * (Lp + Fp + Fp * width),
+                                  dtype=torch.int32,
+                                  pin_memory=device.type != "cpu")
+        flat = self.buffer.numpy()
+        n_caps, n_fcaps = num * Lp, num * Fp
+        self.caps = flat[:n_caps].view(np.float32).reshape(num, Lp)
+        self.fcaps = flat[n_caps:n_caps + n_fcaps].view(
+            np.float32).reshape(num, Fp)
+        self.ids = flat[n_caps + n_fcaps:].reshape(num, Fp, width)
+
+    def problem(self, b: int):
+        """The three views of problem ``b``, for ``pad_problem(out=...)``."""
+        return self.caps[b], self.ids[b], self.fcaps[b]
+
+    def upload(self) -> torch.Tensor:
+        """The staging buffer on the device: one copy on the card."""
+        return self.buffer.to(self.device, non_blocking=True)
+
+    def views(self, buf: torch.Tensor):
+        """``ops.maxmin_waterfill``'s inputs as views of an uploaded buffer:
+        caps (num, Lp) and flow caps (num, Fp) float32, ids (num, Fp,
+        width) int32."""
+        num, Fp, Lp, width = self.shape
+        n_caps, n_fcaps = num * Lp, num * Fp
+        return (buf[:n_caps].view(torch.float32).view(num, Lp),
+                buf[n_caps + n_fcaps:].view(num, Fp, width),
+                buf[n_caps:n_caps + n_fcaps].view(torch.float32).view(num,
+                                                                      Fp))
+
+    def solve(self) -> np.ndarray:
+        """Solve every problem of the batch through ``ops.maxmin_waterfill``
+        on the staging device → (num, Fp + 1) float32 on the host: rates,
+        then each problem's round count.  On the card: one copy there, one
+        launch, one copy back (and one host read)."""
+        from . import ops
+        Fp = self.shape[1]
+        out = ops.maxmin_waterfill(*self.views(self.upload()))
+        out = out.cpu().numpy()
+        if self.device.type != "cpu":
+            COUNTS.h2d += 1
+            COUNTS.d2h += 1
+            COUNTS.syncs += 1
+        COUNTS.rounds += int(out[:, Fp].max(initial=0))
+        return out
+
+
+def fix_loopback(rates: np.ndarray, ids: np.ndarray,
+                 flow_caps: Sequence[float], Lp: int) -> None:
+    """Flows crossing no capacity-bearing link (loopback transfers) look
+    identical to padding inside the solve — all-dummy rows retired at rate
+    0 — but are real flows bound only by their own TCP cap, which is what
+    the scalar solver assigns.  Restore parity in ``rates`` (F,) from the
+    padded rows ``ids`` (F, width), so that same-node ``sim.flow(src, src,
+    ...)`` completes under both solvers."""
+    loop = (ids == Lp - 1).all(axis=1)
+    if loop.any():
+        rates[loop] = np.asarray(flow_caps, np.float64)[loop]
 
 
 def maxmin_rates_sparse(link_caps: Sequence[float],
@@ -238,7 +377,7 @@ def maxmin_rates_sparse(link_caps: Sequence[float],
                         device: Union[str, torch.device, None] = None
                         ) -> np.ndarray:
     """Max-min fair rates with per-flow caps, solved on ``device``
-    (``None`` means ``cuda``).
+    (``None`` means ``cuda``): on the card one launch of ``WATERFILL``.
 
     ``link_caps``: (L,) bytes/s; ``flow_links``: per-flow link-index
     lists; ``flow_caps``: (F,) per-flow TCP ceiling.  Shapes are padded
@@ -248,25 +387,13 @@ def maxmin_rates_sparse(link_caps: Sequence[float],
     dev = resolve_device(device)
     t0 = time.perf_counter()
     F, L = len(flow_links), len(link_caps)
-    width = _next_pow2(max((len(ls) for ls in flow_links), default=1),
-                       floor=4)
+    width = _next_pow2(max(map(len, flow_links), default=1), floor=4)
     Fp, Lp = _next_pow2(F), _next_pow2(L + 1)
-    caps, ids, fcaps = pad_problem(link_caps, flow_links, flow_caps,
-                                   Fp, Lp, width)
-    rates = solve_waterfill(*device_problem(caps, ids, fcaps, dev))
-    out = rates[:F].cpu().numpy()
-    if dev.type != "cpu":
-        COUNTS.d2h += 1
-        COUNTS.syncs += 1
-    # Flows crossing no capacity-bearing link (loopback transfers) look
-    # identical to padding inside ``solve_waterfill`` — all-dummy rows
-    # retired at rate 0 — but are real flows bound only by their own TCP
-    # cap, which is what the scalar solver assigns.  Restore parity here
-    # so same-node ``sim.flow(src, src, ...)`` completes under both
-    # solvers.
-    for fi, ls in enumerate(flow_links):
-        if not ls:
-            out[fi] = flow_caps[fi]
+    staging = Staging(1, Fp, Lp, width, dev)
+    pad_problem(link_caps, flow_links, flow_caps, Fp, Lp, width,
+                out=staging.problem(0))
+    out = staging.solve()[0, :F].copy()
+    fix_loopback(out, staging.ids[0, :F], flow_caps, Lp)
     COUNTS.solves += 1
     COUNTS.solves_by_device[dev.type] = \
         COUNTS.solves_by_device.get(dev.type, 0) + 1

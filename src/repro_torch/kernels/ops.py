@@ -2,9 +2,9 @@
 
 A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor
 goes to the hand-written kernel, which raises on anything it cannot
-serve.  There is no fallback from one to the other.  ``maxmin_rates``
-is torch tensor ops (not a hand kernel) and runs the same ops on either
-device.
+serve.  There is no fallback from one to the other.  The max-min solver
+(``maxmin_waterfill``) follows the same rule: the plain version is
+``maxmin.plain_waterfill`` (torch ops), the kernel ``maxmin.WATERFILL``.
 """
 from __future__ import annotations
 
@@ -59,13 +59,23 @@ def chunk_checksums(buffers, block: int = 1024, *,
     return _checksums_kernel(buffers, block, as_bytes=as_bytes)
 
 
+def maxmin_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
+                     flow_caps: torch.Tensor) -> torch.Tensor:
+    """The max-min solve of a batch of padded problems: link_caps (B, Lp)
+    float32, link_ids (B, Fp, width) int32, flow_caps (B, Fp) float32 →
+    (B, Fp + 1) float32, each problem's rates and then its round count."""
+    if link_caps.device.type == "cpu":
+        return _maxmin.plain_waterfill(link_caps, link_ids, flow_caps)
+    return _maxmin.WATERFILL(link_caps, link_ids, flow_caps)
+
+
 def maxmin_rates(link_caps: torch.Tensor, membership: torch.Tensor,
                  flow_caps: torch.Tensor) -> torch.Tensor:
     """Max-min fair rates (F,) of link_caps (L,), a 0/1 membership (F, L)
-    and per-flow caps (F,), solved by the torch-ops waterfill on the
-    inputs' device; ``ref.maxmin_ref`` is its float64 oracle.  The
-    counterpart of ``ops.maxmin_rates`` in the reference, for tensors:
-    no caller in the system uses it (the simulator calls
+    and per-flow caps (F,), solved on the inputs' device (on the card by
+    the ``maxmin_waterfill`` kernel); ``ref.maxmin_ref`` is its float64
+    oracle.  The counterpart of ``ops.maxmin_rates`` in the reference, for
+    tensors: no caller in the system uses it (the simulator calls
     ``maxmin.maxmin_rates_sparse``), and it copies through the host."""
     rates = _maxmin.maxmin_rates(link_caps.cpu().numpy(),
                                  membership.cpu().numpy(),

@@ -66,7 +66,18 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("stack_distance", {
     "sd_distances": ([_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp], _ci),
     "sd_cache_sim": ([_vp] * 7 + [_ci] * 3 + [_vp] * 8, _ci),
-    "sd_fifo_replay": ([_vp] * 6 + [_ci] * 3 + [_vp] * 7, _ci)})
+    "sd_fifo_replay": ([_vp] * 6 + [_ci] * 4 + [_vp] * 7, _ci),
+    "sd_fifo_smem_bytes": ([_ci, _ci], ctypes.c_longlong)})
+
+# sd_fifo_replay's fixed shared memory (csrc/stack_distance.cu: a barrier
+# pair and FIFO_TILE references of 14 B for each of FIFO_STAGES stages, a
+# FIFO_HIST-step history of cumB/cumN, 12 B a step, and a tile's hits)
+# and the shared memory a block may have on Hopper: the key state (8 B a
+# key) goes beside them where it fits ("smem"), else in device memory
+# ("global").
+FIFO_RING_BYTES = 16 * 3 + 3 * 1024 * 14 + 4096 * 12 + 1024
+BLOCK_SMEM_BYTES = 232448
+FIFO_DESIGNS = ("global", "smem")
 
 
 def _check(name: str, device: torch.device, *named) -> None:
@@ -172,6 +183,24 @@ class CacheSimKernel(_ScanKernel):
 
 
 class FifoReplayKernel(_ScanKernel):
+    """``sd_fifo_replay``, in two designs by Kp; ``launches_by_design``
+    counts each."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.launches_by_design = dict.fromkeys(FIFO_DESIGNS, 0)
+
+    @staticmethod
+    def design(kp: int) -> str:
+        """"smem" when the key state fits beside the ring, else "global"."""
+        return "smem" if FIFO_RING_BYTES + 8 * kp <= BLOCK_SMEM_BYTES \
+            else "global"
+
+    def smem_bytes(self, kp: int) -> int:
+        """The dynamic shared memory of a block of the design for Kp."""
+        return int(LIB.load().sd_fifo_smem_bytes(
+            kp, FIFO_DESIGNS.index(self.design(kp))))
+
     def __call__(self, keys: torch.Tensor, sizes: torch.Tensor,
                  admit: torch.Tensor, reset: torch.Tensor,
                  kcum0: torch.Tensor, capacity: torch.Tensor,
@@ -179,7 +208,9 @@ class FifoReplayKernel(_ScanKernel):
         """The byte-frontier FIFO replay: keys (B, Np) int32, sizes (B, Np)
         float64, admit and reset (B, Np) bool, kcum0 (B, Kp) float64 (the
         per-key state's start, zeros), capacity (B,) float64 → (hits,
-        evictions int32, bytes evicted float64)."""
+        evictions int32, bytes evicted float64).  An Np that is not a
+        multiple of 16 (the ring's copies) is padded with empty
+        references, which no length reaches."""
         num, n = keys.shape
         kp = kcum0.shape[1]
         dev = keys.device
@@ -190,18 +221,26 @@ class FifoReplayKernel(_ScanKernel):
                ("kcum0", kcum0, torch.float64, (num, kp)),
                ("capacity", capacity, torch.float64, (num,)))
         lens = _lengths(lengths, num, dev)
-        cum_b = torch.empty(num, n, dtype=torch.float64, device=dev)
-        cum_n = torch.empty(num, n, dtype=torch.int32, device=dev)
+        n16 = -(-n // 16) * 16
+        if n16 != n:
+            keys, sizes, admit, reset = (
+                torch.nn.functional.pad(t, (0, n16 - n))
+                for t in (keys, sizes, admit, reset))
+        design = self.design(kp)
+        cum_b = torch.empty(num, n16, dtype=torch.float64, device=dev)
+        cum_n = torch.empty(num, n16, dtype=torch.int32, device=dev)
         kcum = kcum0.clone()
-        hits = torch.zeros(num, n, dtype=torch.bool, device=dev)
+        hits = torch.zeros(num, n16, dtype=torch.bool, device=dev)
         ev = torch.empty(num, dtype=torch.int32, device=dev)
         evb = torch.empty(num, dtype=torch.float64, device=dev)
         self._launch("sd_fifo_replay", "fifo replay", dev, keys.data_ptr(),
                      sizes.data_ptr(), admit.data_ptr(), reset.data_ptr(),
-                     capacity.data_ptr(), lens.data_ptr(), num, n, kp,
-                     cum_b.data_ptr(), cum_n.data_ptr(), kcum.data_ptr(),
-                     hits.data_ptr(), ev.data_ptr(), evb.data_ptr())
-        return hits, ev, evb
+                     capacity.data_ptr(), lens.data_ptr(), num, n16, kp,
+                     FIFO_DESIGNS.index(design), cum_b.data_ptr(),
+                     cum_n.data_ptr(), kcum.data_ptr(), hits.data_ptr(),
+                     ev.data_ptr(), evb.data_ptr())
+        self.launches_by_design[design] += 1
+        return hits[:, :n], ev, evb
 
 
 DISTANCES = DistanceKernel()

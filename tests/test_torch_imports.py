@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``.
+``chip_smoke.py`` or ``kernel_probe.py`` imports ``jax`` or the reference
+package ``repro``.
 
 The check walks every ``.py`` file's syntax tree, so imports inside
 functions (the lazy ones) count as much as those at the top.  Relative
@@ -32,7 +33,7 @@ def forbidden_imports(source: str, name: str):
 
 def port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_probe.py"]
 
 
 @pytest.mark.parametrize("path", port_files(),

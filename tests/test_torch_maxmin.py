@@ -1,4 +1,4 @@
-"""The port's max-min solver (torch ops) against the JAX reference.
+"""The port's max-min solver against the JAX reference.
 
 On the CPU: 50 seeded random sparse problems (up to 512 flows, each
 crossing 1-5 links, some crossing none: loopback rows) go through the
@@ -11,7 +11,8 @@ the float64 oracle ``maxmin_ref``.  Tolerances:
 * port vs ``maxmin_ref`` (float64): ``rtol=2e-3, atol=1e3``, as the
   reference's own ``tests/test_maxmin.py`` holds its solver.
 
-The ``gpu`` tests hold the solver on the card against its CPU run.  JAX
+The ``gpu`` tests hold the solver on the card (the ``maxmin_waterfill``
+kernel, one launch a solve) against its CPU run.  JAX
 is imported through the ``jx`` fixture, so that on the machine with the
 card, which has no JAX, the ``gpu`` tests run.
 """
@@ -78,8 +79,9 @@ def padded(caps, rows, fcaps):
 
 def port_core(caps, ids, fcaps):
     """The port's ``solve_waterfill`` on a padded problem: (Fp,) rates."""
-    args = maxmin.device_problem(caps, ids, fcaps, torch.device("cpu"))
-    return maxmin.solve_waterfill(*args)[:ids.shape[0]].cpu().numpy()
+    out = maxmin.plain_waterfill(*(torch.from_numpy(a[None])
+                                   for a in (caps, ids, fcaps)))
+    return out[0, :ids.shape[0]].numpy()
 
 
 @pytest.mark.parametrize("seed", range(N_PROBLEMS))
@@ -216,6 +218,6 @@ def test_card_matches_cpu_and_oracle(seed):
                                                fcaps),
                                rtol=REF_RTOL, atol=REF_ATOL)
     assert card.solves_by_device == {"cuda": 1}
-    assert card.h2d == 2 and card.d2h == card.syncs == card.rounds + 1
+    assert card.h2d == card.d2h == card.syncs == 1 and card.rounds >= 1
     again = maxmin.maxmin_rates_sparse(caps, rows, fcaps, device="cuda")
     assert got.tobytes() == again.tobytes()

@@ -244,41 +244,84 @@ def model_cache_sim(keys, admit, reset, key_sizes, cap, fifo):
     return hits, ev, evb
 
 
-def model_fifo_replay(keys, sizes, admit, reset, n_keys, cap):
-    """``sd_fifo_replay``: the frontier with a forward search from the last
-    answer, restarted at 0 when the hint is not a lower bound."""
+FIFO_TILE = 1024        # references a ring stage holds
+
+
+def window_search(cb, cn, t, target, st):
+    """``sd_fifo_replay``'s search on the warp: the first j in [0, t] with
+    cumB[j] >= target (t when none), from the hint ``st.lo``, restarted at
+    0 when ``st.lo_prev`` (cumB[lo - 1]) shows the hint is no lower bound;
+    32 entries of cumB/cumN at a time in a window of lane registers, kept
+    between searches while they cover the position.  Returns (j, new E,
+    new EN)."""
+    if st.lo > t or (st.lo > 0 and st.lo_prev >= target):
+        st.lo, st.lo_prev = 0, -np.inf
+        st.restarts += 1
+    lanes = np.arange(32)
+    pos, j, at = st.lo, t, 0
+    before = st.lo_prev
+    while pos < t:
+        if pos < st.wb or pos >= st.wb + st.wcount:
+            st.wb, st.wcount = pos, min(32, t - pos)
+            st.wv = np.full(32, np.inf)
+            st.wn = np.zeros(32, np.int64)
+            st.wv[:st.wcount] = cb[pos:pos + st.wcount]
+            st.wn[:st.wcount] = cn[pos:pos + st.wcount]
+            st.loads += 1
+        ball = (st.wb + lanes >= pos) & (lanes < st.wcount) & \
+            (st.wv >= target)
+        if ball.any():
+            at = int(np.argmax(ball))
+            j = st.wb + at
+            break
+        before = st.wv[st.wcount - 1]
+        pos = st.wb + st.wcount
+    new_e = st.wv[at] if j < t else np.inf
+    new_n = int(st.wn[at]) if j < t else 0
+    if j != st.lo:
+        st.lo_prev = before if j == pos else st.wv[at - 1]
+        st.lo = j
+    return j, new_e, new_n
+
+
+def search_state():
+    return types.SimpleNamespace(lo=0, lo_prev=-np.inf, wb=0, wcount=0,
+                                 wv=None, wn=None, restarts=0, loads=0)
+
+
+def model_fifo_replay(keys, sizes, admit, reset, n_keys, cap, st=None):
+    """``sd_fifo_replay``: the stream in ring tiles of 1,024 references,
+    the key state kcum (float64, in shared memory or device memory by Kp:
+    the same values) and the frontier moved by ``window_search`` (the
+    kernel reads the last 4,096 steps from its shared history, older ones
+    from device memory: the same values)."""
     n = len(keys)
     cb = np.zeros(n)
     cn = np.zeros(n, np.int64)
     kcum = np.zeros(max(n_keys, 1))
     total = e = evb = 0.0
-    tot_n = e_n = ev = lo = 0
+    tot_n = e_n = ev = 0
+    st = search_state() if st is None else st
     hits = np.zeros(n, bool)
-    for t in range(n):
-        k, s = int(keys[t]), sizes[t]
-        if reset[t]:
-            e, e_n = total, tot_n
-        hit = kcum[k] > e
-        ins = not hit and bool(admit[t])
-        target = total + s - cap
-        if ins and target > e:
-            if lo > t or (lo > 0 and cb[lo - 1] >= target):
-                lo = 0
-            j = lo
-            while j < t and not cb[j] >= target:
-                j += 1
-            lo = j
-            new_e = cb[j] if j < t else np.inf
-            new_n = int(cn[j]) if j < t else 0
-            ev += new_n - e_n
-            evb += new_e - e
-            e, e_n = new_e, new_n
-        if ins:
-            total += s
-            tot_n += 1
-            kcum[k] = total
-        cb[t], cn[t] = total, tot_n
-        hits[t] = hit
+    for t0 in range(0, n, FIFO_TILE):
+        for t in range(t0, min(n, t0 + FIFO_TILE)):
+            k, s = int(keys[t]), sizes[t]
+            if reset[t]:
+                e, e_n = total, tot_n
+            hit = kcum[k] > e
+            ins = not hit and bool(admit[t])
+            target = total + s - cap
+            if ins and target > e:
+                _, new_e, new_n = window_search(cb, cn, t, target, st)
+                ev += new_n - e_n
+                evb += new_e - e
+                e, e_n = new_e, new_n
+            if ins:
+                total += s
+                tot_n += 1
+                kcum[k] = total
+            cb[t], cn[t] = total, tot_n
+            hits[t] = hit
     return hits, ev, evb
 
 
@@ -339,6 +382,90 @@ def test_one_byte_control_fails_the_check():
                        np.float64(c))
     assert model(c)[1:] == exact[1:]
     assert model(c - 1)[1:] != exact[1:]
+
+
+def test_window_search_restarts_and_equals_searchsorted():
+    """The warp's search from any hint, valid or not, is numpy's
+    ``searchsorted`` (left side) over the steps taken, whether it reuses
+    its window or reads a new one; a hint that is no lower bound restarts
+    it at 0, and a hint that is one never does."""
+    rng = np.random.default_rng(11)
+    steps = rng.integers(0, 4, 400).astype(np.float64)
+    steps[rng.random(400) < 0.3] = 0.0             # ties: zero-byte steps
+    cb = np.cumsum(steps)
+    cn = np.arange(1, 401)
+    restarted = 0
+    for _ in range(300):
+        t = int(rng.integers(1, 400))
+        target = float(rng.integers(0, int(cb[t - 1]) + 3))
+        st = search_state()
+        st.lo = int(rng.integers(0, t + 1))
+        st.lo_prev = cb[st.lo - 1] if st.lo else -np.inf
+        valid = st.lo == 0 or st.lo_prev < target
+        j, new_e, new_n = window_search(cb, cn, t, target, st)
+        want = int(np.searchsorted(cb[:t], target, side="left"))
+        assert j == want
+        assert (new_e, new_n) == ((cb[j], cn[j]) if j < t else (np.inf, 0))
+        assert st.restarts == (0 if valid else 1)
+        restarted += st.restarts
+    assert restarted > 50
+    # one state through a stream of rising targets: the window is reused
+    st, searches = search_state(), 0
+    for t in range(10, 400, 3):
+        target = cb[t - 1] - 150.0      # the frontier ~100 steps back
+        if target > cb[max(st.lo - 1, 0)]:
+            j, _, _ = window_search(cb, cn, t, target, st)
+            assert j == int(np.searchsorted(cb[:t], target, side="left"))
+            searches += 1
+    assert st.restarts == 0 and 0 < st.loads < searches / 2
+
+
+def test_fifo_model_zero_byte_keys_and_resets():
+    """Zero-byte keys (never resident once admitted at the frontier's
+    total, ties in cumB) and frequent resets, against the plain version;
+    the valid stream never restarts the search, and the window is read
+    far fewer times than the search runs."""
+    rng = np.random.default_rng(5)
+    for reset_rate in (0.0, 0.02, 0.2):
+        keys, ksz, reset, _ = _stream(rng, 3000, 300, 40,
+                                      reset_rate=reset_rate)
+        ksz[rng.random(300) < 0.2] = 0.0
+        sizes = ksz[keys]
+        for cap in (40.0, 60.0, 500.0):
+            admit = (rng.random(3000) < 0.9) & (sizes <= cap)
+            st = search_state()
+            got = model_fifo_replay(keys, sizes, admit, reset, 300, cap, st)
+            want = _plain_one(ref.fifo_replay_ref, keys, sizes, admit, reset,
+                              np.zeros(300), np.float64(cap))
+            assert np.array_equal(got[0], want[0])
+            assert (got[1], got[2]) == want[1:]
+            assert st.restarts == 0
+            if cap == 60.0:
+                assert got[1] > 100 and st.loads < got[1]
+
+
+@pytest.mark.parametrize("n_keys", [16384, 16385])
+def test_fifo_design_boundary(n_keys):
+    """Kp 16,384 keeps the key state beside the ring in shared memory, Kp
+    32,768 in device memory; the model (the same values in either place)
+    equals the plain version on a stream over keys at the top of the
+    range."""
+    kp = sd._next_pow2(n_keys, floor=sd._FLOOR_K)
+    design = sd.FIFO_REPLAY.design(kp)
+    assert design == ("smem" if kp <= 16384 else "global")
+    assert (sd.FIFO_RING_BYTES + 8 * kp <= sd.BLOCK_SMEM_BYTES) == \
+        (design == "smem")
+    rng = np.random.default_rng(n_keys)
+    keys = (n_keys - 1 - rng.integers(0, 200, 2500)).astype(np.int32)
+    ksz = rng.integers(0, 50, n_keys).astype(np.float64)
+    sizes = ksz[keys]
+    reset = rng.random(2500) < 0.005
+    admit = (rng.random(2500) < 0.9) & (sizes <= 900.0)
+    got = model_fifo_replay(keys, sizes, admit, reset, n_keys, 900.0)
+    want = _plain_one(ref.fifo_replay_ref, keys, sizes, admit, reset,
+                      np.zeros(kp), np.float64(900.0))
+    assert np.array_equal(got[0], want[0])
+    assert (got[1], got[2]) == want[1:] and got[1] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -431,3 +558,31 @@ def test_batch_functions_on_card_equal_cpu(card):
                   sd.fifo_sim_batch(fifo, device="cpu"))
     _same_results(sd.cache_sim_batch(sim, device=card),
                   sd.cache_sim_batch(sim, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_keys", [300, 16384, 16385])
+def test_fifo_designs_on_card(card, n_keys):
+    """Both designs against the plain version on the card: zero-byte keys,
+    resets, a length that is no multiple of 16 (the ring's copies pad it),
+    and Kp on each side of the boundary; the launch counted by design."""
+    rng = np.random.default_rng(n_keys)
+    kp = sd._next_pow2(n_keys, floor=sd._FLOOR_K)
+    num, n = 4, 3001
+    keys = (n_keys - 1 - rng.integers(0, 250, (num, n))).astype(np.int32)
+    ksz = rng.integers(0, 40, n_keys).astype(np.float64)
+    ksz[rng.random(n_keys) < 0.2] = 0.0
+    sizes = ksz[keys]
+    reset = rng.random((num, n)) < 0.01
+    cap = np.array([40.0, 200.0, 1000.0, 1e9])
+    admit = (rng.random((num, n)) < 0.9) & (sizes <= cap[:, None])
+    args = [torch.from_numpy(x).to(card) for x in
+            (keys, sizes, admit, reset, np.zeros((num, kp)), cap)]
+    design = sd.FIFO_REPLAY.design(kp)
+    before = dict(sd.FIFO_REPLAY.launches_by_design)
+    hits, ev, evb = ops.fifo_replay(*args, torch.full((num,), n).to(card))
+    assert sd.FIFO_REPLAY.launches_by_design[design] == before[design] + 1
+    w_hits, w_ev, w_evb = ref.fifo_replay_ref(*args)
+    assert torch.equal(hits, w_hits)
+    assert torch.equal(ev, w_ev) and torch.equal(evb, w_evb)
+    assert int(ev[0]) > 0
