@@ -344,9 +344,10 @@ def phase_build(card: str) -> None:
             f"{maxmin.WATERFILL.threads(f)} threads"
             for f, lp, w in ((512, 512, 8), (8192, 32, 8)))
         + ", " + ", ".join(
-            f"fifo_replay {sd.FIFO_REPLAY.design(kp)} (Kp {kp}): "
-            f"{sd.FIFO_REPLAY.smem_bytes(kp)} B" for kp in (16384, 32768)),
-        card)
+            f"{name} {kernel.design(kp)} (Kp {kp}): "
+            f"{kernel.smem_bytes(kp)} B" for name, kernel in (
+                ("fifo_replay", sd.FIFO_REPLAY), ("cache_sim", sd.CACHE_SIM))
+            for kp in (16384, 32768)), card)
     for lib in (fa.LIB, ssd_scan.LIB):
         sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                                str(lib.path)], capture_output=True,
@@ -1582,9 +1583,22 @@ def _scan_plain(name: str, args):
     return plain(*args[:-1])          # the plain versions take no lengths
 
 
+def _same_floats(got, want):
+    """Exact equality of two float tensors where NaN equals NaN (a FIFO
+    replay's bytes evicted after an oversize admit), and the largest
+    absolute difference elsewhere."""
+    import torch
+    nan = torch.isnan(want)
+    same = torch.equal(torch.isnan(got), nan) and \
+        torch.equal(got[~nan], want[~nan])
+    diff = (got[~nan] - want[~nan]).abs()
+    return same, float(diff.max()) if diff.numel() else 0.0
+
+
 def _scan_equal(name: str, got, want, lengths) -> dict:
     """Exact comparison of a scan's outputs within each problem's length:
-    distances (inf included), or hits, evictions and bytes evicted."""
+    distances (inf included), or hits, evictions and bytes evicted (NaN
+    included)."""
     import torch
     if name == "stack_distance":
         finite = torch.isfinite(want)
@@ -1597,10 +1611,10 @@ def _scan_equal(name: str, got, want, lengths) -> dict:
     w_hits, w_ev, w_evb = want
     rows = all(torch.equal(hits[b, :n], w_hits[b, :n])
                for b, n in enumerate(lengths.tolist()))
-    err = max(float((ev - w_ev).abs().max()),
-              float((evb - w_evb).abs().max()))
-    return {"equal": rows and torch.equal(ev, w_ev) and
-            torch.equal(evb, w_evb), "max_abs_err": err}
+    same_evb, evb_err = _same_floats(evb, w_evb)
+    err = max(float((ev - w_ev).abs().max()), evb_err)
+    return {"equal": rows and torch.equal(ev, w_ev) and same_evb,
+            "max_abs_err": err}
 
 
 def _exact_fill_capacities(keys, sizes, admit, reset):
@@ -1683,6 +1697,79 @@ def _controls(rec, card: str) -> dict:
             f" evictions); at {cap - 1:.0f} B it fails the same check (its "
             f"counters off by up to {control['max_abs_err']:.0f}, or its "
             f"hits differ), as it must", card)
+    return out
+
+
+# the FIFO replay after an admitted insert larger than the capacity
+# (keys, sizes, capacity): the frontier moves to +inf
+OVERSIZE = ([0, 1, 2, 0, 3], [4.0, 4.0, 20.0, 4.0, 4.0], 10.0)
+# name: (references of OVERSIZE, the reset's step or None, the row's
+# width, the reference's bytes evicted)
+OVERSIZE_CASES = {"no later reset": (5, None, 5, "nan"),
+                  "a reset on the next step": (5, 3, 5, "inf"),
+                  "the same, padded": (5, 3, 256, "inf"),
+                  "oversize last": (3, None, 3, "inf"),
+                  "oversize last, padded": (3, None, 256, "nan")}
+
+
+def _fifo_oversize(rec, card: str) -> dict:
+    """sd_fifo_replay after an admitted oversize insert against its plain
+    version, NaN included: the hand-made cases above (one launch each),
+    and the first recorded problem's first 2,048 references with every
+    reference admitted at one byte under its largest chunk."""
+    import torch
+
+    from repro_torch.kernels import ops
+    dev = rec.calls["fifo_replay"][0][0][0].device
+    out = {}
+    for label, (n, reset_at, width, want) in OVERSIZE_CASES.items():
+        keys, sizes, cap = OVERSIZE
+        reset = [False] * width
+        if reset_at is not None:
+            reset[reset_at] = True
+        args = [torch.tensor(keys[:n] + [0] * (width - n), dtype=torch.int32,
+                             device=dev),
+                torch.tensor(sizes[:n] + [0.0] * (width - n),
+                             dtype=torch.float64, device=dev),
+                torch.tensor([True] * n + [False] * (width - n),
+                             device=dev),
+                torch.tensor(reset, device=dev)]
+        args = [a[None] for a in args] + [
+            torch.zeros(1, 4, dtype=torch.float64, device=dev),
+            torch.tensor([cap], dtype=torch.float64, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev)]
+        got = ops.fifo_replay(*args)
+        res = _scan_equal("fifo_replay", got, _scan_plain("fifo_replay",
+                                                          args), args[-1])
+        evb = float(got[2][0])
+        if not res["equal"] or str(evb) != want:
+            raise AssertionError(f"I fifo_replay oversize, {label}: bytes "
+                                 f"evicted {evb} (the reference's {want}), "
+                                 f"equal to the plain version: "
+                                 f"{res['equal']}")
+        out[label] = str(evb)
+    args = rec.calls["fifo_replay"][0][0]
+    n = min(int(args[-1][0]), CONTROL_REFS)
+    keys, sizes, _, reset, kcum0, _, _ = (t[:1, :n].clone() if t.dim() == 2
+                                          and i < 4 else t[:1].clone()
+                                          for i, t in enumerate(args))
+    admit = torch.ones_like(reset)
+    cap = sizes.max().reshape(1) - 1.0
+    lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+    a = [keys, sizes, admit, reset, kcum0, cap, lengths]
+    got = ops.fifo_replay(*a)
+    res = _scan_equal("fifo_replay", got, _scan_plain("fifo_replay", a),
+                      lengths)
+    if not res["equal"] or torch.isfinite(got[2]).any():
+        raise AssertionError(f"I fifo_replay oversize, recorded problem: "
+                             f"bytes evicted {float(got[2][0])}, equal to "
+                             f"the plain version: {res['equal']}")
+    out["recorded problem"] = str(float(got[2][0]))
+    say(f"I fifo_replay after an admitted oversize insert: {out} bytes "
+        f"evicted, each equal to the plain version's (NaN to NaN), hits "
+        f"and evictions too; the recorded case is the first problem's "
+        f"first {n} references, all admitted, at {float(cap[0]):.0f} B, "
+        f"one byte under its largest chunk", card)
     return out
 
 
@@ -1815,6 +1902,7 @@ def phase_sweep(card: str) -> dict:
         wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     fifo_designs = dict(sd.FIFO_REPLAY.launches_by_design)
+    sim_designs = dict(sd.CACHE_SIM.launches_by_design)
     solver_launches = maxmin.WATERFILL.launches
     solver = dataclasses.replace(maxmin.COUNTS)   # ... and ends here
     n_cells = len(rep.cells)
@@ -1830,10 +1918,12 @@ def phase_sweep(card: str) -> dict:
         raise AssertionError(f"I: {solver_launches} maxmin_waterfill "
                              f"launches for {solver.batched_calls} batched "
                              f"solves")
-    if fifo_designs["smem"] != launches["fifo_replay"]:
-        raise AssertionError(f"I: fifo_replay launches by design "
-                             f"{fifo_designs}: every one must keep its key "
-                             f"state in shared memory")
+    for name, designs in (("fifo_replay", fifo_designs),
+                          ("cache_sim", sim_designs)):
+        if designs["smem"] != launches[name]:
+            raise AssertionError(f"I: {name} launches by design {designs}: "
+                                 f"every one must keep its key state in "
+                                 f"shared memory")
     small = [c for c in rep.cells
              if c.params["federation.cache_capacity"] == 2e9]
     if not all(c.summary["evictions"] > 0 for c in small):
@@ -1888,6 +1978,7 @@ def phase_sweep(card: str) -> dict:
             problems += int((args[-1] > 0).sum())
         checked[name] = {"problems": problems, "max_abs_err": worst}
     controls = _controls(rec, card)
+    oversize = _fifo_oversize(rec, card)
     clock_hz = _max_sm_clock_hz()
     out = {}
     for name in SCANS:
@@ -1917,11 +2008,13 @@ def phase_sweep(card: str) -> dict:
             f"at one clock of {clock_hz / 1e6:.0f} MHz); all "
             f"{checked[name]['problems']} problems exactly equal to the "
             f"plain version", card)
-    say(f"I fifo_replay launches by design: {fifo_designs}; "
-        f"{out['fifo_replay']['us_per_step']:.4f} us a dependent step at "
-        f"its largest bucket, cache_sim "
-        f"{out['cache_sim']['us_per_step']:.4f} us", card)
+    say(f"I launches by design: fifo_replay {fifo_designs}, cache_sim "
+        f"{sim_designs}; a dependent step at each one's largest bucket: "
+        f"fifo_replay {out['fifo_replay']['us_per_step']:.4f} us, "
+        f"cache_sim {out['cache_sim']['us_per_step']:.4f} us", card)
     out["fifo_replay"]["launches_by_design"] = fifo_designs
+    out["fifo_replay"]["oversize"] = oversize
+    out["cache_sim"]["launches_by_design"] = sim_designs
     out["batched_maxmin"] = _solver_numbers(rec, card, clock_hz)
     out["batched_maxmin"].update(
         launches=solver_launches, rounds=solver.rounds,
@@ -1972,7 +2065,8 @@ def _scan_entry(name: str, nums: dict, card: str) -> dict:
     entry.update({k: nums[k] for k in ("buckets", "problems_checked",
                                        "event_ms_per_launch", "bytes_ms",
                                        "chain_ms", "us_per_step", "control",
-                                       "launches_by_design") if k in nums})
+                                       "launches_by_design", "oversize")
+                     if k in nums})
     return entry
 
 

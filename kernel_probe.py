@@ -1,8 +1,18 @@
 #!/usr/bin/env python3
-"""Time two kernels of the port on synthetic inputs that isolate their
+"""Time three kernels of the port on synthetic inputs that isolate their
 parts, on one CUDA card:
 
-    python3 kernel_probe.py
+    python3 kernel_probe.py [cache_sim] [fifo] [waterfill]
+
+(all three when none is named).
+
+* ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
+  ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
+  hits one key, one of distinct keys that never evicts, ones of unit
+  sizes that evict one slot an insert, ones where every 64th key is 64
+  times larger (walks of 64 slots, and inserts that need none), and a
+  skewed stream of mixed sizes with hits and evictions both.  The steps
+  without an eviction give a step's cost; the rest add a walk's.
 
 * ``sd_fifo_replay`` over 64 problems of 16,384 steps (unit sizes, Kp
   16,384): a stream that admits nothing, one that hits one key, one of
@@ -31,6 +41,43 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from chip_smoke import card_label, graph_ms, time_ms  # noqa: E402
 from repro_torch.kernels import maxmin, ops  # noqa: E402
+
+
+def probe_cache_sim(card: str) -> None:
+    dev = torch.device("cuda")
+    num, n, kp = 8, 32768, 16384
+    rng = np.random.default_rng(0)
+    distinct = np.arange(n) % kp
+    unit = np.ones(kp)
+    bursts = np.where(np.arange(kp) % 64 == 63, 64.0, 1.0)
+    weights = 1.0 / np.arange(1, kp + 1) ** 0.9
+    skewed = rng.choice(kp, n, p=weights / weights.sum())
+    mixed = rng.integers(1, 2000, kp).astype(np.float64)
+    cases = [("admits nothing", distinct, unit, False, 1e18),
+             ("hits one key", np.zeros(n), unit, True, 1e18),
+             ("never evicts", distinct, unit, True, 1e18),
+             ("evicts one slot an insert", distinct, unit, True, 1000.0),
+             ("evicts in bursts of 64 slots", distinct, bursts, True,
+              2000.0),
+             ("skewed, mixed sizes", skewed, mixed, True, 2e6)]
+    for label, keys, ksz, admit, cap in cases:
+        for fifo in (False, True):
+            args = (torch.tensor(np.tile(keys, (num, 1)), dtype=torch.int32,
+                                 device=dev),
+                    torch.full((num, n), admit, dtype=torch.bool,
+                               device=dev),
+                    torch.zeros(num, n, dtype=torch.bool, device=dev),
+                    torch.tensor(np.tile(ksz, (num, 1)), dtype=torch.float64,
+                                 device=dev),
+                    torch.full((num,), cap, dtype=torch.float64, device=dev),
+                    torch.full((num,), fifo, dtype=torch.bool, device=dev),
+                    torch.full((num,), n, dtype=torch.int32, device=dev))
+            ms = time_ms(lambda: ops.cache_sim(*args), 3)
+            hits, ev, _ = ops.cache_sim(*args)
+            print(f"cache_sim {'fifo' if fifo else 'lru'}, {label}: "
+                  f"{ms:.4f} ms a launch, {1e3 * ms / n:.4f} us a step, "
+                  f"{int(ev[0])} evictions and {int(hits[0].sum())} hits a "
+                  f"problem  [{card}]", flush=True)
 
 
 def probe_fifo(card: str) -> None:
@@ -90,8 +137,10 @@ def main() -> int:
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 1
     card = card_label()
-    probe_fifo(card)
-    probe_waterfill(card)
+    probes = {"cache_sim": probe_cache_sim, "fifo": probe_fifo,
+              "waterfill": probe_waterfill}
+    for name in sys.argv[1:] or probes:
+        probes[name](card)
     return 0
 
 

@@ -30,16 +30,53 @@
 //
 // 2. sd_cache_sim.  The reference keeps victim order in priority slots
 //    (slot t is written only at step t) and pays a cumsum over all Np slots
-//    each step, because a vmapped scan cannot branch.  Here one thread
-//    carries one problem: evictions always take the lowest occupied slots,
-//    so a head pointer (every slot below it is empty) walks forward over
-//    the slots, skipping vacated ones, and frees while the bytes freed so
-//    far are short of usage + size - capacity.  The head only moves
-//    forward, so all evictions of a problem cost O(Np) in all.  A reset
-//    empties every slot (head = t) and every key (an epoch per key: a key
-//    is resident iff res_epoch[k] equals the current epoch) in O(1); it
-//    counts no eviction.  A slot is occupied iff its bytes are > 0, as in
-//    the reference, so a zero-byte key is never a victim.
+//    each step, because a vmapped scan cannot branch.  Its state is smaller
+//    than it looks: slot t only ever holds key keys[t] with key_sizes[k]
+//    bytes, so the one state a key needs is key_slot[k], the step of its
+//    last touch, with -1 once evicted; and
+//      key k is resident      iff key_slot[k] >= ep (ep: the last reset's
+//                                 step, 0 before any), and
+//      slot j is occupied     iff j >= ep, key_slot[keys[j]] == j and
+//                                 key_sizes[keys[j]] > 0
+//    (an LRU touch moves key_slot on, so the old slot empties by itself; a
+//    zero-byte key is resident but never occupies a slot, so it is never a
+//    victim).  A reset is ep = t: nothing to clear.  Evictions take the
+//    lowest occupied slots while the bytes freed before each are short of
+//    need = usage + size - capacity (the reference's excl < need).
+//
+//    Design: one block a problem.  One thread carries the chain, the
+//    reference's own walk written as scalar code: a head pointer (every
+//    slot below it is empty; a reset sets it to t) only moves forward, and
+//    an insert that needs room inspects the slots from it in order,
+//    evicting the occupied ones while the bytes freed are short of need,
+//    and leaves it past the last victim; so a problem's walks inspect each
+//    slot about once.  An LRU touch costs nothing beyond its key_slot
+//    store.  Two rings in shared memory, each kept full by one lane with
+//    1-D bulk copies (TMA) on mbarriers, feed it: the stream (keys, admit
+//    and reset bits: 3 stages of 1,024 references), read a step ahead, and
+//    the head ring (2 stages of 1,024 keys, the stream's keys from the
+//    head's tile on), which gives the walk the keys of old slots at shared
+//    memory latency; the chain releases a head-ring tile when the head
+//    leaves it, and releases the rest at its end.  Hits go to a tile's
+//    buffer, copied out in whole words at the tile's end; ev and evb are
+//    written once.
+//
+//    Why one thread and not a warp: the step is a chain of dependent
+//    instructions, and on this card a warp-wide collective or a branch
+//    around one costs about as much as a shared read.  A design with the
+//    warp's 32 lanes in step and the walk a ballot over a window of 32
+//    slots in registers was correct but slower on sweep I (9.0610 ms, its
+//    step 0.2033 us; this design 7.31 ms, 0.164 us, H100, kernel_probe.py
+//    and chip_smoke.py).  The scalar walk pays one inspection a slot an
+//    LRU touch emptied, which a stream of many hits feels.
+//
+//    Layout: design "smem" keeps key_sizes (8 B a key) and key_slot (4 B)
+//    in shared memory beside the rings and a tile's hits (27,776 B): 12 B
+//    a key, so Kp <= 17,056, that is every power-of-two bucket up to Kp
+//    16,384 (224,384 B of the 232,448 a block may have); design "global"
+//    keeps both in device memory (key_slot as the caller's scratch) for a
+//    larger Kp.  Np does not enter the state: any Np that is a multiple of
+//    16 (the rings' copies) serves.  The caller picks the design by Kp.
 //
 // 3. sd_fifo_replay.  The reference's own form is sequential already: a
 //    frontier E over the cumulative admitted bytes cumB; a key is resident
@@ -75,22 +112,26 @@
 //    search restarts at 0, so the answer is exact on any input); E only
 //    grows in a valid stream, so the searches cost O(Np) in all.
 //
-// The slot machine is a chain of N dependent steps too, one thread per
-// problem, one problem per block so each gets an SM, its state in global
-// memory (L2-resident: slot state is 12 B a reference, 768 KB a problem at
-// Np 65,536, over one SM's 228 KB of shared memory).  What bounds both
-// replays is the chain's latency, not bytes: for the slot machine an L2
-// round trip per dependent load, for the FIFO replay a shared read.
+//    A reference's step adds newE - E to the bytes evicted, even where it
+//    moves nothing: once an admitted insert larger than the capacity has
+//    moved E to +inf (cumB[t] is +inf), every later step without a reset
+//    adds inf - inf and the reference's bytes evicted are NaN.  So does
+//    this kernel, on its own steps and, where the reference's row is wider
+//    than the problem (padding, `width`), for the reference's padding
+//    steps at the end.
+//
+// What bounds both replays is the chain's latency, not bytes: the shared
+// reads and the arithmetic that depend on each other within a step, more
+// on a step that evicts.
 //
 // Plain C interface, loaded with ctypes: each function returns the
 // cudaError_t of its launches and never synchronises.  Scratch is
 // allocated by the caller: sd_distances needs next (B x Np int32);
-// sd_cache_sim slot_bytes (B x Np f64), slot_key (B x Np int32), key_slot
-// (B x Kp int32) and res_epoch (B x Kp int32, zeroed); sd_fifo_replay
-// cumB (B x Np f64), cumN (B x Np int32) and kcum (B x Kp f64, the key
-// state's start: zeros; the "smem" design copies it in and leaves it).
-// Outputs: hits (B x Np uint8, zeroed by the caller: padding stays 0),
-// ev (B int32), evb (B f64).
+// sd_cache_sim's "global" design key_slot (B x Kp int32; the kernel fills
+// it); sd_fifo_replay cumB (B x Np f64), cumN (B x Np int32) and kcum
+// (B x Kp f64, the key state's start: zeros; the "smem" design copies it
+// in and leaves it).  Outputs: hits (B x Np uint8, zeroed by the caller:
+// padding stays 0), ev (B int32), evb (B f64).
 
 #include <cuda_runtime.h>
 
@@ -139,77 +180,6 @@ __global__ void distances(const long long* __restrict__ prev,
   for (int off = 16; off; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   if (lane == 0) out[row + i] = acc;
-}
-
-__global__ void cache_sim(const int* __restrict__ keys,
-                          const unsigned char* __restrict__ admit,
-                          const unsigned char* __restrict__ reset,
-                          const double* __restrict__ key_sizes,
-                          const double* __restrict__ capacity,
-                          const unsigned char* __restrict__ fifo,
-                          const int* __restrict__ lengths, int np, int kp,
-                          double* __restrict__ slot_bytes,
-                          int* __restrict__ slot_key,
-                          int* __restrict__ key_slot,
-                          int* __restrict__ res_epoch,
-                          unsigned char* __restrict__ hits,
-                          int* __restrict__ ev_out,
-                          double* __restrict__ evb_out) {
-  const int b = blockIdx.x;
-  if (threadIdx.x != 0) return;
-  const long long row = (long long)b * np, krow = (long long)b * kp;
-  const int n = min(lengths[b], np);
-  const double cap = capacity[b];
-  const bool is_fifo = fifo[b] != 0;
-  double* sb = slot_bytes + row;
-  int* sk = slot_key + row;
-  int* kslot = key_slot + krow;
-  int* epoch_of = res_epoch + krow;
-  const double* ksz = key_sizes + krow;
-  int epoch = 1;       // res_epoch starts zeroed: nothing resident
-  int head = 0;        // every slot below head is empty
-  double usage = 0.0, evb = 0.0;
-  int ev = 0;
-  for (int t = 0; t < n; ++t) {
-    const int k = keys[row + t];
-    const bool a = admit[row + t] != 0;
-    if (reset[row + t]) {  // the disk came back empty: nothing counted
-      ++epoch;
-      head = t;
-      usage = 0.0;
-    }
-    const double s = ksz[k];
-    const bool hit = epoch_of[k] == epoch;
-    const bool do_insert = !hit && a;
-    if (do_insert) {
-      const double need = usage + s - cap;
-      double freed = 0.0;
-      int j = head;
-      for (; j < t; ++j) {
-        const double bytes = sb[j];
-        if (bytes > 0.0) {
-          if (!(freed < need)) break;
-          freed += bytes;
-          sb[j] = 0.0;
-          epoch_of[sk[j]] = 0;
-          ++ev;
-        }
-      }
-      head = j;
-      usage -= freed;
-      evb += freed;
-    }
-    const bool touch = do_insert || (hit && !is_fifo);
-    if (hit && touch) sb[kslot[k]] = 0.0;  // an LRU touch vacates
-    sb[t] = touch ? s : 0.0;
-    sk[t] = k;
-    if (touch) kslot[k] = t;
-    epoch_of[k] = (hit || do_insert) ? epoch : 0;
-    if (do_insert) usage += s;
-    hits[row + t] = hit;
-  }
-  ev_out[b] = ev;
-  evb_out[b] = evb;
 }
 
 // ---- sd_fifo_replay: the stream through a ring, the key state in shared
@@ -279,7 +249,7 @@ fifo_replay(const int* __restrict__ keys, const double* __restrict__ sizes,
             const unsigned char* __restrict__ admit,
             const unsigned char* __restrict__ reset,
             const double* __restrict__ capacity,
-            const int* __restrict__ lengths, int np, int kp,
+            const int* __restrict__ lengths, int np, int width, int kp,
             double* __restrict__ cum_b, int* __restrict__ cum_n,
             double* __restrict__ kcum_all, unsigned char* __restrict__ hits,
             int* __restrict__ ev_out, double* __restrict__ evb_out) {
@@ -423,6 +393,8 @@ fifo_replay(const int* __restrict__ keys, const double* __restrict__ sizes,
         evb += new_e - e;
         e = new_e;
         e_n = new_n;
+      } else {
+        evb += e - e;          // the reference's newE - E: NaN once E is inf
       }
       if (ins) {
         total += sz;
@@ -451,8 +423,205 @@ fifo_replay(const int* __restrict__ keys, const double* __restrict__ sizes,
   }
   if (lane == 0) {
     ev_out[b] = ev;
-    evb_out[b] = evb;
+    // the reference's padding steps up to its row's width add E - E too
+    evb_out[b] = n < width ? evb + (e - e) : evb;
   }
+}
+
+// ---- sd_cache_sim: one thread's chain over shared memory, two rings
+
+constexpr int SIM_TILE = 1024;     // references a ring stage holds
+constexpr int SIM_STAGES = 3;      // the stream's ring
+constexpr int HEAD_STAGES = 2;     // the head ring: the keys from the head on
+constexpr size_t SIM_STAGE_BYTES = SIM_TILE * (4 + 1 + 1);
+constexpr size_t SIM_FIXED_BYTES = 128 + SIM_TILE +
+                                   SIM_STAGES * SIM_STAGE_BYTES +
+                                   HEAD_STAGES * SIM_TILE * 4;
+
+// Thread 0 carries the chain; warp 1's lane 0 keeps the stream's ring full
+// (and copies the key sizes in once), warp 2's lane 0 the head ring.
+// SMEM_KEYS: key_sizes and key_slot in shared memory (design "smem"), else
+// in device memory ("global").
+template <bool SMEM_KEYS>
+__global__ void __launch_bounds__(96)
+cache_sim(const int* __restrict__ keys, const unsigned char* __restrict__ admit,
+          const unsigned char* __restrict__ reset,
+          const double* __restrict__ key_sizes,
+          const double* __restrict__ capacity,
+          const unsigned char* __restrict__ fifo,
+          const int* __restrict__ lengths, int np, int kp,
+          int* __restrict__ key_slot_all, unsigned char* __restrict__ hits,
+          int* __restrict__ ev_out, double* __restrict__ evb_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + SIM_STAGES;
+  uint64_t* hfull = empty + SIM_STAGES;
+  uint64_t* hempty = hfull + HEAD_STAGES;
+  uint64_t* sizes_bar = hempty + HEAD_STAGES;
+  unsigned char* hit_tile = smem + 128;
+  unsigned char* ring = hit_tile + SIM_TILE;
+  int* head_ring = reinterpret_cast<int*>(ring + SIM_STAGES *
+                                          SIM_STAGE_BYTES);
+  double* ksz_s = reinterpret_cast<double*>(head_ring + HEAD_STAGES *
+                                            SIM_TILE);
+  int* kslot_s = reinterpret_cast<int*>(ksz_s + kp);
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)b * np, krow = (long long)b * kp;
+  const int n = min(lengths[b], np);
+  const int ntiles = (n + SIM_TILE - 1) / SIM_TILE;
+  const double* ksz = SMEM_KEYS ? ksz_s : key_sizes + krow;
+  int* kslot = SMEM_KEYS ? kslot_s : key_slot_all + krow;
+  for (int k = threadIdx.x; k < kp; k += blockDim.x) kslot[k] = -1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SIM_STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 1);
+    }
+    for (int s = 0; s < HEAD_STAGES; ++s) {
+      mbar_init(smem_u32(hfull + s), 1);
+      mbar_init(smem_u32(hempty + s), 1);
+    }
+    mbar_init(smem_u32(sizes_bar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto stage_keys = [&](int s) {
+    return reinterpret_cast<int*>(ring + s * SIM_STAGE_BYTES);
+  };
+  auto stage_admit = [&](int s) {
+    return ring + s * SIM_STAGE_BYTES + 4 * SIM_TILE;
+  };
+  auto stage_reset = [&](int s) {
+    return ring + s * SIM_STAGE_BYTES + 5 * SIM_TILE;
+  };
+  auto tile_refs = [&](int i) {  // a multiple of 16, inside the row
+    return min(SIM_TILE, (n - i * SIM_TILE + 15) & ~15);
+  };
+
+  if (lane != 0) return;
+  if (warp == 1) {                         // the stream's producer
+    if (SMEM_KEYS && n > 0) {              // the key sizes, once
+      const uint32_t bar = smem_u32(sizes_bar);
+      mbar_expect_tx(bar, 8 * kp);
+      bulk_load(ksz_s, key_sizes + krow, 8 * kp, bar);
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % SIM_STAGES;
+      if (i >= SIM_STAGES)
+        mbar_wait(smem_u32(empty + s), ((i / SIM_STAGES) - 1) & 1);
+      const int cnt = tile_refs(i), t0 = i * SIM_TILE;
+      const uint32_t bar = smem_u32(full + s);
+      mbar_expect_tx(bar, cnt * 6);
+      bulk_load(stage_keys(s), keys + row + t0, cnt * 4, bar);
+      bulk_load(stage_admit(s), admit + row + t0, cnt, bar);
+      bulk_load(stage_reset(s), reset + row + t0, cnt, bar);
+    }
+    return;
+  }
+  if (warp == 2) {                         // the head ring's producer
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % HEAD_STAGES;
+      if (i >= HEAD_STAGES)
+        mbar_wait(smem_u32(hempty + s), ((i / HEAD_STAGES) - 1) & 1);
+      const int cnt = tile_refs(i);
+      const uint32_t bar = smem_u32(hfull + s);
+      mbar_expect_tx(bar, cnt * 4);
+      bulk_load(head_ring + s * SIM_TILE, keys + row + i * SIM_TILE,
+                cnt * 4, bar);
+    }
+    return;
+  }
+
+  const double cap = capacity[b];
+  const bool is_fifo = fifo[b] != 0;
+  int ep = 0;               // the last reset's step
+  int head = 0;             // every slot below head is empty
+  int htile = -1;           // the head ring's tile held (its keys read)
+  double usage = 0.0, evb = 0.0;
+  int ev = 0;
+  // hold a tile of the head ring (>= htile), releasing the ones before it
+  // to its producer
+  auto hold = [&](int tile) {
+    while (htile < tile) {
+      if (htile >= 0) mbar_arrive(smem_u32(hempty + htile % HEAD_STAGES));
+      ++htile;
+      mbar_wait(smem_u32(hfull + htile % HEAD_STAGES),
+                (htile / HEAD_STAGES) & 1);
+    }
+  };
+  if (SMEM_KEYS && n > 0) mbar_wait(smem_u32(sizes_bar), 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % SIM_STAGES;
+    mbar_wait(smem_u32(full + st), (i / SIM_STAGES) & 1);
+    const int* rk = stage_keys(st);
+    const unsigned char* ra = stage_admit(st);
+    const unsigned char* rr = stage_reset(st);
+    const int t0 = i * SIM_TILE, cnt = min(n - t0, SIM_TILE);
+    // step o's inputs are read during step o - 1, before its stores
+    int k = rk[0];
+    double s = ksz[k];
+    bool a = ra[0] != 0, r = rr[0] != 0;
+#pragma unroll 2
+    for (int o = 0; o < cnt; ++o) {
+      const int t = t0 + o;
+      const int p = o + 1 < cnt ? o + 1 : o;
+      const int k_next = rk[p];
+      const bool a_next = ra[p] != 0, r_next = rr[p] != 0;
+      const double s_next = ksz[k_next];
+      if (r) {                 // the disk came back empty: nothing counted
+        ep = t;
+        head = t;
+        usage = 0.0;
+      }
+      const int old = kslot[k];
+      const bool hit = old >= ep;
+      const bool ins = !hit && a;
+      const double need = usage + s - cap;
+      if (ins && need > 0.0) {
+        // the lowest occupied slots while the bytes freed are short:
+        // slot j is occupied iff key_slot[keys[j]] == j and its bytes > 0
+        double freed = 0.0;
+        int j = head;
+        while (freed < need && j < t) {
+          hold(j / SIM_TILE);
+          const int key = head_ring[(j / SIM_TILE) % HEAD_STAGES *
+                                    SIM_TILE + j % SIM_TILE];
+          const double bytes = ksz[key];
+          if (kslot[key] == j && bytes > 0.0) {
+            kslot[key] = -1;
+            freed += bytes;
+            ++ev;
+          }
+          ++j;
+        }
+        head = j;
+        usage -= freed;
+        evb += freed;
+      }
+      if (ins || (hit && !is_fifo)) kslot[k] = t;
+      usage += ins ? s : 0.0;
+      hit_tile[o] = hit;
+      k = k_next;
+      s = s_next;
+      a = a_next;
+      r = r_next;
+    }
+    // the tile's hits in whole words (the row is a multiple of 16): the
+    // bytes past the problem's end stay 0
+    for (int o = cnt; o < ((cnt + 3) & ~3); ++o) hit_tile[o] = 0;
+    for (int o = 0; o < cnt; o += 4)
+      *reinterpret_cast<unsigned*>(hits + row + t0 + o) =
+          *reinterpret_cast<const unsigned*>(hit_tile + o);
+    mbar_arrive(smem_u32(empty + st));
+  }
+  if (ntiles > 0) {            // release the head ring to its producer
+    hold(ntiles - 1);
+    mbar_arrive(smem_u32(hempty + htile % HEAD_STAGES));
+  }
+  ev_out[b] = ev;
+  evb_out[b] = evb;
 }
 
 }  // namespace
@@ -480,16 +649,34 @@ int sd_distances(const long long* prev, const double* sizes,
   return cudaGetLastError();
 }
 
+// Dynamic shared memory of a sd_cache_sim block: the two rings and a
+// tile's hits, and for the "smem" design (1) key_sizes and key_slot too.
+long long sd_cache_smem_bytes(int kp, int design) {
+  return (long long)(SIM_FIXED_BYTES + (design == 1 ? 12 * (size_t)kp : 0));
+}
+
+// design 1: the key state in shared memory ("smem"); 0: in device memory
+// ("global", key_slot the caller's B x Kp int32 scratch).  np must be a
+// multiple of 16 (the rings' bulk copies), kp even (the sizes' copy).
 int sd_cache_sim(const int* keys, const unsigned char* admit,
                  const unsigned char* reset, const double* key_sizes,
                  const double* capacity, const unsigned char* fifo,
-                 const int* lengths, int batch, int np, int kp,
-                 double* slot_bytes, int* slot_key, int* key_slot,
-                 int* res_epoch, unsigned char* hits, int* ev, double* evb,
+                 const int* lengths, int batch, int np, int kp, int design,
+                 int* key_slot, unsigned char* hits, int* ev, double* evb,
                  void* stream) {
-  cache_sim<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (np % 16 != 0 || kp % 2 != 0 || (design != 0 && design != 1))
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)sd_cache_smem_bytes(kp, design);
+  auto kernel = design == 1 ? cache_sim<true> : cache_sim<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();    // reported here: not to a later launch
+    return err;
+  }
+  kernel<<<batch, 96, smem, static_cast<cudaStream_t>(stream)>>>(
       keys, admit, reset, key_sizes, capacity, fifo, lengths, np, kp,
-      slot_bytes, slot_key, key_slot, res_epoch, hits, ev, evb);
+      key_slot, hits, ev, evb);
   return cudaGetLastError();
 }
 
@@ -500,14 +687,16 @@ long long sd_fifo_smem_bytes(int kp, int design) {
 }
 
 // design 1: kcum in shared memory ("smem"); 0: in device memory
-// ("global").  np must be a multiple of 16 (the ring's bulk copies).
+// ("global").  np must be a multiple of 16 (the ring's bulk copies);
+// width (<= np) is the row width the reference runs, np less the ring's
+// padding.
 int sd_fifo_replay(const int* keys, const double* sizes,
                    const unsigned char* admit, const unsigned char* reset,
                    const double* capacity, const int* lengths, int batch,
-                   int np, int kp, int design, double* cum_b, int* cum_n,
-                   double* kcum, unsigned char* hits, int* ev, double* evb,
-                   void* stream) {
-  if (np % 16 != 0 || (design != 0 && design != 1))
+                   int np, int width, int kp, int design, double* cum_b,
+                   int* cum_n, double* kcum, unsigned char* hits, int* ev,
+                   double* evb, void* stream) {
+  if (np % 16 != 0 || width > np || (design != 0 && design != 1))
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)sd_fifo_smem_bytes(kp, design);
   auto kernel = design == 1 ? fifo_replay<true> : fifo_replay<false>;
@@ -518,8 +707,8 @@ int sd_fifo_replay(const int* keys, const double* sizes,
     return err;
   }
   kernel<<<batch, 64, smem, static_cast<cudaStream_t>(stream)>>>(
-      keys, sizes, admit, reset, capacity, lengths, np, kp, cum_b, cum_n,
-      kcum, hits, ev, evb);
+      keys, sizes, admit, reset, capacity, lengths, np, width, kp, cum_b,
+      cum_n, kcum, hits, ev, evb);
   return cudaGetLastError();
 }
 

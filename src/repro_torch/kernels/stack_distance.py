@@ -65,19 +65,24 @@ FifoProblem = Tuple[Sequence[int], Sequence[float], Sequence[bool],
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("stack_distance", {
     "sd_distances": ([_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp], _ci),
-    "sd_cache_sim": ([_vp] * 7 + [_ci] * 3 + [_vp] * 8, _ci),
-    "sd_fifo_replay": ([_vp] * 6 + [_ci] * 4 + [_vp] * 7, _ci),
+    "sd_cache_sim": ([_vp] * 7 + [_ci] * 4 + [_vp] * 5, _ci),
+    "sd_cache_smem_bytes": ([_ci, _ci], ctypes.c_longlong),
+    "sd_fifo_replay": ([_vp] * 6 + [_ci] * 5 + [_vp] * 7, _ci),
     "sd_fifo_smem_bytes": ([_ci, _ci], ctypes.c_longlong)})
 
-# sd_fifo_replay's fixed shared memory (csrc/stack_distance.cu: a barrier
-# pair and FIFO_TILE references of 14 B for each of FIFO_STAGES stages, a
-# FIFO_HIST-step history of cumB/cumN, 12 B a step, and a tile's hits)
-# and the shared memory a block may have on Hopper: the key state (8 B a
-# key) goes beside them where it fits ("smem"), else in device memory
-# ("global").
+# The replays' fixed shared memory (csrc/stack_distance.cu) and the shared
+# memory a block may have on Hopper: each replay's key state goes beside
+# its fixed part where it fits ("smem"), else in device memory ("global").
+# sd_fifo_replay: a barrier pair and FIFO_TILE references of 14 B for each
+# of FIFO_STAGES stages, a FIFO_HIST-step history of cumB/cumN, 12 B a
+# step, and a tile's hits; its key state kcum is 8 B a key.
+# sd_cache_sim: 128 B of barriers, a tile's hits, SIM_STAGES stages of
+# SIM_TILE references of 6 B and HEAD_STAGES of SIM_TILE keys of 4 B; its
+# key state, key_sizes and key_slot, is 12 B a key.
 FIFO_RING_BYTES = 16 * 3 + 3 * 1024 * 14 + 4096 * 12 + 1024
+SIM_RING_BYTES = 128 + 1024 + 3 * 1024 * 6 + 2 * 1024 * 4
 BLOCK_SMEM_BYTES = 232448
-FIFO_DESIGNS = ("global", "smem")
+DESIGNS = ("global", "smem")
 
 
 def _check(name: str, device: torch.device, *named) -> None:
@@ -97,6 +102,15 @@ def _check(name: str, device: torch.device, *named) -> None:
             raise ValueError(f"{name} kernel: {label} must be a contiguous "
                              f"{tuple(shape)} tensor, got "
                              f"{tuple(t.shape)}")
+
+
+def _pad_to(multiple: int, *tensors: torch.Tensor) -> List[torch.Tensor]:
+    """Pad each (B, W) tensor with zeros on the right to the next multiple
+    of ``multiple`` columns (the kernels' bulk copies)."""
+    width = tensors[0].shape[1]
+    extra = -width % multiple
+    return [torch.nn.functional.pad(t, (0, extra)) if extra else t
+            for t in tensors]
 
 
 def _lengths(lengths: torch.Tensor, num: int,
@@ -146,7 +160,36 @@ class DistanceKernel(_ScanKernel):
         return out
 
 
-class CacheSimKernel(_ScanKernel):
+class _TwoDesigns(_ScanKernel):
+    """A replay with two designs by Kp: "smem" when its key state
+    (``KEY_BYTES`` a key) fits beside its fixed shared memory
+    (``RING_BYTES``) in a block, else "global"; ``launches_by_design``
+    counts each."""
+
+    RING_BYTES: int
+    KEY_BYTES: int
+    SMEM_FN: str
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+    def design(self, kp: int) -> str:
+        return "smem" if self.RING_BYTES + self.KEY_BYTES * kp <= \
+            BLOCK_SMEM_BYTES else "global"
+
+    def smem_bytes(self, kp: int) -> int:
+        """The dynamic shared memory of a block of the design for Kp."""
+        return int(getattr(LIB.load(), self.SMEM_FN)(
+            kp, DESIGNS.index(self.design(kp))))
+
+
+class CacheSimKernel(_TwoDesigns):
+    """``sd_cache_sim``: key_sizes and key_slot in shared memory ("smem",
+    Kp <= 17,056) or in device memory ("global")."""
+
+    RING_BYTES, KEY_BYTES, SMEM_FN = SIM_RING_BYTES, 12, "sd_cache_smem_bytes"
+
     def __call__(self, keys: torch.Tensor, admit: torch.Tensor,
                  reset: torch.Tensor, key_sizes: torch.Tensor,
                  capacity: torch.Tensor, fifo: torch.Tensor,
@@ -154,7 +197,10 @@ class CacheSimKernel(_ScanKernel):
         """The slot machine: keys (B, Np) int32, admit and reset (B, Np)
         bool, key_sizes (B, Kp) float64, capacity (B,) float64, fifo (B,)
         bool → (hits (B, Np) bool, evictions (B,) int32, bytes evicted
-        (B,) float64); hits beyond a problem's length are False."""
+        (B,) float64); hits beyond a problem's length are False.  Np is
+        padded to a multiple of 16 (the ring's copies) and Kp to an even
+        count (the sizes' copy), with references and keys no length or
+        key reaches."""
         num, n = keys.shape
         kp = key_sizes.shape[1]
         dev = keys.device
@@ -165,41 +211,30 @@ class CacheSimKernel(_ScanKernel):
                ("capacity", capacity, torch.float64, (num,)),
                ("fifo", fifo, torch.bool, (num,)))
         lens = _lengths(lengths, num, dev)
-        slot_bytes = torch.empty(num, n, dtype=torch.float64, device=dev)
-        slot_key = torch.empty(num, n, dtype=torch.int32, device=dev)
-        key_slot = torch.empty(num, kp, dtype=torch.int32, device=dev)
-        res_epoch = torch.zeros(num, kp, dtype=torch.int32, device=dev)
-        hits = torch.zeros(num, n, dtype=torch.bool, device=dev)
+        keys, admit, reset = _pad_to(16, keys, admit, reset)
+        key_sizes, = _pad_to(2, key_sizes)
+        n16, kp2 = keys.shape[1], key_sizes.shape[1]
+        design = self.design(kp2)
+        key_slot = torch.empty(num, kp2 if design == "global" else 0,
+                               dtype=torch.int32, device=dev)
+        hits = torch.zeros(num, n16, dtype=torch.bool, device=dev)
         ev = torch.empty(num, dtype=torch.int32, device=dev)
         evb = torch.empty(num, dtype=torch.float64, device=dev)
         self._launch("sd_cache_sim", "cache sim", dev, keys.data_ptr(),
                      admit.data_ptr(), reset.data_ptr(),
                      key_sizes.data_ptr(), capacity.data_ptr(),
-                     fifo.data_ptr(), lens.data_ptr(), num, n, kp,
-                     slot_bytes.data_ptr(), slot_key.data_ptr(),
-                     key_slot.data_ptr(), res_epoch.data_ptr(),
+                     fifo.data_ptr(), lens.data_ptr(), num, n16, kp2,
+                     DESIGNS.index(design), key_slot.data_ptr(),
                      hits.data_ptr(), ev.data_ptr(), evb.data_ptr())
-        return hits, ev, evb
+        self.launches_by_design[design] += 1
+        return hits[:, :n], ev, evb
 
 
-class FifoReplayKernel(_ScanKernel):
-    """``sd_fifo_replay``, in two designs by Kp; ``launches_by_design``
-    counts each."""
+class FifoReplayKernel(_TwoDesigns):
+    """``sd_fifo_replay``: kcum in shared memory ("smem", Kp <= 16,384) or
+    in device memory ("global")."""
 
-    def __init__(self) -> None:
-        super().__init__()
-        self.launches_by_design = dict.fromkeys(FIFO_DESIGNS, 0)
-
-    @staticmethod
-    def design(kp: int) -> str:
-        """"smem" when the key state fits beside the ring, else "global"."""
-        return "smem" if FIFO_RING_BYTES + 8 * kp <= BLOCK_SMEM_BYTES \
-            else "global"
-
-    def smem_bytes(self, kp: int) -> int:
-        """The dynamic shared memory of a block of the design for Kp."""
-        return int(LIB.load().sd_fifo_smem_bytes(
-            kp, FIFO_DESIGNS.index(self.design(kp))))
+    RING_BYTES, KEY_BYTES, SMEM_FN = FIFO_RING_BYTES, 8, "sd_fifo_smem_bytes"
 
     def __call__(self, keys: torch.Tensor, sizes: torch.Tensor,
                  admit: torch.Tensor, reset: torch.Tensor,
@@ -210,7 +245,8 @@ class FifoReplayKernel(_ScanKernel):
         per-key state's start, zeros), capacity (B,) float64 → (hits,
         evictions int32, bytes evicted float64).  An Np that is not a
         multiple of 16 (the ring's copies) is padded with empty
-        references, which no length reaches."""
+        references, which no length reaches; the bytes evicted still
+        follow the reference over a row of Np."""
         num, n = keys.shape
         kp = kcum0.shape[1]
         dev = keys.device
@@ -221,11 +257,8 @@ class FifoReplayKernel(_ScanKernel):
                ("kcum0", kcum0, torch.float64, (num, kp)),
                ("capacity", capacity, torch.float64, (num,)))
         lens = _lengths(lengths, num, dev)
-        n16 = -(-n // 16) * 16
-        if n16 != n:
-            keys, sizes, admit, reset = (
-                torch.nn.functional.pad(t, (0, n16 - n))
-                for t in (keys, sizes, admit, reset))
+        keys, sizes, admit, reset = _pad_to(16, keys, sizes, admit, reset)
+        n16 = keys.shape[1]
         design = self.design(kp)
         cum_b = torch.empty(num, n16, dtype=torch.float64, device=dev)
         cum_n = torch.empty(num, n16, dtype=torch.int32, device=dev)
@@ -235,8 +268,8 @@ class FifoReplayKernel(_ScanKernel):
         evb = torch.empty(num, dtype=torch.float64, device=dev)
         self._launch("sd_fifo_replay", "fifo replay", dev, keys.data_ptr(),
                      sizes.data_ptr(), admit.data_ptr(), reset.data_ptr(),
-                     capacity.data_ptr(), lens.data_ptr(), num, n16, kp,
-                     FIFO_DESIGNS.index(design), cum_b.data_ptr(),
+                     capacity.data_ptr(), lens.data_ptr(), num, n16, n, kp,
+                     DESIGNS.index(design), cum_b.data_ptr(),
                      cum_n.data_ptr(), kcum.data_ptr(), hits.data_ptr(),
                      ev.data_ptr(), evb.data_ptr())
         self.launches_by_design[design] += 1

@@ -12,13 +12,15 @@ so the float64 sums are exact in any order: the tolerance is zero.
 
 The CUDA kernels of ``csrc/stack_distance.cu`` cannot run here, so their
 algorithms — distances from ``next`` pointers with a warp's lanes and a
-shuffle reduction, the slot machine's head pointer and key epochs, the
-FIFO frontier's forward search — are modelled line for line in numpy and
-held to the plain versions; a control at a capacity one byte below a size
-that decides an eviction must fail the same check.  The ``gpu`` tests hold
-each kernel to its plain version on the card.  JAX comes in through the
-``jx`` fixture, so that on the machine with the card, which has no JAX,
-the ``gpu`` tests run.
+shuffle reduction, the slot machine's key_slot state and its scalar walk
+from a head pointer, the FIFO frontier's forward search
+and its bytes evicted after an oversize insert — are modelled line for
+line in numpy and held to the plain versions and the reference's scans,
+on random families and on hand-made traps; a control at a capacity one
+byte below a size that decides an eviction must fail the same check.  The
+``gpu`` tests hold each kernel to its plain version on the card.  JAX
+comes in through the ``jx`` fixture, so that on the machine with the
+card, which has no JAX, the ``gpu`` tests run.
 """
 import types
 
@@ -156,6 +158,33 @@ def test_device_none_means_cuda(monkeypatch):
         sd.stack_distances_batch([([-1], [1.0])])
 
 
+@pytest.mark.parametrize("fn", ["fifo_sim_batch", "cache_sim_batch"])
+def test_replays_device_none_means_cuda(monkeypatch, fn):
+    """Without a card, a replay asked for no device (the card) raises
+    rather than taking the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, fifo, sim = random_problems(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(sd, fn)((fifo if fn == "fifo_sim_batch" else sim)[:1])
+
+
+def test_cache_sim_kernel_refuses_cpu_tensors():
+    """The slot machine's wrapper takes CUDA tensors only, whatever its
+    design; nothing is launched or counted."""
+    num, n, kp = 1, 256, 64
+    before = (sd.CACHE_SIM.launches, dict(sd.CACHE_SIM.launches_by_design))
+    with pytest.raises(ValueError, match="CUDA"):
+        sd.CACHE_SIM(torch.zeros(num, n, dtype=torch.int32),
+                     torch.zeros(num, n, dtype=torch.bool),
+                     torch.zeros(num, n, dtype=torch.bool),
+                     torch.zeros(num, kp, dtype=torch.float64),
+                     torch.zeros(num, dtype=torch.float64),
+                     torch.zeros(num, dtype=torch.bool),
+                     torch.full((num,), n))
+    assert (sd.CACHE_SIM.launches,
+            sd.CACHE_SIM.launches_by_design) == before
+
+
 def test_kernels_refuse_cpu_tensors():
     """A kernel wrapper takes CUDA tensors only; the CPU goes through
     ``ops`` to the plain version, never to a kernel."""
@@ -195,51 +224,73 @@ def model_distances(prev, sizes):
     return out
 
 
-def model_cache_sim(keys, admit, reset, key_sizes, cap, fifo):
-    """``sd_cache_sim``: one problem's chain with a head pointer over the
-    slots and an epoch per key."""
+HEAD_TILE = 1024        # keys a stage of the slot machine's head ring holds
+
+
+def sim_state():
+    return types.SimpleNamespace(walks=0, inspected=0, skipped=0,
+                                 victims_max=0, tiles_crossed=0,
+                                 head_touches=0)
+
+
+def model_cache_sim(keys, admit, reset, key_sizes, cap, fifo, st=None):
+    """``sd_cache_sim``: one thread's chain with key_slot as the only key
+    state (resident iff key_slot >= ep, the last reset's step; -1 once
+    evicted) and a head pointer that only moves forward (every slot below
+    it is empty; a reset sets it to t).  Slot j is occupied iff
+    key_slot[keys[j]] == j and its bytes are > 0.  An insert that needs
+    room inspects the slots from the head in order, evicting the occupied
+    ones while the bytes freed are short of need, and leaves the head past
+    the last one inspected (the kernel reads keys[j] from its head ring:
+    the same values).  ``st`` counts walks, slots inspected and those not
+    occupied, the most victims of one walk, walks that cross a tile of the
+    head ring, and LRU touches of the first occupied slot."""
+    st = sim_state() if st is None else st
     n = len(keys)
-    sb = np.zeros(n)
-    sk = np.zeros(n, np.int64)
-    kslot = np.zeros(len(key_sizes), np.int64)
-    epoch_of = np.zeros(len(key_sizes), np.int64)
-    epoch, head, usage, evb, ev = 1, 0, 0.0, 0.0, 0
+    kslot = np.full(len(key_sizes), -1, np.int64)
+    ep = head = 0
+    usage = evb = 0.0
+    ev = 0
     hits = np.zeros(n, bool)
+
+    def occupied(j):
+        key = int(keys[j])
+        return kslot[key] == j and key_sizes[key] > 0.0
+
     for t in range(n):
-        k = int(keys[t])
+        k, a, s = int(keys[t]), bool(admit[t]), key_sizes[int(keys[t])]
         if reset[t]:
-            epoch += 1
-            head = t
-            usage = 0.0
-        s = key_sizes[k]
-        hit = epoch_of[k] == epoch
-        do_insert = not hit and bool(admit[t])
-        if do_insert:
-            need = usage + s - cap
-            freed = 0.0
-            j = head
-            while j < t:
-                if sb[j] > 0.0:
-                    if not freed < need:
-                        break
-                    freed += sb[j]
-                    sb[j] = 0.0
-                    epoch_of[sk[j]] = 0
+            ep, head, usage = t, t, 0.0
+        old = int(kslot[k])
+        hit = old >= ep
+        ins = not hit and a
+        need = usage + s - cap
+        if ins and need > 0.0:
+            st.walks += 1
+            freed, victims, j = 0.0, 0, head
+            while freed < need and j < t:
+                key = int(keys[j])
+                st.inspected += 1
+                if kslot[key] == j and key_sizes[key] > 0.0:
+                    kslot[key] = -1
+                    freed += key_sizes[key]
                     ev += 1
+                    victims += 1
+                else:
+                    st.skipped += 1
                 j += 1
+            st.tiles_crossed += int(j > head and
+                                    head // HEAD_TILE != (j - 1) // HEAD_TILE)
             head = j
             usage -= freed
             evb += freed
-        touch = do_insert or (hit and not fifo)
-        if hit and touch:
-            sb[kslot[k]] = 0.0
-        sb[t] = s if touch else 0.0
-        sk[t] = k
-        if touch:
+            st.victims_max = max(st.victims_max, victims)
+        if hit and not fifo and occupied(old):
+            st.head_touches += int(not any(occupied(j)
+                                           for j in range(head, old)))
+        if ins or (hit and not fifo):
             kslot[k] = t
-        epoch_of[k] = epoch if (hit or do_insert) else 0
-        if do_insert:
-            usage += s
+        usage += s if ins else 0.0
         hits[t] = hit
     return hits, ev, evb
 
@@ -289,12 +340,16 @@ def search_state():
                                  wv=None, wn=None, restarts=0, loads=0)
 
 
-def model_fifo_replay(keys, sizes, admit, reset, n_keys, cap, st=None):
+def model_fifo_replay(keys, sizes, admit, reset, n_keys, cap, st=None,
+                      width=None):
     """``sd_fifo_replay``: the stream in ring tiles of 1,024 references,
     the key state kcum (float64, in shared memory or device memory by Kp:
     the same values) and the frontier moved by ``window_search`` (the
     kernel reads the last 4,096 steps from its shared history, older ones
-    from device memory: the same values)."""
+    from device memory: the same values).  A step that moves no frontier
+    adds E - E to the bytes evicted, as the reference does (NaN once E is
+    +inf), and so, once, do the reference's padding steps when its row
+    (``width``) is longer than the problem."""
     n = len(keys)
     cb = np.zeros(n)
     cn = np.zeros(n, np.int64)
@@ -316,12 +371,16 @@ def model_fifo_replay(keys, sizes, admit, reset, n_keys, cap, st=None):
                 ev += new_n - e_n
                 evb += new_e - e
                 e, e_n = new_e, new_n
+            else:
+                evb += e - e
             if ins:
                 total += s
                 tot_n += 1
                 kcum[k] = total
             cb[t], cn[t] = total, tot_n
             hits[t] = hit
+    if width is not None and n < width:
+        evb += e - e
     return hits, ev, evb
 
 
@@ -468,6 +527,247 @@ def test_fifo_design_boundary(n_keys):
     assert (got[1], got[2]) == want[1:] and got[1] > 0
 
 
+def _bits(x):
+    """A float64's bits: NaN equals NaN, +inf is not NaN."""
+    return np.float64(x).view(np.int64)
+
+
+def _sim_cases():
+    """Hand-made slot-machine problems, each at one trap of the kernel's
+    design: name → (problems (keys, admit, reset, key_sizes, capacity,
+    fifo), what the model's counters must show)."""
+    rng = np.random.default_rng(7)
+
+    def both(keys, ksz, cap, reset=None, admit=None):
+        keys = np.asarray(keys, np.int32)
+        ksz = np.asarray(ksz, np.float64)
+        reset = np.zeros(len(keys), bool) if reset is None else reset
+        admit = np.ones(len(keys), bool) if admit is None else admit
+        return [(keys, admit, reset, ksz, float(cap), f)
+                for f in (False, True)]
+
+    # zero-byte keys among sized ones, evicting: resident, never victims
+    keys, ksz, _, _ = _stream(rng, 900, 40, 30, reset_rate=0.0)
+    ksz[::3] = 0.0
+    zero = both(keys, ksz, 60.0, admit=rng.random(900) < 0.9)
+    # an insert that evicts, then a reset on the very next step
+    keys = [0, 1, 2, 3, 4, 5, 1, 2, 0, 6, 7, 8, 9, 1, 0, 5]
+    reset = np.zeros(len(keys), bool)
+    reset[6] = True
+    after = both(keys, [10.0] * 10, 50.0, reset=reset)
+    keys, ksz, reset, _ = _stream(rng, 900, 30, 20, reset_rate=0.1)
+    after += both(keys, ksz, 45.0, reset=reset)
+    # LRU hits on the oldest resident key, the slot at the head
+    head = both([0, 1, 2, 0, 1, 2, 3, 1, 2, 0, 4, 2, 5], [10.0] * 6, 30.0)
+    # walks of many victims, with holes left by LRU touches and zero-byte
+    # keys on the way
+    keys = list(range(40)) + [5, 7, 40] + list(range(41, 150)) + [150, 151]
+    ksz = np.ones(152)
+    ksz[[40, 150]] = 35.0, 100.0
+    ksz[[9, 60, 61]] = 0.0
+    long = both(keys, ksz, 40.0) + both(keys, ksz, 120.0)
+    # walks across the head ring's tiles of 1,024 slots: one insert that
+    # frees slots 0..1049, and after a reset that moves the head into the
+    # second tile, evictions that walk on into the third
+    keys = np.arange(2600) % 1400
+    ksz = np.ones(1400)
+    ksz[1100] = 1050.0
+    reset = np.zeros(2600, bool)
+    reset[1500] = True
+    tiles = both(keys[:1400], ksz, 1100.0) + both(keys, ksz, 200.0,
+                                                    reset=reset)
+    # an admitted insert larger than the capacity: it frees every slot
+    # and is inserted; the next insert evicts it
+    over = both([0, 1, 2, 0, 3, 4, 2], [4.0, 4.0, 20.0, 4.0, 4.0], 10.0)
+    # FIFO and LRU over one stream at one capacity, in one batch
+    keys, ksz, reset, _ = _stream(rng, 700, 50, 40)
+    mixed = both(keys, ksz, 150.0, reset=reset,
+                 admit=rng.random(700) < 0.85)
+    return {"zero_byte_keys": (zero, lambda st: st.walks > 20
+                               and st.skipped > 0),
+            "reset_after_eviction": (after, lambda st: st.walks > 0),
+            "lru_touch_at_head": (head, lambda st: st.head_touches >= 4
+                                  and st.skipped > 0),
+            "long_walks": (long, lambda st: st.victims_max > 64
+                           and st.skipped > 0),
+            "walk_crosses_head_tiles": (tiles, lambda st:
+                                        st.tiles_crossed >= 4
+                                        and st.victims_max >= 1050),
+            "oversize_admit": (over, lambda st: st.victims_max == 2),
+            "fifo_and_lru_in_one_batch": (mixed, lambda st: st.walks > 20)}
+
+
+def _reference_sim(jx, problems):
+    """The reference's ``_sim_batch`` on problems in one batch, padded as
+    its batch function pads them: (hits, evictions, bytes evicted)."""
+    Np = sd._next_pow2(max(len(p[0]) for p in problems), floor=sd._FLOOR_N)
+    Kp = sd._next_pow2(max(len(p[3]) for p in problems), floor=sd._FLOOR_K)
+    num = len(problems)
+    keys = np.zeros((num, Np), np.int32)
+    admit = np.zeros((num, Np), bool)
+    reset = np.zeros((num, Np), bool)
+    ksz = np.zeros((num, Kp))
+    for b, (k, a, r, s, _, _) in enumerate(problems):
+        keys[b, :len(k)], admit[b, :len(a)], reset[b, :len(r)] = k, a, r
+        ksz[b, :len(s)] = s
+    cap = np.array([p[4] for p in problems])
+    fifo = np.array([p[5] for p in problems])
+    with jx.sd.enable_x64():
+        hits, ev, evb = (np.asarray(x) for x in jx.sd._sim_batch(
+            keys, admit, reset, ksz, cap, fifo))
+    return [(hits[b, :len(p[0])], int(ev[b]), float(evb[b]))
+            for b, p in enumerate(problems)]
+
+
+def _plain_sim(problems):
+    """``ref.cache_sim_ref`` on problems of one length in one batch."""
+    keys, admit, reset = (torch.from_numpy(np.stack([p[i] for p in
+                                                     problems]))
+                          for i in range(3))
+    kp = max(len(p[3]) for p in problems)
+    ksz = torch.from_numpy(np.stack([np.pad(p[3], (0, kp - len(p[3])))
+                                     for p in problems]))
+    hits, ev, evb = ref.cache_sim_ref(
+        keys, admit, reset, ksz, torch.tensor([p[4] for p in problems],
+                                              dtype=torch.float64),
+        torch.tensor([p[5] for p in problems]))
+    return [(hits[b].numpy(), int(ev[b]), float(evb[b]))
+            for b in range(len(problems))]
+
+
+def _assert_same(got, want):
+    assert np.array_equal(got[0], want[0])
+    assert got[1] == want[1] and _bits(got[2]) == _bits(want[2])
+
+
+@pytest.mark.parametrize("case", list(_sim_cases()))
+def test_cache_sim_model_cases(jx, case):
+    """Each trap of the slot machine's design: the kernel's model equals
+    the plain version and the reference's ``_sim_batch`` bit for bit, and
+    its counters show that the case reached the trap."""
+    problems, shows = _sim_cases()[case]
+    want = _reference_sim(jx, problems)
+    plain = _plain_sim(problems) if case == "fifo_and_lru_in_one_batch" \
+        else [_plain_sim([p])[0] for p in problems]
+    st = sim_state()
+    for p, w, pl in zip(problems, want, plain):
+        got = model_cache_sim(*p, st=st)
+        _assert_same(got, w)
+        _assert_same(pl, w)
+    assert shows(st)
+    if case == "fifo_and_lru_in_one_batch":
+        assert want[0][1:] != want[1][1:]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cache_sim_model_equals_the_reference(jx, seed):
+    """The kernel's model against the reference's ``_sim_batch`` on the
+    random families (every problem of a seed in one batch); its walks
+    inspect each slot at most once."""
+    _, _, sim = random_problems(seed)
+    st = sim_state()
+    for p, want in zip(sim, _reference_sim(jx, sim)):
+        _assert_same(model_cache_sim(*p, st=st), want)
+    assert st.walks > 50 and st.skipped > 0
+    # the head only moves forward: no slot is inspected twice
+    assert st.inspected <= sum(len(p[0]) for p in sim)
+
+
+@pytest.mark.parametrize("n_keys", [16384, 16385])
+def test_cache_sim_design_boundary(n_keys):
+    """Kp 16,384 keeps key_sizes and key_slot beside the rings in shared
+    memory (12 B a key, up to Kp 17,056), Kp 32,768 in device memory; the
+    model equals the plain version on a stream over keys at the top of
+    the range."""
+    kp = sd._next_pow2(n_keys, floor=sd._FLOOR_K)
+    design = sd.CACHE_SIM.design(kp)
+    assert design == ("smem" if kp <= 16384 else "global")
+    assert [sd.CACHE_SIM.design(k) for k in (17056, 17058)] == \
+        ["smem", "global"]
+    assert (sd.SIM_RING_BYTES + 12 * kp <= sd.BLOCK_SMEM_BYTES) == \
+        (design == "smem")
+    rng = np.random.default_rng(n_keys)
+    keys = (n_keys - 1 - rng.integers(0, 200, 2500)).astype(np.int32)
+    ksz = rng.integers(0, 50, n_keys).astype(np.float64)
+    reset = rng.random(2500) < 0.005
+    admit = (rng.random(2500) < 0.9) & (ksz[keys] <= 900.0)
+    for fifo in (False, True):
+        got = model_cache_sim(keys, admit, reset, ksz, 900.0, fifo)
+        want = _plain_one(ref.cache_sim_ref, keys, admit, reset,
+                          np.pad(ksz, (0, kp - n_keys)), np.float64(900.0),
+                          fifo)
+        _assert_same(got, want)
+        assert got[1] > 0
+
+
+# keys, sizes, admit, reset, capacity: the third reference (20 B) is larger
+# than the capacity and admitted, which moves the frontier to +inf
+OVERSIZE = ([0, 1, 2, 0, 3], [4.0, 4.0, 20.0, 4.0, 4.0], 10.0)
+
+
+def _oversize(reset_at=None, last=False):
+    keys, sizes, cap = OVERSIZE
+    keys, sizes = np.array(keys, np.int32), np.array(sizes)
+    if last:                               # the oversize insert comes last
+        keys, sizes = keys[:3], sizes[:3]
+    reset = np.zeros(len(keys), bool)
+    if reset_at is not None:
+        reset[reset_at] = True
+    return keys, sizes, np.ones(len(keys), bool), reset, 4, cap
+
+
+# name: (problem, the reference's row width, its bytes evicted)
+OVERSIZE_CASES = {"no_later_reset": (_oversize(), 5, np.nan),
+                  "reset_on_the_next_step": (_oversize(3), 5, np.inf),
+                  "reset_on_the_next_step_padded": (_oversize(3), 256,
+                                                    np.inf),
+                  "oversize_last": (_oversize(last=True), 3, np.inf),
+                  "oversize_last_padded": (_oversize(last=True), 256,
+                                           np.nan)}
+
+
+@pytest.mark.parametrize("case", list(OVERSIZE_CASES))
+def test_fifo_oversize_admit_bytes(jx, case):
+    """An admitted insert larger than the capacity moves the frontier to
+    +inf: the reference's ``_fifo_batch``, the plain version and the
+    kernel's model give NaN bytes evicted (``inf - inf`` on a later step
+    without a reset, the reference's padding steps included) or +inf (a
+    reset on the very next step, or no step after), and the same counts:
+    0 evictions, since cumN is 0 where cumB is +inf."""
+    (keys, sizes, admit, reset, n_keys, cap), width, want_evb = \
+        OVERSIZE_CASES[case]
+    pad = width - len(keys)
+    rows = [np.pad(x, (0, pad)) for x in (keys, sizes, admit, reset)]
+    with jx.sd.enable_x64():
+        hits, ev, evb = (np.asarray(x)[0] for x in jx.sd._fifo_batch(
+            *(r[None] for r in rows), np.zeros((1, n_keys)),
+            np.array([cap])))
+    want = (hits[:len(keys)], int(ev), float(evb))
+    assert np.array_equal(want[2], want_evb, equal_nan=True) and \
+        want[1] == 0
+    plain = _plain_one(ref.fifo_replay_ref, *rows, np.zeros(n_keys),
+                       np.float64(cap))
+    _assert_same((plain[0][:len(keys)],) + plain[1:], want)
+    with np.errstate(invalid="ignore"):
+        got = model_fifo_replay(keys, sizes, admit, reset, n_keys, cap,
+                                width=width)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("case,error", [("no_later_reset", ValueError),
+                                        ("reset_on_the_next_step",
+                                         OverflowError)])
+def test_fifo_sim_batch_raises_on_oversize(jx, case, error):
+    """Both packages' ``fifo_sim_batch`` round the bytes evicted to an
+    int, as the reference does: NaN raises ValueError, +inf
+    OverflowError."""
+    problem = OVERSIZE_CASES[case][0]
+    with pytest.raises(error):
+        jx.sd.fifo_sim_batch([problem])
+    with pytest.raises(error):
+        sd.fifo_sim_batch([problem], device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -586,3 +886,82 @@ def test_fifo_designs_on_card(card, n_keys):
     assert torch.equal(hits, w_hits)
     assert torch.equal(ev, w_ev) and torch.equal(evb, w_evb)
     assert int(ev[0]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_keys", [301, 16384, 16385])
+def test_cache_sim_designs_on_card(card, n_keys):
+    """Both designs of the slot machine against the plain version on the
+    card, LRU and FIFO: zero-byte keys, resets, a length that is no
+    multiple of 16 and an odd Kp (the wrapper pads both), Kp on each
+    side of the boundary; the launch counted by design."""
+    rng = np.random.default_rng(n_keys)
+    num, n = 4, 3001
+    keys = (n_keys - 1 - rng.integers(0, 250, (num, n))).astype(np.int32)
+    ksz = rng.integers(0, 40, (num, n_keys)).astype(np.float64)
+    ksz[rng.random((num, n_keys)) < 0.2] = 0.0
+    reset = rng.random((num, n)) < 0.01
+    cap = np.array([40.0, 200.0, 1000.0, 1e9])
+    admit = (rng.random((num, n)) < 0.9) & \
+        (np.take_along_axis(ksz, keys, 1) <= cap[:, None])
+    fifo = np.array([False, True, False, True])
+    args = [torch.from_numpy(x).to(card)
+            for x in (keys, admit, reset, ksz, cap, fifo)]
+    design = sd.CACHE_SIM.design(n_keys + n_keys % 2)
+    before = dict(sd.CACHE_SIM.launches_by_design)
+    hits, ev, evb = ops.cache_sim(*args, torch.full((num,), n).to(card))
+    assert sd.CACHE_SIM.launches_by_design[design] == before[design] + 1
+    w_hits, w_ev, w_evb = ref.cache_sim_ref(*args)
+    assert torch.equal(hits, w_hits)
+    assert torch.equal(ev, w_ev) and torch.equal(evb, w_evb)
+    assert int(ev[0]) > 0 and int(ev[1]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_sim_cases()))
+def test_cache_sim_cases_on_card(card, case):
+    """The hand-made traps of the slot machine, in one batch a case, on
+    the card against the plain version on the card."""
+    problems, _ = _sim_cases()[case]
+    num = len(problems)
+    n = max(len(p[0]) for p in problems)
+    kp = max(len(p[3]) for p in problems)
+    keys = np.zeros((num, n), np.int32)
+    admit = np.zeros((num, n), bool)
+    reset = np.zeros((num, n), bool)
+    ksz = np.zeros((num, kp))
+    lengths = np.zeros(num, np.int32)
+    for b, (k, a, r, s, _, _) in enumerate(problems):
+        keys[b, :len(k)], admit[b, :len(a)], reset[b, :len(r)] = k, a, r
+        ksz[b, :len(s)], lengths[b] = s, len(k)
+    args = [torch.from_numpy(x).to(card) for x in
+            (keys, admit, reset, ksz, np.array([p[4] for p in problems]),
+             np.array([p[5] for p in problems]))]
+    hits, ev, evb = ops.cache_sim(*args, torch.from_numpy(lengths).to(card))
+    w_hits, w_ev, w_evb = ref.cache_sim_ref(*args)
+    assert torch.equal(ev, w_ev) and torch.equal(evb, w_evb)
+    for b, length in enumerate(lengths):
+        assert torch.equal(hits[b, :length], w_hits[b, :length])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(OVERSIZE_CASES))
+def test_fifo_oversize_on_card(card, case):
+    """The FIFO replay after an admitted oversize insert, on the card:
+    the same NaN or +inf bytes evicted as the plain version (compared by
+    bits: ``torch.equal`` takes NaN for unequal) and the same counts,
+    with the reference's row ``width`` as the kernel's Np."""
+    (keys, sizes, admit, reset, n_keys, cap), width, want_evb = \
+        OVERSIZE_CASES[case]
+    pad = width - len(keys)
+    args = [torch.from_numpy(np.pad(x, (0, pad))[None]).to(card)
+            for x in (keys, sizes, admit, reset)]
+    args += [torch.zeros(1, n_keys, dtype=torch.float64, device=card),
+             torch.tensor([cap], dtype=torch.float64, device=card)]
+    hits, ev, evb = ops.fifo_replay(*args, torch.tensor([len(keys)],
+                                                        device=card))
+    w_hits, w_ev, w_evb = ref.fifo_replay_ref(*args)
+    assert torch.equal(hits[0, :len(keys)], w_hits[0, :len(keys)])
+    assert torch.equal(ev, w_ev)
+    assert torch.equal(evb.view(torch.int64), w_evb.view(torch.int64))
+    assert np.array_equal(float(evb[0]), want_evb, equal_nan=True)
