@@ -1638,6 +1638,83 @@ def _exact_fill_capacities(keys, sizes, admit, reset):
 CONTROL_REFS = 2048        # the control problem: a prefix of a recorded one
 
 
+def _largest(rec, name: str) -> int:
+    """The index of a scan's first call at its largest bucket of the run."""
+    sizes = [args[0].numel() for args, _, _, _ in rec.calls[name]]
+    return sizes.index(max(sizes))
+
+
+def _distance_control(rec, card: str) -> dict:
+    """The control of sd_distances' exactness check, on the longest
+    problem of its largest bucket, whole, at the bucket's width: one byte
+    added to the size of a reference j whose key is not referenced again
+    before a later reuse i with prev p < j, where j and i first share a
+    run at the highest merge level the problem offers (above the tile, so
+    the tiles' prefix sums and the levels over the row carry the byte).
+    The plain version's distance at i moves by one byte.  The kernel on
+    that input must equal the plain version on it, and fail the same
+    check against the plain version on the original input."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stack_distance as sd
+    args = rec.calls["stack_distance"][_largest(rec, "stack_distance")][0]
+    k = int(torch.argmax(args[-1]))
+    n, width = int(args[-1][k]), args[0].shape[1]
+    prev = args[0][k, :n].cpu().numpy()
+    pos = np.arange(n)
+    nxt = np.full(n, n)                   # each position's first reuse
+    reuse = (prev >= 0) & (prev < pos)
+    np.minimum.at(nxt, prev[reuse], pos[reuse])
+    found = None
+    for level in range(width.bit_length() - 2,
+                       sd.DIST_TILE.bit_length() - 2, -1):
+        for b in range(1 << level, n, 2 << level):   # a run's boundary
+            for j in range(b - 1, max(b - 257, -1), -1):
+                seg = prev[b:nxt[j]]
+                hit = np.flatnonzero((seg >= 0) & (seg < j))
+                if hit.size:
+                    found = (j, b + int(hit[0]))
+                    break
+            if found:
+                break
+        if found:
+            break
+    if found is None:
+        raise AssertionError("I control stack_distance: no reuse whose gap "
+                             "crosses a tile boundary")
+    j, i = found
+    level = (i ^ j).bit_length() - 1      # where j and i share a run
+    two_prev = args[0][k:k + 1].repeat(2, 1)
+    two_sizes = args[1][k:k + 1].repeat(2, 1)
+    two_sizes[1, j] += 1.0
+    lengths = torch.full((1,), n, dtype=torch.int32, device=args[0].device)
+    want = _scan_plain("stack_distance", (two_prev, two_sizes, None))
+    got = ops.stack_distances(two_prev[1:], two_sizes[1:], lengths)
+    exact = _scan_equal("stack_distance", got, want[1:], lengths)
+    control = _scan_equal("stack_distance", got, want[:1], lengths)
+    moved = float(want[1, i] - want[0, i])
+    if not exact["equal"] or control["equal"] or moved != 1.0:
+        raise AssertionError(f"I control stack_distance: the kernel on the "
+                             f"input with one byte more equals the plain "
+                             f"version on it: {exact['equal']}; on the "
+                             f"original: {control['equal']}; the distance "
+                             f"at {i} moved by {moved}")
+    say(f"I control stack_distance: problem {k} of the bucket "
+        f"{tuple(args[0].shape)} ({n} references) with one byte added to "
+        f"reference {j}, inside the gap of reference {i} (prev "
+        f"{int(prev[i])}, distance {float(want[0, i]):.0f} B; the two first "
+        f"share a run of {2 << level} at merge level {level}, above the "
+        f"tile of {sd.DIST_TILE}): the kernel equals the plain version on "
+        f"that input, and fails the same check against the original (off "
+        f"by up to {control['max_abs_err']:.0f} B), as it must", card)
+    return {"problem": k, "refs": n, "width": width, "reference": i,
+            "bumped": j, "level": level,
+            "distance_plain": float(want[0, i]), "moved_by": moved,
+            "control_max_abs_err": control["max_abs_err"]}
+
+
 def _controls(rec, card: str) -> dict:
     """The control of the exactness checks, for each replay: the first
     recorded problem cut to its first 2,048 references, at the smallest
@@ -1649,7 +1726,7 @@ def _controls(rec, card: str) -> dict:
 
     from repro_torch.kernels import ops
     per_ref = {"fifo_replay": 4, "cache_sim": 3}   # leading (B, Np) args
-    out = {}
+    out = {"stack_distance": _distance_control(rec, card)}
     for name in ("fifo_replay", "cache_sim"):
         args = rec.calls[name][0][0]
         n = min(int(args[-1][0]), CONTROL_REFS)
@@ -1789,8 +1866,7 @@ def _scan_numbers(name: str, rec, plain_s: list, clock_hz: float) -> dict:
     once) at 3.35 TB/s, or for the replays the chain of the longest
     problem's dependent steps at one clock each, whichever is larger."""
     from repro_torch.kernels import ops
-    sizes = [args[0].numel() for args, _, _, _ in rec.calls[name]]
-    main = sizes.index(max(sizes))
+    main = _largest(rec, name)
     args = rec.calls[name][main][0]
     fn = getattr(ops, SCANS[name])
     iters = 20 if name == "stack_distance" else 3

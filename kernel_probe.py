@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time three kernels of the port on synthetic inputs that isolate their
+"""Time four kernels of the port on synthetic inputs that isolate their
 parts, on one CUDA card:
 
-    python3 kernel_probe.py [cache_sim] [fifo] [waterfill]
+    python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
+                            [--parent DIR]
 
-(all three when none is named).
+(all four when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -25,14 +26,32 @@ parts, on one CUDA card:
   links, 4 links a flow) and one like sweep I's (5,500 flows over 20
   links), seeded random capacities; each launch alone through a CUDA
   graph of 20 launches.
+* ``sd_distances`` on sweep I's largest bucket, recorded from a run of
+  ``chip_smoke.py``'s sweep: a call through ``ops.stack_distances`` by
+  CUDA events around a loop of 20 calls (as ``chip_smoke.py`` times it),
+  in a CUDA graph of calls (the device alone), and the host's time of a
+  call and of its C entry alone.  Then over 16 problems of 32,768
+  references and 16 of 262,144, on four streams: every gap 32, every gap
+  1,000, cyclic over N/2 keys (every gap N/2) and zipf (exponent 0.9 over
+  N/2 keys), each key's size a random integer below 2^20 bytes, a call
+  alone: in a CUDA graph of 20 calls, or, where one takes over 5 ms, by
+  CUDA events around two after a warm-up.  With ``--parent DIR`` (an
+  unpacked tree of another version of the port, ``DIR/src/repro_torch``),
+  that version's ``ops.stack_distances`` is imported and built too and
+  timed in turns with this one, old, new, new, old, on every case, and
+  their distances must be equal.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import pathlib
 import sys
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +60,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from chip_smoke import card_label, graph_ms, time_ms  # noqa: E402
 from repro_torch.kernels import maxmin, ops  # noqa: E402
+from repro_torch.kernels import stack_distance as sd  # noqa: E402
 
 
 def probe_cache_sim(card: str) -> None:
@@ -132,14 +152,170 @@ def probe_waterfill(card: str) -> None:
               f"[{card}]", flush=True)
 
 
+def _prev(keys: np.ndarray) -> np.ndarray:
+    """Each reference's previous reference to its key (-1: none)."""
+    order = np.argsort(keys, kind="stable")
+    prev = np.full(len(keys), -1, np.int64)
+    same = keys[order[1:]] == keys[order[:-1]]
+    prev[order[1:][same]] = order[:-1][same]
+    return prev
+
+
+def _ms(times) -> str:
+    return ", ".join(f"{t:.4f}" for t in times)
+
+
+def _call_ms(fn) -> float:
+    """One call's device time: a CUDA graph of 20, or two calls between
+    CUDA events after a warm-up where one takes over 5 ms."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if start.elapsed_time(end) < 5.0:
+        return graph_ms(fn)
+    return time_ms(fn, 2)
+
+
+def _host_us(fn, calls: int = 20) -> float:
+    """The host's time of one call, µs: ``calls`` calls queued without a
+    wait between them (the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def _parent_ops(parent: str):
+    """The ``ops`` module of the port in an unpacked tree ``DIR``
+    (``DIR/src/repro_torch``), imported as a package of another name; its
+    kernels build into that tree."""
+    root = pathlib.Path(parent).resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_repro_torch", root / "__init__.py",
+        submodule_search_locations=[str(root)])
+    package = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = package
+    spec.loader.exec_module(package)
+    return importlib.import_module("parent_repro_torch.kernels.ops")
+
+
+def _recorded_bucket():
+    """The inputs of sweep I's largest ``sd_distances`` call, recorded from
+    a run of ``chip_smoke.py``'s sweep on the card."""
+    import repro_torch.core as core
+    from chip_smoke import _SweepRecorder, _largest, _sweep_spec
+    with _SweepRecorder() as rec:
+        core.run_sweep(_sweep_spec(core, None))
+    torch.cuda.synchronize()
+    return rec.calls["stack_distance"][_largest(rec, "stack_distance")][0]
+
+
+def probe_distances(card: str, parent: Optional[str] = None) -> None:
+    dev = torch.device("cuda")
+    impls = {"new": ops.stack_distances}
+    if parent:
+        impls["old"] = _parent_ops(parent).stack_distances
+    order = ["old", "new", "new", "old"] if parent else ["new"]
+
+    def same(outs, label):
+        if parent and not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"distances {label}: the two versions "
+                                 f"differ")
+
+    # sweep I's largest bucket, timed as chip_smoke.py times it (CUDA
+    # events around a loop of 20 calls) and alone (a CUDA graph of calls)
+    args = _recorded_bucket()
+    label = (f"sweep I's largest bucket {tuple(args[0].shape)} "
+             f"({int(args[-1].sum())} references)")
+    times = {w: {"loop": [], "graph": [], "host": []} for w in impls}
+    outs = {}
+    for which in order:
+        fn = impls[which]
+        outs[which] = fn(*args)
+        times[which]["loop"].append(time_ms(lambda: fn(*args), 20))
+        times[which]["graph"].append(graph_ms(lambda: fn(*args)))
+        times[which]["host"].append(_host_us(lambda: fn(*args)))
+    same(outs, label)
+    work = torch.empty(int(sd.LIB.load().sd_distances_work_bytes(
+        *args[0].shape)), dtype=torch.uint8, device=dev)
+    out = torch.empty(args[0].shape, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    entry = _host_us(lambda: sd.LIB.load().sd_distances(
+        args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+        *args[0].shape, work.data_ptr(), out.data_ptr(), stream))
+    for which in impls:
+        t = times[which]
+        print(f"sd_distances, {label}, {which}: {_ms(t['loop'])} ms a call "
+              f"by CUDA events around 20 calls; {_ms(t['graph'])} ms in a "
+              f"CUDA graph of calls; host {_ms(t['host'])} us a call"
+              + (f" (its C entry alone {entry:.1f} us)"
+                 if which == "new" else "") + f"  [{card}]", flush=True)
+    if parent:
+        loop, graph = ({w: sum(times[w][kind]) for w in impls}
+                       for kind in ("loop", "graph"))
+        print(f"sd_distances, {label}: old / new by CUDA events around 20 "
+              f"calls {loop['old'] / loop['new']:.2f}, in a CUDA graph "
+              f"{graph['old'] / graph['new']:.2f}  [{card}]", flush=True)
+
+    rng = np.random.default_rng(0)
+    num = 16
+    for n in (32768, 262144):
+        weights = 1.0 / np.arange(1, n // 2 + 1) ** 0.9
+        streams = [("every gap 32", [np.arange(n) % 32] * num),
+                   ("every gap 1,000", [np.arange(n) % 1000] * num),
+                   ("cyclic over N/2 keys", [np.arange(n) % (n // 2)] * num),
+                   ("zipf 0.9 over N/2 keys",
+                    [rng.choice(n // 2, n, p=weights / weights.sum())
+                     for _ in range(num)])]
+        for label, rows in streams:
+            ksz = rng.integers(1, 1 << 20, n // 2).astype(np.float64)
+            prev = torch.tensor(np.stack([_prev(r) for r in rows]),
+                                device=dev)
+            sizes = torch.tensor(np.stack([ksz[r % (n // 2)] for r in rows]),
+                                 device=dev)
+            lengths = torch.full((num,), n, dtype=torch.int32, device=dev)
+            gaps = float((torch.arange(n, device=dev) - prev - 1)[prev >= 0]
+                         .double().sum())
+            times = {w: [] for w in impls}
+            outs = {}
+            for which in order:
+                fn = impls[which]
+                outs[which] = fn(prev, sizes, lengths)
+                times[which].append(_call_ms(lambda: fn(prev, sizes,
+                                                        lengths)))
+            same(outs, f"{label}, {num} x {n}")
+            line = (f"sd_distances, {label}, {num} x {n} ({gaps:.3e} gap "
+                    f"references in all): new {_ms(times['new'])} ms")
+            if parent:
+                ratio = sum(times["old"]) / sum(times["new"])
+                line += f"; old {_ms(times['old'])} ms; old / new {ratio:.2f}"
+            print(f"{line}  [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 1
     card = card_label()
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        at = args.index("--parent")
+        parent = args[at + 1]
+        del args[at:at + 2]
     probes = {"cache_sim": probe_cache_sim, "fifo": probe_fifo,
-              "waterfill": probe_waterfill}
-    for name in sys.argv[1:] or probes:
+              "waterfill": probe_waterfill,
+              "distances": lambda c: probe_distances(c, parent)}
+    for name in args or probes:
         probes[name](card)
     return 0
 

@@ -40,14 +40,19 @@ class CudaLibrary:
     """One kernel source, its built library and its ``ctypes`` handle.
 
     ``signatures`` maps each exported C function to ``(argtypes,
-    restype)``; every function is declared before first use.  Every
+    restype)``; every function is declared before first use.  ``defines``
+    are compile-time constants the source takes from its wrapper (``-D``);
+    they are part of the library's name, as the source is.  Every
     source also exports ``<name>_error_string``, which ``check`` uses."""
 
-    def __init__(self, name: str, signatures: dict) -> None:
+    def __init__(self, name: str, signatures: dict,
+                 defines: Optional[dict] = None) -> None:
         self.name = name
         self.source = CSRC / f"{name}.cu"
+        self.flags = NVCC_FLAGS + tuple(
+            f"-D{key}={value}" for key, value in (defines or {}).items())
         tag = hashlib.sha256(self.source.read_bytes() +
-                             "\0".join(NVCC_FLAGS).encode()).hexdigest()[:8]
+                             "\0".join(self.flags).encode()).hexdigest()[:8]
         self.path = BUILD_DIR / f"lib{name}.{tag}.so"
         self.ptxas_report = BUILD_DIR / f"{name}.{tag}.ptxas.txt"
         self._signatures = {**signatures, f"{name}_error_string": (
@@ -88,7 +93,7 @@ def build(*libraries: CudaLibrary) -> None:
     for lib in todo:
         tmp = lib.path.with_name(f"{lib.path.name}.{os.getpid()}.tmp")
         procs.append((lib, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(lib.source)],
+            [nvcc, *lib.flags, "-o", str(tmp), str(lib.source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
     for lib, tmp, proc in procs:      # wait for every one, then report

@@ -15,18 +15,55 @@
 // the reference's, not approximately.
 //
 // 1. sd_distances.  d_i = sum of sizes[j] over p_i < j < i for the j whose
-//    key is not referenced again before i: next_j >= i, where next_j is
-//    the first reference whose prev is j (INT_MAX if none); inf when
-//    p_i < 0 (a compulsory miss, the first reference after a reset
-//    included).  This is the reference's marker array read off in
-//    closed form: marker j is live at step i iff j < i and no step before
-//    i superseded it.  Design: no sequential chain at all.  Kernel 1 sets
-//    next (atomicMin, so a duplicate prev keeps its first), kernel 2 gives
-//    each reference a warp whose lanes stride over (p_i, i) with coalesced
-//    reads of next and sizes and add in float64 registers, then a shuffle
-//    reduction.  The work is the sum of the reuse gaps; the reads stay in
-//    L2 (a bucket of 32 x 32768 references is 12 MB of next and sizes).
-//    Bound: bytes (prev and sizes read once, the distances written once).
+//    key is not referenced again before i (next_j >= i, next_j the first
+//    reference whose prev is j); inf when p_i < 0 (a compulsory miss, the
+//    first reference after a reset included) and on padding.  This is the
+//    reference's marker array read off in closed form.
+//
+//    The identity.  With S the exclusive prefix sum of sizes, for p >= 0:
+//      d_i = (S[i] - S[p+1]) - Q(p, i),  Q(p, i) = sum of w_m over the
+//                                                  points m < i, q_m > p,
+//    where m is a point iff it is the first reference whose prev is q_m =
+//    prev_m (next[q_m] == m: the atomicMin keeps the first of duplicated
+//    prevs), of weight w_m = sizes[q_m].  A j in (p, i) is dead at step i
+//    exactly when next_j = m < i, and then j = q_m > p.  So the three-sided
+//    condition (j > p, j < i, next_j >= i) becomes a two-sided dominance
+//    count, "the weight of the points before i whose key is above p", and
+//    every term is an integer below 2^53: the subtraction is exact.  A
+//    prev >= i (no stream makes one) gives 0, as the plain version's.
+//
+//    Design: an offline dominance sum, a bottom-up merge sort of the
+//    references by key (prev) over their positions.  Each reference is one
+//    element: (key, position) and (cw, the running weight of its sorted
+//    run; acc, its tile's S[i] less its Q so far), an int2 and a double2.
+//    When two runs merge, a query of the right run takes off the weight of
+//    the left run's points above its key, W_left less the left weight
+//    merged before it, read off the running weights where the merge places
+//    it: no search per query.  Kernel 1 sets next.  Kernel 2, one block a
+//    tile of 4,096 positions (110.6 KB of shared memory, a spare slot
+//    every 8 so that no access conflicts on a bank), makes the elements,
+//    the tile's prefix sum of sizes and its total, and sorts the tile: 8
+//    consecutive elements a thread in registers (pairwise sums, an
+//    odd-even transposition sort), then 9 merge levels in shared memory,
+//    each thread merging 8 outputs from its merge-path split by selects
+//    (no divergence); a level whose pairs lie inside a warp's 256
+//    elements syncs only the warp.  Kernel 3 runs each level above the
+//    tile over the whole row: a block of 256 threads takes 2,048 outputs
+//    between two merge-path splits, each found in device memory by a warp
+//    (32 probes a round, a ballot, three or four rounds), stages both
+//    segments in shared memory, merges them there and writes them out
+//    coalesced; two blocks share an SM.  The last level writes the distances instead.  A
+//    row of Np costs log2(Np) merge levels, O(Np log Np) work whatever the
+//    reuse gaps, in 3 + log2(Np / 4,096) launches, a memset included.
+//    The sizes (tile, elements a thread, outputs a level's block) are the
+//    wrapper's, compiled in.
+//
+//    Bound: bytes (prev and sizes read once, the distances written once:
+//    24 B a reference).  The design moves 24 B a reference in and out for
+//    each level above the tile, gathers next and sizes at each prev and
+//    scatters the distances, mostly in L2 (a bucket of 16 x 32,768 is
+//    12.6 MB of elements); inside the tile its levels are bound by shared
+//    memory's accesses and barriers, about 2 us a level at 16 x 32,768.
 //
 // 2. sd_cache_sim.  The reference keeps victim order in priority slots
 //    (slot t is written only at step t) and pays a cumsum over all Np slots
@@ -126,60 +163,422 @@
 //
 // Plain C interface, loaded with ctypes: each function returns the
 // cudaError_t of its launches and never synchronises.  Scratch is
-// allocated by the caller: sd_distances needs next (B x Np int32);
-// sd_cache_sim's "global" design key_slot (B x Kp int32; the kernel fills
-// it); sd_fifo_replay cumB (B x Np f64), cumN (B x Np int32) and kcum
-// (B x Kp f64, the key state's start: zeros; the "smem" design copies it
-// in and leaves it).  Outputs: hits (B x Np uint8, zeroed by the caller:
-// padding stays 0), ev (B int32), evb (B f64).
+// allocated by the caller: sd_distances a workspace of
+// sd_distances_work_bytes; sd_cache_sim's "global" design key_slot (B x Kp
+// int32; the kernel fills it); sd_fifo_replay cumB (B x Np f64), cumN
+// (B x Np int32) and kcum (B x Kp f64, the key state's start: zeros; the
+// "smem" design copies it in and leaves it).  Outputs: sd_distances every
+// distance (B x Np f64); the replays' hits (B x Np uint8, zeroed by the
+// caller: padding stays 0), ev (B int32), evb (B f64).
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int DIST_WARPS = 8;  // warps (references) per block of kernel 2
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__global__ void next_init(int* __restrict__ next, long long total) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < total) next[i] = INT_MAX;
+// ---- sd_distances: a bottom-up merge sort of the references by prev that
+// carries each query's dominance sum
+
+// The design's sizes come from the wrapper (stack_distance.py DIST_TILE,
+// DIST_ITEMS, DIST_CHUNK, DIST_MIN_WIDTH), which its tests model: SD_TILE
+// positions a block sorts in shared memory, SD_ITEMS consecutive elements
+// a thread, MERGE_CHUNK outputs a block of a level over the row merges,
+// rows of at least SD_MIN_WIDTH (a power of two).
+#if !defined(SD_TILE) || !defined(SD_ITEMS) || !defined(MERGE_CHUNK) || \
+    !defined(SD_MIN_WIDTH)
+#error "build with -DSD_TILE, -DSD_ITEMS, -DMERGE_CHUNK and -DSD_MIN_WIDTH"
+#endif
+constexpr int SD_THREADS = SD_TILE / SD_ITEMS;
+constexpr int SD_WARPS = SD_THREADS / 32;
+constexpr int MERGE_THREADS = MERGE_CHUNK / SD_ITEMS;
+static_assert(SD_THREADS % 32 == 0 && SD_THREADS <= 1024 &&
+                  MERGE_THREADS >= 64 && MERGE_THREADS % 32 == 0 &&
+                  SD_MIN_WIDTH == 32 * SD_ITEMS,
+              "sd_distances: unsupported sizes");
+constexpr int KEY_NONE = -1;       // no query and no point: inf
+constexpr int KEY_ZERO = -2;       // prev >= i: 0, as the plain version's
+constexpr size_t SD_ELEM_BYTES = 24;   // (key, idx) int2, (cw, acc) double2
+constexpr int KEY_END = 0x7fffffff;    // past a run's end: above every key
+constexpr int SD_MAX_WIDTH = 1 << 25;
+
+// Shared-memory slots of element e: one spare slot every 8, so that a
+// warp whose lanes each hold SD_ITEMS consecutive elements reaches every
+// bank with its 8- and 16-byte accesses.
+__device__ __forceinline__ int pad(int e) { return e + (e >> 3); }
+
+__host__ __device__ constexpr size_t sd_smem_bytes(int count) {
+  return SD_ELEM_BYTES * (size_t)(count + count / 8);
 }
+
+// One sorted buffer of a batch's elements, B x np pairs each: ki (the key,
+// prev, and the position) and ca (cw, the running weight within its run,
+// inclusive, and acc, the tile's S[i] less the query's Q so far).
+struct Elems {
+  int2* ki;
+  double2* ca;
+};
+
+struct Smem {                      // the same, a block's, in shared memory,
+  double2* ca;                     // indexed through pad()
+  int2* ki;
+  __device__ Smem(unsigned char* base, int count)
+      : ca(reinterpret_cast<double2*>(base)),
+        ki(reinterpret_cast<int2*>(ca + pad(count))) {}
+  __device__ int key(int e) const { return ki[pad(e)].x; }
+  __device__ void put(int e, int k, int i, double c, double a) const {
+    ki[pad(e)] = make_int2(k, i);
+    ca[pad(e)] = make_double2(c, a);
+  }
+};
 
 __global__ void next_set(const long long* __restrict__ prev,
                          const int* __restrict__ lengths, int np,
-                         int* __restrict__ next) {
+                         unsigned* __restrict__ next) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= min(lengths[b], np)) return;
   const long long p = prev[(long long)b * np + i];
-  if (p >= 0 && p < i) atomicMin(&next[(long long)b * np + p], i);
+  if (p >= 0 && p < i) atomicMin(&next[(long long)b * np + p], (unsigned)i);
 }
 
-__global__ void distances(const long long* __restrict__ prev,
-                          const double* __restrict__ sizes,
-                          const int* __restrict__ lengths, int np,
-                          const int* __restrict__ next,
-                          double* __restrict__ out) {
+// How many of the first d outputs of the stable merge of two sorted runs
+// (the left one first on ties), la keys from l and lb from r in shared
+// memory, come from the left run.
+__device__ __forceinline__ int merge_path(const Smem& s, int l, int la,
+                                          int r, int lb, int d) {
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s.key(l + mid) <= s.key(r + d - 1 - mid)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// A thread's SD_ITEMS outputs of the merge of two segments in shared
+// memory (la elements from l, lb from r), from (a, b).  A right element
+// takes off the weight of the left run above its key, wl - PWL(a); each
+// element's running weight becomes its own plus the other run's before it.
+// pl0 and pr0: each run's weight before its segment.
+__device__ __forceinline__ void merge_items(const Smem& s, int l, int la,
+                                            int r, int lb, int a, int b,
+                                            double pl0, double pr0,
+                                            double wl,
+                                            int (&k)[SD_ITEMS],
+                                            int (&ix)[SD_ITEMS],
+                                            double (&cw)[SD_ITEMS],
+                                            double (&acc)[SD_ITEMS]) {
+  const int2 end = make_int2(KEY_END, 0);
+  double pwl = a > 0 ? s.ca[pad(l + a - 1)].x : pl0;
+  double pwr = b > 0 ? s.ca[pad(r + b - 1)].x : pr0;
+  int2 ha = a < la ? s.ki[pad(l + a)] : end;   // the two heads
+  int2 hb = b < lb ? s.ki[pad(r + b)] : end;
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {   // selects: the lanes never diverge
+    const bool left = ha.x <= hb.x;
+    const double2 v = s.ca[pad(left ? l + a : r + b)];
+    k[j] = left ? ha.x : hb.x;
+    ix[j] = left ? ha.y : hb.y;
+    cw[j] = v.x + (left ? pwr : pwl);
+    acc[j] = left ? v.y : v.y - (wl - pwl);
+    pwl = left ? v.x : pwl;
+    pwr = left ? pwr : v.x;
+    a += left;
+    b += !left;
+    const int next = left ? a : b;     // the taken run's new head
+    const int2 hn = next < (left ? la : lb)
+                        ? s.ki[pad((left ? l : r) + next)] : end;
+    ha = left ? hn : ha;
+    hb = left ? hb : hn;
+  }
+}
+
+// An exclusive prefix sum of v over the block (exact: integer-valued).
+__device__ double block_excl_sum(double v, double* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const double ws = lane < SD_WARPS ? warp_sums[lane] : 0.0;
+    double wi = ws;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const double y = __shfl_up_sync(FULL_MASK, wi, off);
+      if (lane >= off) wi += y;
+    }
+    if (lane < SD_WARPS) warp_sums[lane] = wi - ws;
+  }
+  __syncthreads();
+  return warp_sums[warp] + incl - v;
+}
+
+// The distance of each element a thread holds, acc its tile's S[i] - Q:
+// S(x) = tp[x / tn] + sloc[x], S the row's exclusive prefix sum of sizes.
+__device__ __forceinline__ void scatter(const int (&k)[SD_ITEMS],
+                                        const int (&ix)[SD_ITEMS],
+                                        const double (&acc)[SD_ITEMS],
+                                        const double* tp, int tn,
+                                        const double* sloc, double* dist) {
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {
+    double d;
+    if (k[j] == KEY_NONE) {
+      d = __longlong_as_double(0x7ff0000000000000LL);
+    } else if (k[j] == KEY_ZERO) {
+      d = 0.0;
+    } else {
+      const int p1 = k[j] + 1;
+      d = (tp[ix[j] / tn] + acc[j]) - (tp[p1 / tn] + sloc[p1]);
+    }
+    dist[ix[j]] = d;
+  }
+}
+
+// Kernel 2: one block a tile of tn positions of one row.  Makes the
+// elements (the point weights through next), the tile's exclusive prefix
+// sum of sizes (sloc) and its total (tsum), and sorts the tile by key
+// carrying Q: in registers SD_ITEMS at a time, then merge levels in shared
+// memory.  A tile that is the whole row writes its distances; else the
+// sorted tile goes to out.
+__global__ void __launch_bounds__(SD_THREADS)
+dist_tile(const long long* __restrict__ prev,
+          const double* __restrict__ sizes, const int* __restrict__ lengths,
+          int np, int tn, const unsigned* __restrict__ next,
+          double* __restrict__ sloc, double* __restrict__ tsum, Elems out,
+          double* __restrict__ dist) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double warp_sums[SD_WARPS];
+  const Smem s(smem, tn);
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * DIST_WARPS + (threadIdx.x >> 5);
-  if (i >= min(lengths[b], np)) return;  // whole warp: i is uniform
   const long long row = (long long)b * np;
-  const long long p = prev[row + i];
-  if (p < 0) {
-    if (lane == 0) out[row + i] = __longlong_as_double(0x7ff0000000000000LL);
+  const int t0 = blockIdx.x * tn;
+  const int n = min(lengths[b], np);
+  {                                // coalesced, every load issued first
+    long long p[SD_ITEMS];
+    double sz[SD_ITEMS], w[SD_ITEMS];
+    unsigned nx[SD_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SD_ITEMS; ++j) {
+      const int e = threadIdx.x + j * SD_THREADS;
+      p[j] = e < tn ? prev[row + t0 + e] : -1;
+      sz[j] = e < tn ? sizes[row + t0 + e] : 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < SD_ITEMS; ++j) {
+      const int i = t0 + threadIdx.x + j * SD_THREADS;
+      const bool reuse = i < n && p[j] >= 0 && p[j] < i;
+      nx[j] = reuse ? next[row + p[j]] : 0u;
+      w[j] = reuse ? sizes[row + p[j]] : 0.0;
+    }
+#pragma unroll
+    for (int j = 0; j < SD_ITEMS; ++j) {
+      const int e = threadIdx.x + j * SD_THREADS, i = t0 + e;
+      const int key = i >= n || p[j] < 0 ? KEY_NONE
+                      : p[j] < i         ? (int)p[j]
+                                         : KEY_ZERO;
+      const bool point = key >= 0 && nx[j] == (unsigned)i;
+      if (e < tn) s.put(e, key, i, point ? w[j] : 0.0, sz[j]);
+    }
+  }
+  __syncthreads();
+  const int e0 = threadIdx.x * SD_ITEMS;
+  const bool active = e0 < tn;
+  int k[SD_ITEMS], ix[SD_ITEMS];
+  double w[SD_ITEMS], acc[SD_ITEMS], sz[SD_ITEMS];
+  double total = 0.0;
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {
+    const int2 q = active ? s.ki[pad(e0 + j)] : make_int2(KEY_NONE, 0);
+    const double2 v = active ? s.ca[pad(e0 + j)] : make_double2(0.0, 0.0);
+    k[j] = q.x;
+    ix[j] = q.y;
+    w[j] = v.x;
+    sz[j] = v.y;
+    total += sz[j];
+  }
+  double run = block_excl_sum(total, warp_sums);
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {   // acc starts at the tile's S[i]
+    acc[j] = run;
+    if (active) s.ca[pad(e0 + j)].y = run;
+    run += sz[j];
+  }
+  if (threadIdx.x == SD_THREADS - 1)
+    tsum[(long long)b * (np / tn) + blockIdx.x] = run;
+  __syncthreads();
+  for (int e = threadIdx.x; e < tn; e += SD_THREADS)   // coalesced
+    sloc[row + t0 + e] = s.ca[pad(e)].y;
+  // less Q among the thread's own elements, then a stable sort by key
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {
+#pragma unroll
+    for (int j2 = 0; j2 < j; ++j2)
+      if (k[j2] > k[j]) acc[j] -= w[j2];
+  }
+#pragma unroll
+  for (int ps = 0; ps < SD_ITEMS; ++ps) {
+#pragma unroll
+    for (int j = ps & 1; j + 1 < SD_ITEMS; j += 2) {
+      if (k[j] > k[j + 1]) {
+        const int tk = k[j], ti = ix[j];
+        const double tw = w[j], ta = acc[j];
+        k[j] = k[j + 1]; ix[j] = ix[j + 1]; w[j] = w[j + 1];
+        acc[j] = acc[j + 1];
+        k[j + 1] = tk; ix[j + 1] = ti; w[j + 1] = tw; acc[j + 1] = ta;
+      }
+    }
+  }
+  double cw[SD_ITEMS];
+  double c = 0.0;
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) {
+    c += w[j];
+    cw[j] = c;
+  }
+  auto put = [&]() {
+    if (active)
+#pragma unroll
+      for (int j = 0; j < SD_ITEMS; ++j)
+        s.put(e0 + j, k[j], ix[j], cw[j], acc[j]);
+  };
+  __syncthreads();                 // every read above is done
+  put();
+  __syncthreads();
+  // a level whose pairs lie inside a warp's elements needs only the warp
+  const auto sync = [](int len) {
+    if (2 * len <= 32 * SD_ITEMS) __syncwarp();
+    else __syncthreads();
+  };
+  for (int len = SD_ITEMS; len < tn; len <<= 1) {
+    if (active) {                  // runs [pb, pb + len), [pb + len, +len)
+      const int pb = e0 & ~(2 * len - 1), d = e0 - pb;
+      const int a = merge_path(s, pb, len, pb + len, len, d);
+      merge_items(s, pb, len, pb + len, len, a, d - a, 0.0, 0.0,
+                  s.ca[pad(pb + len - 1)].x, k, ix, cw, acc);
+    }
+    sync(len);
+    put();
+    sync(2 * len);                 // before the next level's reads
+  }
+  if (tn == np) {                  // the whole row: the distances
+    const double zero = 0.0;
+    if (active) scatter(k, ix, acc, &zero, tn, sloc + row, dist + row);
     return;
   }
-  double acc = 0.0;
-  for (long long j = p + 1 + lane; j < i; j += 32) {
-    if (next[row + j] >= i) acc += sizes[row + j];
+  for (int e = threadIdx.x; e < tn; e += SD_THREADS) {   // coalesced
+    out.ki[row + t0 + e] = s.ki[pad(e)];
+    out.ca[row + t0 + e] = s.ca[pad(e)];
   }
-  for (int off = 16; off; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[row + i] = acc;
+}
+
+// Kernel 3: one level over the row: merge runs of len into runs of
+// 2 len, one block a chunk of MERGE_CHUNK outputs (two blocks an SM, so
+// that one's loads overlap the other's merge) between the splits its
+// first two warps find in device memory.  The last level (2 len == np)
+// writes the distances instead.
+template <bool FINAL>
+__global__ void __launch_bounds__(MERGE_THREADS)
+dist_merge(Elems in, Elems out, int np, int len,
+           const double* __restrict__ sloc, const double* __restrict__ tsum,
+           double* __restrict__ dist) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int split[2];
+  const Smem s(smem, MERGE_CHUNK);
+  const int b = blockIdx.y;
+  const long long row = (long long)b * np;
+  const int r0 = blockIdx.x * MERGE_CHUNK;
+  const int pb = r0 & ~(2 * len - 1), d0 = r0 - pb;
+  const int2* kl = in.ki + row + pb;
+  const int2* kr = kl + len;
+  // the merge-path splits at d0 (warp 0) and d0 + MERGE_CHUNK (warp 1),
+  // each found by its warp: 32 samples a round over the range left, the
+  // count of true predicates (true, then false) narrowing it to the gap
+  // after the last true one
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const int d = d0 + warp * MERGE_CHUNK;
+    int lo = max(0, d - len), hi = min(d, len);
+    while (lo < hi) {              // the same values in every lane
+      const int step = (hi - lo + 31) / 32, x = lo + lane * step;
+      const int c = __popc(__ballot_sync(
+          FULL_MASK, x < hi && kl[x].x <= kr[d - 1 - x].x));
+      if (c == 0) {
+        hi = lo;
+      } else {
+        hi = min(hi, lo + c * step);
+        lo = lo + (c - 1) * step + 1;
+      }
+    }
+    if (lane == 0) split[warp] = lo;
+  }
+  __syncthreads();
+  const int a0 = split[0], a1 = split[1];
+  const int b0 = d0 - a0, la = a1 - a0, lb = MERGE_CHUNK - la;
+  const long long lbase = row + pb + a0, rbase = row + pb + len + b0;
+  {                                // coalesced, every load issued first
+    int2 q[SD_ITEMS];
+    double2 v[SD_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SD_ITEMS; ++j) {
+      const int e = threadIdx.x + j * MERGE_THREADS;
+      const long long g = e < la ? lbase + e : rbase + (e - la);
+      q[j] = in.ki[g];
+      v[j] = in.ca[g];
+    }
+#pragma unroll
+    for (int j = 0; j < SD_ITEMS; ++j) {
+      const int at = pad(threadIdx.x + j * MERGE_THREADS);
+      s.ki[at] = q[j];
+      s.ca[at] = v[j];
+    }
+  }
+  const double pl0 = a0 > 0 ? in.ca[lbase - 1].x : 0.0;
+  const double pr0 = b0 > 0 ? in.ca[rbase - 1].x : 0.0;
+  const double wl = in.ca[row + pb + len - 1].x;
+  double* tp = reinterpret_cast<double*>(smem + sd_smem_bytes(MERGE_CHUNK));
+  if (FINAL && threadIdx.x < 32) {  // the tiles' exclusive prefix sums
+    const int nt = np / SD_TILE;
+    double carry = 0.0;
+    for (int base = 0; base < nt; base += 32) {
+      const double v = base + lane < nt ? tsum[(long long)b * nt + base +
+                                                lane] : 0.0;
+      double incl = v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double y = __shfl_up_sync(FULL_MASK, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (base + lane < nt) tp[base + lane] = carry + (incl - v);
+      carry += __shfl_sync(FULL_MASK, incl, 31);
+    }
+  }
+  __syncthreads();
+  const int dt = threadIdx.x * SD_ITEMS;
+  const int a = merge_path(s, 0, la, la, lb, dt);
+  int k[SD_ITEMS], ix[SD_ITEMS];
+  double cw[SD_ITEMS], acc[SD_ITEMS];
+  merge_items(s, 0, la, la, lb, a, dt - a, pl0, pr0, wl, k, ix, cw, acc);
+  if (FINAL) {
+    scatter(k, ix, acc, tp, SD_TILE, sloc + row, dist + row);
+    return;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < SD_ITEMS; ++j) s.put(dt + j, k[j], ix[j], cw[j], acc[j]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < MERGE_CHUNK; e += MERGE_THREADS) {
+    out.ki[row + r0 + e] = s.ki[pad(e)];   // coalesced
+    out.ca[row + r0 + e] = s.ca[pad(e)];
+  }
 }
 
 // ---- sd_fifo_replay: the stream through a ring, the key state in shared
@@ -632,21 +1031,82 @@ const char* stack_distance_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The kernels' shared-memory limits, once a device, at the most any row
+// takes (a race between threads sets the same values).
+static cudaError_t sd_distances_configure() {
+  static bool done[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  const int merge_most =
+      (int)sd_smem_bytes(MERGE_CHUNK) + 8 * (SD_MAX_WIDTH / SD_TILE);
+  err = cudaFuncSetAttribute(dist_tile,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sd_smem_bytes(SD_TILE));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dist_merge<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               merge_most);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dist_merge<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               merge_most);
+  if (err != cudaSuccess) cudaGetLastError();   // reported here, not later
+  else if (dev < 64) done[dev] = true;
+  return err;
+}
+
+// sd_distances' scratch for a batch of rows of np (a power of two, at
+// least SD_MIN_WIDTH): sloc (B x np f64), tsum (B x np / tile f64), next
+// (B x np uint32) and, when a row is more than one tile, two element
+// buffers of 24 B a position.
+long long sd_distances_work_bytes(int batch, int np) {
+  const long long cells = (long long)batch * np;
+  const int tn = np < SD_TILE ? np : SD_TILE;
+  return cells * 12 + (long long)batch * (np / tn) * 8 +
+         (np > tn ? 2 * cells * (long long)SD_ELEM_BYTES : 0);
+}
+
 int sd_distances(const long long* prev, const double* sizes,
-                 const int* lengths, int batch, int np, int* next,
+                 const int* lengths, int batch, int np, void* work,
                  double* out, void* stream) {
+  if (np < SD_MIN_WIDTH || np > SD_MAX_WIDTH || (np & (np - 1)) != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = sd_distances_configure();
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)batch * np;
-  next_init<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(next, total);
-  cudaError_t err = cudaGetLastError();
+  const long long cells = (long long)batch * np;
+  const int tn = np < SD_TILE ? np : SD_TILE, nt = np / tn;
+  // the widest first: every array stays aligned
+  const long long runs = np > tn ? 2 * cells : 0;
+  double2* ca = static_cast<double2*>(work);
+  double* sloc = reinterpret_cast<double*>(ca + runs);
+  double* tsum = sloc + cells;
+  int2* ki = reinterpret_cast<int2*>(tsum + (long long)batch * nt);
+  unsigned* next = reinterpret_cast<unsigned*>(ki + runs);
+  Elems run[2] = {{ki, ca}, {ki + cells, ca + cells}};
+  const int tile_smem = (int)sd_smem_bytes(tn);
+  const int merge_smem = (int)sd_smem_bytes(MERGE_CHUNK) + 8 * nt;
+  err = cudaMemsetAsync(next, 0xff, cells * sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
   next_set<<<dim3((np + 255) / 256, batch), 256, 0, s>>>(prev, lengths, np,
                                                          next);
+  dist_tile<<<dim3(nt, batch), SD_THREADS, tile_smem, s>>>(
+      prev, sizes, lengths, np, tn, next, sloc, tsum, run[0], out);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  distances<<<dim3((np + DIST_WARPS - 1) / DIST_WARPS, batch),
-              32 * DIST_WARPS, 0, s>>>(prev, sizes, lengths, np, next, out);
-  return cudaGetLastError();
+  int cur = 0;
+  for (int len = tn; len < np && err == cudaSuccess; len <<= 1) {
+    const dim3 grid(np / MERGE_CHUNK, batch);
+    if (2 * len == np)
+      dist_merge<true><<<grid, MERGE_THREADS, merge_smem, s>>>(
+          run[cur], run[cur ^ 1], np, len, sloc, tsum, out);
+    else
+      dist_merge<false><<<grid, MERGE_THREADS, merge_smem - 8 * nt, s>>>(
+          run[cur], run[cur ^ 1], np, len, sloc, tsum, out);
+    cur ^= 1;
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // Dynamic shared memory of a sd_cache_sim block: the two rings and a

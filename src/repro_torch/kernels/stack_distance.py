@@ -63,12 +63,21 @@ FifoProblem = Tuple[Sequence[int], Sequence[float], Sequence[bool],
                     Sequence[bool], int, float]
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
+# sd_distances' design, compiled into csrc/stack_distance.cu: a block sorts
+# a tile of DIST_TILE positions in shared memory, DIST_ITEMS consecutive
+# elements a thread; a block of a level over the row merges DIST_CHUNK
+# outputs; a row is padded to a power of two of at least DIST_MIN_WIDTH
+# (a warp's elements)
+DIST_TILE, DIST_ITEMS, DIST_CHUNK, DIST_MIN_WIDTH = 4096, 8, 2048, 256
 LIB = CudaLibrary("stack_distance", {
     "sd_distances": ([_vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp], _ci),
+    "sd_distances_work_bytes": ([_ci, _ci], ctypes.c_longlong),
     "sd_cache_sim": ([_vp] * 7 + [_ci] * 4 + [_vp] * 5, _ci),
     "sd_cache_smem_bytes": ([_ci, _ci], ctypes.c_longlong),
     "sd_fifo_replay": ([_vp] * 6 + [_ci] * 5 + [_vp] * 7, _ci),
-    "sd_fifo_smem_bytes": ([_ci, _ci], ctypes.c_longlong)})
+    "sd_fifo_smem_bytes": ([_ci, _ci], ctypes.c_longlong)},
+    defines={"SD_TILE": DIST_TILE, "SD_ITEMS": DIST_ITEMS,
+             "MERGE_CHUNK": DIST_CHUNK, "SD_MIN_WIDTH": DIST_MIN_WIDTH})
 
 # The replays' fixed shared memory (csrc/stack_distance.cu) and the shared
 # memory a block may have on Hopper: each replay's key state goes beside
@@ -145,19 +154,25 @@ class DistanceKernel(_ScanKernel):
                  lengths: torch.Tensor) -> torch.Tensor:
         """prev (B, Np) int64, sizes (B, Np) float64, lengths (B,) each
         problem's true length → the distances (B, Np) float64, ``inf`` on
-        compulsory misses and on padding."""
+        compulsory misses and on padding.  A row is padded to a power of
+        two of at least ``DIST_MIN_WIDTH`` with references that no length
+        reaches; the kernel's workspace is allocated here."""
         num, n = prev.shape
         dev = prev.device
         _check("stack distance", dev, ("prev", prev, torch.int64, (num, n)),
                ("sizes", sizes, torch.float64, (num, n)))
         lens = _lengths(lengths, num, dev)
-        nxt = torch.empty(num, n, dtype=torch.int32, device=dev)
-        out = torch.full((num, n), float("inf"), dtype=torch.float64,
-                         device=dev)
+        width = _next_pow2(max(n, 1), floor=DIST_MIN_WIDTH)
+        if width != n:
+            prev = torch.nn.functional.pad(prev, (0, width - n), value=-1)
+            sizes, = _pad_to(width, sizes)
+        work = torch.empty(int(LIB.load().sd_distances_work_bytes(
+            num, width)), dtype=torch.uint8, device=dev)
+        out = torch.empty(num, width, dtype=torch.float64, device=dev)
         self._launch("sd_distances", "stack distance", dev, prev.data_ptr(),
-                     sizes.data_ptr(), lens.data_ptr(), num, n,
-                     nxt.data_ptr(), out.data_ptr())
-        return out
+                     sizes.data_ptr(), lens.data_ptr(), num, width,
+                     work.data_ptr(), out.data_ptr())
+        return out if width == n else out[:, :n].contiguous()
 
 
 class _TwoDesigns(_ScanKernel):

@@ -11,8 +11,9 @@ shows) and several problems per bucket.  Every byte count is an integer,
 so the float64 sums are exact in any order: the tolerance is zero.
 
 The CUDA kernels of ``csrc/stack_distance.cu`` cannot run here, so their
-algorithms — distances from ``next`` pointers with a warp's lanes and a
-shuffle reduction, the slot machine's key_slot state and its scalar walk
+algorithms — distances as a dominance sum carried by a bottom-up merge
+sort (tiles, levels over the row, the splits found by sampling), the slot
+machine's key_slot state and its scalar walk
 from a head pointer, the FIFO frontier's forward search
 and its bytes evicted after an oversize insert — are modelled line for
 line in numpy and held to the plain versions and the reference's scans,
@@ -32,7 +33,6 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import stack_distance as sd
 
 SEEDS = range(6)
-INT_MAX = np.iinfo(np.int32).max
 
 
 @pytest.fixture(scope="module")
@@ -200,28 +200,193 @@ def test_kernels_refuse_cpu_tensors():
 # Models of the CUDA kernels' algorithms, line for line, against the plain
 # versions
 # ---------------------------------------------------------------------------
-def model_distances(prev, sizes):
-    """``sd_distances``: next pointers (atomicMin), then per reference a
-    warp's 32 lane sums over (p, i) and a shuffle-down reduction."""
-    n = len(prev)
-    nxt = np.full(n, INT_MAX, np.int64)
-    for i, p in enumerate(prev):
-        if 0 <= p < i:
-            nxt[p] = min(nxt[p], i)
-    out = np.full(n, np.inf)
-    lane_ids = np.arange(32)
-    for i, p in enumerate(prev):
-        if p < 0:
-            continue
-        acc = np.zeros(32)
-        for j in range(p + 1, i):
-            if nxt[j] >= i:
-                acc[(j - p - 1) % 32] += sizes[j]
-        for off in (16, 8, 4, 2, 1):
-            src = lane_ids + off
-            acc = acc + np.where(src < 32, acc[np.minimum(src, 31)], acc)
-        out[i] = acc[0]
+KEY_NONE, KEY_ZERO = -1, -2    # no query or point (inf); prev >= i (0)
+KEY_END = np.iinfo(np.int32).max   # past a run's end: above every key
+UINT_MAX = np.iinfo(np.uint32).max
+
+
+def merge_path(kl, kr, d):
+    """How many of the first d outputs of the stable merge of two sorted
+    key runs (the left one first on ties) come from the left run."""
+    lo, hi = max(0, d - len(kr)), min(d, len(kl))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if kl[mid] <= kr[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def warp_split(kl, kr, d):
+    """``merge_path`` as a warp finds it in device memory: 32 samples a
+    round, spaced evenly over the range left, count the true predicates,
+    and narrow the range to the gap after the last one."""
+    lo, hi = max(0, d - len(kr)), min(d, len(kl))
+    while lo < hi:
+        s = -(-(hi - lo) // 32)
+        c = sum(1 for x in range(lo, hi, s) if kl[x] <= kr[d - 1 - x])
+        if c == 0:
+            hi = lo
+        else:
+            lo, hi = lo + (c - 1) * s + 1, min(hi, lo + c * s)
+    return lo
+
+
+def merge_items(left, right, a, b, pl0, pr0, wl, count):
+    """A thread's ``count`` outputs of the merge of two segments (key,
+    idx, cw, acc arrays), from (a, b): a right element takes off the
+    weight of the left run's elements above its key, wl - PWL(a); each
+    element's running weight cw becomes its own plus the other run's
+    before it.
+    pl0 and pr0 are the runs' weights before the segments."""
+    kl, il, cl, al = left
+    kr, ir, cr, ar = right
+    pwl = cl[a - 1] if a > 0 else pl0
+    pwr = cr[b - 1] if b > 0 else pr0
+    ka = kl[a] if a < len(kl) else KEY_END       # the two heads' keys
+    kb = kr[b] if b < len(kr) else KEY_END
+    out = []
+    for _ in range(count):
+        if ka <= kb:
+            out.append((ka, il[a], cl[a] + pwr, al[a]))
+            pwl = cl[a]
+            a += 1
+            ka = kl[a] if a < len(kl) else KEY_END
+        else:
+            out.append((kb, ir[b], cr[b] + pwl, ar[b] - (wl - pwl)))
+            pwr = cr[b]
+            b += 1
+            kb = kr[b] if b < len(kr) else KEY_END
     return out
+
+
+def model_distances(prev, sizes, length=None, tile=sd.DIST_TILE,
+                    items=sd.DIST_ITEMS, chunk=sd.DIST_CHUNK, st=None):
+    """``sd_distances``: d_i = (S[i] - S[p+1]) - Q(p, i), S the exclusive
+    prefix sum of sizes and Q(p, i) the weight of the points m < i with
+    q_m > p, where m is a point iff it is the first reference whose prev
+    is q_m (next[q_m] == m), of weight sizes[q_m].  Every reference is one
+    element (key prev, or KEY_NONE / KEY_ZERO), sorted by key in a
+    bottom-up merge sort over positions that carries acc, its tile's S[i]
+    less its Q so far:
+    ``items`` consecutive elements a thread (pairwise, then an odd-even
+    transposition sort), merge levels inside a tile of ``tile`` positions
+    (shared memory; a level whose pairs lie inside a warp's 32 · items
+    elements syncs only the warp, the same values), then levels over the
+    row whose blocks each take ``chunk`` outputs between splits found by
+    ``warp_split``; the last level writes the distances.  ``st`` counts
+    the levels of each kind."""
+    st = types.SimpleNamespace(tile_levels=0, row_levels=0) \
+        if st is None else st
+    n0 = len(prev)
+    width = sd._next_pow2(max(n0, 1), floor=sd.DIST_MIN_WIDTH)   # wrapper
+    p_all = np.full(width, -1, np.int64)
+    p_all[:n0] = prev
+    s_all = np.zeros(width)
+    s_all[:n0] = sizes
+    n = min(n0 if length is None else length, width)
+    nxt = np.full(width, UINT_MAX, np.int64)          # next_set: atomicMin
+    for i in range(n):
+        if 0 <= p_all[i] < i:
+            nxt[p_all[i]] = min(nxt[p_all[i]], i)
+    key = np.full(width, KEY_NONE, np.int64)
+    w = np.zeros(width)
+    for i in range(n):
+        p = p_all[i]
+        if p >= 0 and p < i:
+            key[i] = p
+            w[i] = s_all[p] if nxt[p] == i else 0.0
+        elif p >= 0:
+            key[i] = KEY_ZERO
+    tn = min(tile, width)
+    nt = width // tn
+    sloc, tsum = np.zeros(width), np.zeros(nt)
+    run = [key.copy(), np.arange(width), np.zeros(width), np.zeros(width)]
+    for t in range(nt):
+        base = t * tn
+        sloc[base:base + tn] = np.cumsum(s_all[base:base + tn]) - \
+            s_all[base:base + tn]
+        tsum[t] = s_all[base:base + tn].sum()
+        for e0 in range(base, base + tn, items):       # in registers
+            k = list(key[e0:e0 + items])
+            ix = list(range(e0, e0 + items))
+            ww = list(w[e0:e0 + items])
+            acc = [sloc[e0 + j] - sum(ww[j2] for j2 in range(j)
+                                      if k[j2] > k[j])
+                   for j in range(items)]     # the tile's S[i] less Q
+            for ps in range(items):      # odd-even transposition: stable
+                for j in range(ps % 2, items - 1, 2):
+                    if k[j] > k[j + 1]:
+                        for v in (k, ix, ww, acc):
+                            v[j], v[j + 1] = v[j + 1], v[j]
+            cw = np.cumsum(ww)
+            for j in range(items):
+                for arr, v in zip(run, (k[j], ix[j], cw[j], acc[j])):
+                    arr[e0 + j] = v
+        L = items                                      # shared memory
+        while L < tn:
+            new = [a.copy() for a in run]
+            for e0 in range(0, tn, items):
+                pb = base + (e0 & ~(2 * L - 1))
+                d = base + e0 - pb
+                left = [a[pb:pb + L] for a in run]
+                right = [a[pb + L:pb + 2 * L] for a in run]
+                a = merge_path(left[0], right[0], d)
+                out = merge_items(left, right, a, d - a, 0.0, 0.0,
+                                  left[2][L - 1], items)
+                for j, vals in enumerate(out):
+                    for arr, v in zip(new, vals):
+                        arr[base + e0 + j] = v
+            run = new
+            L *= 2
+            st.tile_levels += t == 0
+    tp = np.concatenate([[0.0], np.cumsum(tsum)[:-1]])
+    dist = np.full(width, np.inf)
+
+    def scatter(k, i, acc):
+        if k == KEY_NONE:
+            dist[i] = np.inf
+        elif k == KEY_ZERO:
+            dist[i] = 0.0
+        else:
+            dist[i] = (tp[i // tn] + acc) - (tp[(k + 1) // tn] +
+                                             sloc[k + 1])
+
+    L = tn                                             # over the row
+    while L < width:
+        final = 2 * L == width
+        new = [a.copy() for a in run]
+        for r0 in range(0, width, chunk):
+            pb = r0 & ~(2 * L - 1)
+            d0 = r0 - pb
+            lrun = [a[pb:pb + L] for a in run]
+            rrun = [a[pb + L:pb + 2 * L] for a in run]
+            a0 = warp_split(lrun[0], rrun[0], d0)
+            a1 = warp_split(lrun[0], rrun[0], d0 + chunk)
+            assert (a0, a1) == (merge_path(lrun[0], rrun[0], d0),
+                                merge_path(lrun[0], rrun[0], d0 + chunk))
+            b0, b1 = d0 - a0, d0 + chunk - a1
+            segl = [a[a0:a1] for a in lrun]
+            segr = [a[b0:b1] for a in rrun]
+            pl0 = lrun[2][a0 - 1] if a0 > 0 else 0.0
+            pr0 = rrun[2][b0 - 1] if b0 > 0 else 0.0
+            for dt in range(0, chunk, items):
+                a = merge_path(segl[0], segr[0], dt)
+                out = merge_items(segl, segr, a, dt - a, pl0, pr0,
+                                  lrun[2][L - 1], items)
+                for j, vals in enumerate(out):
+                    if final:
+                        scatter(vals[0], vals[1], vals[3])
+                    for arr, v in zip(new, vals):
+                        arr[r0 + dt + j] = v
+        run = new
+        L *= 2
+        st.row_levels += 1
+    if width == tn:
+        for e in range(width):
+            scatter(run[0][e], run[1][e], run[3][e])
+    return dist[:n0]
 
 
 HEAD_TILE = 1024        # keys a stage of the slot machine's head ring holds
@@ -393,12 +558,125 @@ def _plain_one(fn, *arrays):
     return hits[0].numpy(), int(ev[0]), float(evb[0])
 
 
+# a small tile: levels over the row from n = 33 on
+MODEL_TILE, MODEL_ITEMS, MODEL_CHUNK = 32, 4, 16
+
+
+def _same_bits(got, want):
+    """Bit for bit, inf included."""
+    return got.shape == want.shape and \
+        np.array_equal(np.asarray(got, np.float64).view(np.int64),
+                       np.asarray(want, np.float64).view(np.int64))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
-def test_distance_kernel_model_equals_plain(seed):
+def test_distance_kernel_model_equals_plain(jx, seed):
+    """The kernel's design (at its own tile and at a small one, where the
+    levels over the row run), the plain version and the reference's
+    ``_dist_batch`` agree bit for bit."""
     dist, _, _ = random_problems(seed)
-    for prev, sizes in dist[:4]:
-        want = _plain_one(ref.stack_distances_ref, prev, sizes)
-        assert np.array_equal(model_distances(prev, sizes), want)
+    want = jx.sd.stack_distances_batch(dist)
+    plain = sd.stack_distances_batch(dist, device="cpu")
+    for (prev, sizes), w, p in zip(dist, want, plain):
+        assert _same_bits(p, w)
+        assert _same_bits(model_distances(prev, sizes), w)
+        st = types.SimpleNamespace(tile_levels=0, row_levels=0)
+        assert _same_bits(model_distances(prev, sizes, tile=MODEL_TILE,
+                                          items=MODEL_ITEMS,
+                                          chunk=MODEL_CHUNK, st=st), w)
+        assert st.row_levels >= 3
+
+
+def _prevs(keys, reset=None):
+    """Each reference's previous reference to its key since the last
+    reset (-1: none)."""
+    prev, last = np.full(len(keys), -1, np.int64), {}
+    for i, k in enumerate(keys):
+        if reset is not None and reset[i]:
+            last = {}
+        prev[i] = last.get(int(k), -1)
+        last[int(k)] = i
+    return prev
+
+
+def _split_level(p, i):
+    """The merge level at which positions p < i first share a run."""
+    return (int(p) ^ int(i)).bit_length() - 1
+
+
+def _distance_cases(tile):
+    """Hand-made distance problems, each at one trap of the design for a
+    tile of ``tile`` positions: name → problems (prev, sizes)."""
+    rng = np.random.default_rng(11)
+    sized = lambda keys: rng.integers(1, 1 << 20, max(keys) + 1)[keys] \
+        .astype(np.float64)
+    cases = {}
+    # prevs that no stream makes: duplicated (a marker dies at the first
+    # reference that names it), and one >= i (the plain version gives 0)
+    n = 3 * tile + 17
+    prev = np.array([rng.integers(-1, i) if i else -1 for i in range(n)])
+    prev[5], prev[9] = 9, 9
+    cases["duplicated prev"] = [(prev, rng.integers(0, 50, n)
+                                 .astype(np.float64))]
+    keys, ksz, reset, prev = _stream(rng, 2 * tile + 5, 40, 1000,
+                                     reset_rate=0.03)
+    assert reset.any()
+    cases["a reset mid-stream"] = [(prev, ksz[keys])]
+    keys, ksz, _, prev = _stream(rng, tile + 3, 50, 1000, reset_rate=0.0)
+    ksz[::3] = 0.0
+    cases["zero-byte sizes"] = [(prev, ksz[keys]),
+                                (prev, np.zeros(tile + 3))]
+    cases["padding"] = []
+    for n in (1, 37, 255, 257):
+        keys, ksz, _, prev = _stream(rng, n, 20, 100)
+        cases["padding"].append((prev, ksz[keys]))
+    for label, n in (("length T-1", tile - 1), ("length T", tile),
+                     ("length T+1", tile + 1), ("length 3T+17",
+                                                3 * tile + 17)):
+        keys, ksz, _, prev = _stream(rng, n, max(8, n // 8), 5000)
+        cases[label] = [(prev, ksz[keys])]
+    n = sd._next_pow2(4 * tile, floor=sd.DIST_MIN_WIDTH)
+    keys = (rng.zipf(1.3, n) - 1) % n
+    cases["gaps across every level"] = [(_prevs(keys), sized(keys))]
+    keys = np.arange(n) % (n // 2)
+    keys[rng.integers(0, n, 8)] = 0        # a few shorter gaps among them
+    cases["every gap about N/2"] = [(_prevs(keys), sized(keys))]
+    return cases
+
+
+DISTANCE_CASES = list(_distance_cases(MODEL_TILE))
+
+
+@pytest.mark.parametrize("case", DISTANCE_CASES)
+def test_distance_model_cases(jx, case):
+    """The design's traps at a small tile: model, plain version and the
+    reference's ``_dist_batch`` bit for bit, the problems of a case in
+    one bucket."""
+    problems = _distance_cases(MODEL_TILE)[case]
+    if case == "gaps across every level":
+        (prev, _), = problems
+        crossed = {_split_level(p, i) for i, p in enumerate(prev) if p >= 0}
+        assert crossed == set(range(len(prev).bit_length() - 1))
+    want = jx.sd.stack_distances_batch(problems)
+    plain = sd.stack_distances_batch(problems, device="cpu")
+    for (prev, sizes), w, p in zip(problems, want, plain):
+        assert _same_bits(p, w)
+        got = model_distances(prev, sizes, tile=MODEL_TILE,
+                              items=MODEL_ITEMS, chunk=MODEL_CHUNK)
+        assert _same_bits(got, w)
+
+
+def test_distance_model_at_the_kernel_tile(jx):
+    """A row of 3T+17 at the kernel's own tile: two levels over the row."""
+    problems = _distance_cases(sd.DIST_TILE)["length 3T+17"]
+    (prev, sizes), = problems
+    st = types.SimpleNamespace(tile_levels=0, row_levels=0)
+    got = model_distances(prev, sizes, st=st)
+    assert (st.tile_levels, st.row_levels) == (9, 2)
+    want, = jx.sd.stack_distances_batch(problems)
+    assert _same_bits(got, want)
+    assert _same_bits(_plain_one(ref.stack_distances_ref, prev, sizes),
+                      want)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -778,22 +1056,42 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("seed", SEEDS)
-def test_distance_kernel_on_card(card, seed):
-    dist, _, _ = random_problems(seed)
-    n = 2048
-    prev = np.full((len(dist), n), -1, np.int64)
-    sizes = np.zeros((len(dist), n))
-    lengths = np.zeros(len(dist), np.int32)
-    for b, (p, s) in enumerate(dist):
+def _distances_on_card(card, problems, width):
+    """The kernel on a bucket of ``problems`` in rows of ``width``, one
+    launch, against the plain version on the card: torch.equal."""
+    prev = np.full((len(problems), width), -1, np.int64)
+    sizes = np.zeros((len(problems), width))
+    lengths = np.zeros(len(problems), np.int32)
+    for b, (p, s) in enumerate(problems):
         prev[b, :len(p)], sizes[b, :len(s)], lengths[b] = p, s, len(p)
     args = [torch.from_numpy(a).to(card) for a in (prev, sizes)]
     before = sd.DISTANCES.launches
     got = ops.stack_distances(*args, torch.from_numpy(lengths).to(card))
     assert sd.DISTANCES.launches == before + 1
-    want = ref.stack_distances_ref(*args)
-    assert torch.equal(got, want)
+    assert torch.equal(got, ref.stack_distances_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2048, 32768, 3 * sd.DIST_TILE + 17])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_distance_kernel_on_card(card, seed, n):
+    """Rows of n (below the tile, with levels over the row, and not a
+    power of two), problems of lengths up to n."""
+    rng = np.random.default_rng(seed)
+    problems = []
+    for length in (n, n - 1, n // 2 + 17, 300, 37):
+        keys, ksz, _, prev = _stream(rng, length,
+                                     int(rng.integers(8, length // 2)), 40)
+        problems.append((prev, ksz[keys]))
+    _distances_on_card(card, problems, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DISTANCE_CASES)
+def test_distance_cases_on_card(card, case):
+    """The design's traps at the kernel's tile, in one bucket each."""
+    problems = _distance_cases(sd.DIST_TILE)[case]
+    _distances_on_card(card, problems, max(len(p) for p, _ in problems))
 
 
 @pytest.mark.gpu
