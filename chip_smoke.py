@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths, federation and sweeps on
-one CUDA card.
+"""Smoke run of the PyTorch port's serving paths, federation, sweeps and
+capacity planner on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,13 +8,14 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 JAX.  Every phase raises on a mismatch, so the exit code is non-zero if
 any phase fails:
 
-1. build   — compile the five kernel libraries from ``src/repro_torch``
+1. build   — compile the six kernel libraries from ``src/repro_torch``
              (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
              warnings of both flash designs at every head_dim and both
              ssd_intra designs, ``wgmma`` and ``simt``), each design's
              shared memory (the waterfill's at H's and I's buckets, the
-             FIFO replay's two designs), and the count of HGMMA
+             FIFO replay's two designs, the planner's solve at 2, 28 and
+             252 caches), and the count of HGMMA
              instructions in the
              flash and ssd_scan libraries' SASS, neither of which may be 0;
 2. kernel  — each kernel against its plain PyTorch version:
@@ -93,10 +94,34 @@ any phase fails:
              launches, ms per launch, µs per dependent step of the
              replays, plain time and bound, the solver's rounds and host
              reads, and the kernels' share of the wall time;
-6. report  — one JSON line of kernel numbers, then the device line.
+6. planner — J: the capacity planner, its inverse solve (``plan_solve``,
+             one launch a plan) and its mixture fit (``mixture_fit``, one
+             launch a stream) on the card: J1, the reference CI's planner
+             gate (``bench_plan.py``'s heterogeneous scenario at its full
+             profile: a fit sweep, a plan at target 0.5 and its exact
+             replay; savings above 0.15); J2, the OSDF's two tiers at 4
+             regions x 6 edges (28 caches), a day of zipf traffic: the
+             fit sweep's counters equal the reference's and the sweep's
+             without fit, a plan, a plan under an egress budget halfway
+             between the egress at ``max_capacity`` and the first plan's,
+             and the first plan's verification; J3, the same sweep fitting
+             mixtures.  Plans, verification blocks and losses against the
+             reference's numbers (``tests/tools/reference_want.py``); each
+             kernel against its plain version on the card, two launches
+             to the same bits, with a control that must fail (a plan at
+             target + 0.001, a budget plan under a budget moved by 1e-3
+             of its span, a fit to a target moved by 1e-3 at one point);
+             J2's pricing against the plain version on the CPU, with a
+             control (a saturated link halved); the
+             kernels' times (CUDA events around 20 calls, a CUDA graph),
+             the plain versions' on the card and the CPU, at J2 and at
+             J2's models tiled to 252 caches, ``plan_capacity`` whole,
+             the mixture per stream and batched, and the fit sweep's wall
+             against the sweep's without fit;
+7. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path, storm H and sweep I runs with every launch count set
-to 0 just before it and read just after.  Every line with a measured
+Each serving path, storm H, sweep I and the planner's path J runs with
+every launch count set to 0 just before it and read just after.  Every line with a measured
 number names the card and its power limit.
 """
 from __future__ import annotations
@@ -108,7 +133,7 @@ import pathlib
 import subprocess
 import sys
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -156,7 +181,11 @@ KERNEL_FILES = {
     "maxmin": ("src/repro_torch/kernels/csrc/maxmin.cu",
                "src/repro/kernels/maxmin.py:36"),
     "batched_maxmin": ("src/repro_torch/kernels/csrc/maxmin.cu",
-                       "src/repro/kernels/batched_maxmin.py:38")}
+                       "src/repro/kernels/batched_maxmin.py:38"),
+    "plan_solve": ("src/repro_torch/kernels/csrc/cache_model.cu",
+                   "src/repro/core/planner.py:162"),
+    "mixture_fit": ("src/repro_torch/kernels/csrc/cache_model.cu",
+                    "src/repro/kernels/cache_model.py:267")}
 
 
 def engine_a_lengths(rng):
@@ -286,14 +315,16 @@ def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
 
 
 def _kernels():
-    from repro_torch.kernels import chunk_checksum, flash_attention, maxmin
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import cache_model, chunk_checksum
+    from repro_torch.kernels import flash_attention, maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
     return {"flash_attention": flash_attention.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
             "chunk_checksum": chunk_checksum.KERNEL,
             "stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
-            "fifo_replay": sd.FIFO_REPLAY, "maxmin": maxmin.WATERFILL}
+            "fifo_replay": sd.FIFO_REPLAY, "maxmin": maxmin.WATERFILL,
+            "plan_solve": cache_model.PLAN_SOLVE,
+            "mixture_fit": cache_model.MIXTURE_FIT}
 
 
 def _reset_counts() -> None:
@@ -307,11 +338,12 @@ def _reset_counts() -> None:
 # ---------------------------------------------------------------------------
 def phase_build(card: str) -> None:
     from repro_torch.kernels import _build
+    from repro_torch.kernels import cache_model as cm
     from repro_torch.kernels import chunk_checksum as cc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
-    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB, maxmin.LIB)
+    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB, maxmin.LIB, cm.LIB)
     t0 = time.perf_counter()
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
@@ -339,15 +371,19 @@ def phase_build(card: str) -> None:
                            f"{ssd_scan.KERNEL.smem_bytes(p, n, 256)} B"
                            for p, n in ssd_scan.DESIGNS)
         + ", " + ", ".join(
-            f"maxmin_waterfill (Fp {f}, Lp {lp}, width {w}): "
-            f"{maxmin.WATERFILL.smem_bytes(f, lp, w)} B, "
-            f"{maxmin.WATERFILL.threads(f)} threads"
-            for f, lp, w in ((512, 512, 8), (8192, 32, 8)))
+            f"maxmin_waterfill {maxmin.WATERFILL.design(f, lp, w)} (Fp {f}, "
+            f"Lp {lp}, width {w}): {maxmin.WATERFILL.smem_bytes(f, lp, w)} "
+            f"B, {maxmin.WATERFILL.threads(f)} threads"
+            for f, lp, w in ((512, 512, 8), (8192, 32, 8), (16384, 256, 8)))
         + ", " + ", ".join(
             f"{name} {kernel.design(kp)} (Kp {kp}): "
             f"{kernel.smem_bytes(kp)} B" for name, kernel in (
                 ("fifo_replay", sd.FIFO_REPLAY), ("cache_sim", sd.CACHE_SIM))
-            for kp in (16384, 32768)), card)
+            for kp in (16384, 32768)) + ", " + ", ".join(
+            f"plan_solve (N {n}, Bk 64, "
+            f"G {n}): {cm.PLAN_SOLVE.smem_bytes(n, n)} B, "
+            f"{cm.PLAN_SOLVE.threads(n)} threads" for n in (2, 28, 252)),
+        card)
     for lib in (fa.LIB, ssd_scan.LIB):
         sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                                str(lib.path)], capture_output=True,
@@ -1532,23 +1568,26 @@ def _sweep_spec(core, device, n_requests=SWEEP_REQUESTS, axes=SWEEP_AXES):
 
 
 class _SweepRecorder:
-    """Wraps the three scans' ``ops`` functions and the sweep's batched
-    solver for one run: keeps every call's inputs and outputs (references,
-    no copies) and CUDA events around each scan call."""
+    """Wraps the three scans' ``ops`` functions (unless ``scans`` is
+    false) and the sweep's batched solver for one run: keeps every call's
+    inputs and outputs (references, no copies) and CUDA events around
+    each scan call."""
 
-    def __init__(self) -> None:
+    def __init__(self, scans: bool = True) -> None:
         self.calls = {name: [] for name in SCANS}
         self.pricing = []
+        self.scans = scans
 
     def __enter__(self):
         import torch
 
         import repro_torch.core.api as api
         from repro_torch.kernels import ops
-        self._saved = [(ops, fn, getattr(ops, fn)) for fn in SCANS.values()]
+        self._saved = [(ops, fn, getattr(ops, fn)) for fn in SCANS.values()
+                       if self.scans]
         self._saved.append((api, "maxmin_rates_batch",
                             api.maxmin_rates_batch))
-        for name, fn in SCANS.items():
+        for name, fn in SCANS.items() if self.scans else ():
             def wrapped(*args, _orig=getattr(ops, fn), _name=name):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -1892,31 +1931,73 @@ def _scan_numbers(name: str, rec, plain_s: list, clock_hz: float) -> dict:
             1e3 * ms / max(lengths)}
 
 
-def _solver_numbers(rec, card: str, clock_hz: float) -> dict:
-    """The batched solver at the sweep's pricing: the card's rates against
-    the plain version on the CPU (1e-6 relative); at the largest bucket
-    the kernel alone on resident inputs (CUDA events), the plain version
-    (the torch-ops loop) on the card and on the CPU (host clock), and the
-    bound: the bucket's bytes, or the rounds' chain of its slowest
-    problem (four barriers and log2(threads) shuffle steps a round, one
-    clock each), whichever is larger."""
+def _rate_errors(got, want):
+    """The largest relative and absolute differences of two lists of rate
+    arrays."""
+    import numpy as np
+    pairs = [(np.asarray(c), np.asarray(w)) for c, w in zip(got, want)
+             if len(w)]
+    rel = max(float(np.max(np.abs(c - w) / np.maximum(np.abs(w), 1e-30)))
+              for c, w in pairs)
+    return rel, max(float(np.max(np.abs(c - w))) for c, w in pairs)
+
+
+def _solver_numbers(label: str, pricing, card: str, clock_hz: float,
+                    design: Optional[str] = None) -> dict:
+    """The batched solver at a sweep's pricing (``pricing``: the recorded
+    calls, problems and the card's rates): every rate against the plain
+    version on the CPU (1e-6 relative), with a control (the most-shared
+    saturated link of the chosen bucket's largest problem halved) that
+    must fail it.  At the largest bucket (of the design ``design``, when
+    given) the kernel alone on resident inputs (CUDA events), the plain
+    version (the torch-ops loop) on the card and on the CPU (host clock),
+    and the bound: the bucket's bytes, or the rounds' chain of its
+    slowest problem (four barriers and log2(threads) shuffle steps a
+    round, one clock each), whichever is larger."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import batched_maxmin, maxmin
-    problems, card_rates = rec.pricing[0]
+    problems = [p for probs, _ in pricing for p in probs]
+    card_rates = [r for _, rates in pricing for r in rates]
     cpu_rates = batched_maxmin.maxmin_rates_batch(problems, device="cpu")
-    rel = max(float(np.max(np.abs(c - w) / np.maximum(np.abs(w), 1e-30)))
-              for c, w in zip(card_rates, cpu_rates) if len(w))
-    err = max(float(np.max(np.abs(c - w)))
-              for c, w in zip(card_rates, cpu_rates) if len(w))
+    rel, err = _rate_errors(card_rates, cpu_rates)
     if rel > MAXMIN_CPU_RTOL:
-        raise AssertionError(f"I solver: card vs CPU ops, max rel {rel}")
+        raise AssertionError(f"{label} solver: card vs CPU ops, max rel "
+                             f"{rel}")
     buckets = {}
-    for p in problems:
-        buckets.setdefault(batched_maxmin._bucket_of(p), []).append(p)
-    (Fp, Lp, width), group = max(buckets.items(),
-                                 key=lambda kv: len(kv[1]) * kv[0][0])
+    for i, p in enumerate(problems):
+        buckets.setdefault(batched_maxmin._bucket_of(p), []).append(i)
+    if design is not None:
+        buckets = {b: idx for b, idx in buckets.items()
+                   if maxmin.WATERFILL.design(*b) == design}
+        if not buckets:
+            raise AssertionError(f"{label} solver: no bucket of the design "
+                                 f"{design} in the sweep's pricing")
+    (Fp, Lp, width), idxs = max(buckets.items(),
+                                key=lambda kv: len(kv[1]) * kv[0][0])
+    group = [problems[i] for i in idxs]
+    big = max(idxs, key=lambda i: len(problems[i][1]))
+    link_caps, flow_links, flow_caps = problems[big]
+    load = np.zeros(len(link_caps))
+    share = np.zeros(len(link_caps), np.int64)
+    for f, row in enumerate(flow_links):
+        np.add.at(load, row, cpu_rates[big][f])
+        np.add.at(share, row, 1)
+    saturated = np.flatnonzero(load >= 0.999 * np.asarray(link_caps))
+    if not saturated.size:
+        raise AssertionError(f"{label} solver: no saturated link to halve "
+                             f"for the control")
+    halve = int(saturated[np.argmax(share[saturated])])
+    halved = list(link_caps)
+    halved[halve] /= 2
+    ctl_rel, _ = _rate_errors([card_rates[big]],
+                              batched_maxmin.maxmin_rates_batch(
+                                  [(halved, flow_links, flow_caps)],
+                                  device="cpu"))
+    if ctl_rel <= MAXMIN_CPU_RTOL:
+        raise AssertionError(f"{label} solver: the control (link {halve} "
+                             f"halved) passed the check")
     B = maxmin._next_pow2(len(group), floor=1)
     staging = maxmin.Staging(B, Fp, Lp, width, torch.device("cuda"))
     staging.caps.fill(np.inf)
@@ -1945,7 +2026,12 @@ def _solver_numbers(rec, card: str, clock_hz: float) -> dict:
     chain_steps = int(rounds.max()) * (
         3 + maxmin.WATERFILL.threads(Fp).bit_length())
     chain_ms = 1e3 * chain_steps / clock_hz
-    return {"max_abs_err": err, "max_rel_err_cpu": rel, "ms": ms,
+    return {"max_abs_err": err, "max_rel_err_cpu": rel,
+            "problems_checked": len(problems),
+            "control": {"problem_flows": len(flow_links), "link": halve,
+                        "link_flows": int(share[halve]),
+                        "max_rel_err_cpu": ctl_rel},
+            "design": maxmin.WATERFILL.design(Fp, Lp, width), "ms": ms,
             "plain_ms": plain_ms, "cpu_plain_ms": cpu_plain_ms,
             "bytes_ms": bytes_ms, "chain_ms": chain_ms,
             "bound_ms": max(bytes_ms, chain_ms),
@@ -1953,6 +2039,24 @@ def _solver_numbers(rec, card: str, clock_hz: float) -> dict:
             "library_ms": None, "bytes": nbytes,
             "bucket": [B, Fp, Lp, width], "problems": len(group),
             "flows": flows, "max_rounds": int(rounds.max())}
+
+
+def _say_solver(label: str, sm: dict, card: str) -> None:
+    ctl = sm["control"]
+    say(f"{label} batched_maxmin: the card's rates of "
+        f"{sm['problems_checked']} problems vs the plain version on the "
+        f"CPU max rel {sm['max_rel_err_cpu']:.2e} (tol {MAXMIN_CPU_RTOL}); "
+        f"control (link {ctl['link']} of a problem of "
+        f"{ctl['problem_flows']} flows, {ctl['link_flows']} of them on it, "
+        f"halved) fails: {ctl['max_rel_err_cpu']:.2e}; bucket "
+        f"{sm['bucket']} (design {sm['design']}, {sm['problems']} "
+        f"problems, {sm['flows']} flows, up to {sm['max_rounds']} rounds): "
+        f"kernel {sm['ms']:.4f} ms (a CUDA graph of launches, CUDA "
+        f"events), plain version on the card {sm['plain_ms']:.1f} ms and "
+        f"on the CPU {sm['cpu_plain_ms']:.1f} ms (host clock); bound "
+        f"{sm['bound_ms']:.6f} ms by {sm['bound_by']} (bytes "
+        f"{sm['bytes_ms']:.6f} ms for {sm['bytes']} B; chain "
+        f"{sm['chain_ms']:.6f} ms)", card)
 
 
 def phase_sweep(card: str) -> dict:
@@ -2091,20 +2195,13 @@ def phase_sweep(card: str) -> dict:
     out["fifo_replay"]["launches_by_design"] = fifo_designs
     out["fifo_replay"]["oversize"] = oversize
     out["cache_sim"]["launches_by_design"] = sim_designs
-    out["batched_maxmin"] = _solver_numbers(rec, card, clock_hz)
+    out["batched_maxmin"] = _solver_numbers("I", rec.pricing, card,
+                                            clock_hz)
     out["batched_maxmin"].update(
         launches=solver_launches, rounds=solver.rounds,
         syncs=solver.syncs, host_s=solver.host_seconds)
-    sm = out["batched_maxmin"]
-    say(f"I batched_maxmin: the card's rates vs the plain version on the "
-        f"CPU max rel {sm['max_rel_err_cpu']:.2e} (tol {MAXMIN_CPU_RTOL}); "
-        f"bucket {sm['bucket']} ({sm['problems']} problems, {sm['flows']} "
-        f"flows, up to {sm['max_rounds']} rounds): kernel {sm['ms']:.4f} ms "
-        f"(a CUDA graph of launches, CUDA events), plain version on the card {sm['plain_ms']:.1f} ms "
-        f"and on the CPU {sm['cpu_plain_ms']:.1f} ms (host clock); bound "
-        f"{sm['bound_ms']:.6f} ms by {sm['bound_by']} (bytes "
-        f"{sm['bytes_ms']:.6f} ms for {sm['bytes']} B; chain "
-        f"{sm['chain_ms']:.6f} ms); the whole batched call "
+    _say_solver("I", out["batched_maxmin"], card)
+    say(f"I batched_maxmin: the whole batched call "
         f"{1e3 * solver.host_seconds:.1f} ms (host clock)", card)
     # the batched path against the serial one, at 2e9 and admission 0.25
     serial_axes = {"federation.cache_capacity": [2e9],
@@ -2132,6 +2229,630 @@ def phase_sweep(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The planner (J): fit sweeps, plans and their exact-replay verification
+# ---------------------------------------------------------------------------
+PLAN_TARGET = 0.5
+OSDF_REGIONS = ("us-east", "us-central", "us-west", "eu")
+OSDF_EDGES, OSDF_REQUESTS = 6, 8000
+PLAN_TILE = 9                # J2's models tiled to 252 caches (timing only)
+PLAN_RTOL = 1e-9             # a plan, card vs plain version and reference
+# The budget plan's control: a budget moved by this share of the span it
+# is taken from (the egress at max_capacity to the first plan's)
+BUDGET_SHIFT = 1e-3
+# A 400-step mixture fit can wander along a flat valley of its loss
+# (tests/test_torch_cache_model.py, MIX_TOL).
+MIX_TOL = {"param": 1e-4, "cdf": 1e-6, "loss": 1e-6}
+MIX_STEPS, MIX_LR = 400, 0.08
+SAVINGS_FLOOR = 0.15         # the reference CI's gate on bench_plan
+FP64_FLOPS = 34e12           # H100 SXM, FP64 outside the tensor cores
+# The reference's numbers (JAX on a CPU: `tests/tools/reference_want.py`);
+# capacities in the order of the sorted group names.
+J1_WANT = {
+    "capacities": [6391878914.065353, 64021357.360792376],
+    "uniform_capacity": 5848887276.084394,
+    "savings_vs_uniform": 0.44810867719884295,
+    "predicted_hit_rate": 0.5020000000000003,
+    "predicted_egress_bytes": 296864254351.5304,
+    "hit_grad_norm": 0.287538804341266,
+    "verification": {"feasible": True, "attempts": 1,
+                     "achieved_hit_rate": 0.5012868410128684,
+                     "achieved_egress_bytes": 297305787897.0,
+                     "executor": "batched"}}
+J2_COUNTERS = {"requests": 8000, "bytes_moved": 5761154424525,
+               "cache_hits": 169177, "cache_misses": 166967,
+               "origin_egress_bytes": 1563103135576,
+               "parent_fill_bytes": 2555901468307, "evictions": 0,
+               "bytes_evicted": 0}
+J2_PLAN = {
+    "capacities": [
+        490459522872.6274, 83081878299.6728, 143053617482.42682,
+        127317420012.1032, 107694972163.80473, 106332383080.86858,
+        138528406405.06018, 465427609673.89746, 159635089623.91534,
+        90036601003.43587, 109487806890.58197, 74710481396.12071,
+        108056963258.0707, 98473148349.76677, 521484076966.74774,
+        152353068500.7699, 93527693179.72717, 109294498492.92677,
+        131410237652.15054, 140931294336.08618, 121025993900.48015,
+        441820852443.6459, 94569916185.10472, 124186923110.8438,
+        115136755856.58337, 130603850568.1721, 78428651537.26866,
+        120448357701.92949],
+    "uniform_capacity": 338699961210.30493,
+    "savings_vs_uniform": 0.506778163710123,
+    "predicted_hit_rate": 0.502,
+    "predicted_egress_bytes": 1563122715132.739,
+    "hit_grad_norm": 0.0021139635978875385}
+J2_BUDGET_PLAN = {
+    "capacities": [
+        537266966324.236, 82588522926.44, 142297434785.36624,
+        126568261900.97823, 107086874540.06519, 105734153744.01408,
+        138588982865.59183, 500970538489.16595, 158981951964.98578,
+        89495428028.85974, 108904967049.18831, 74261222119.76555,
+        107511960070.74329, 97886735556.11111, 576968233662.64,
+        151687743278.52057, 93052970943.13922, 109061357274.3619,
+        130685518469.40271, 140430191564.4224, 146344419787.16797,
+        488056909790.9634, 94020593185.6168, 123572805850.8036,
+        115396158403.42513, 130045695683.54071, 80169182629.37611,
+        119810711328.21431],
+    "uniform_capacity": 516237019901.659,
+    "savings_vs_uniform": 0.6625687216070524,
+    "predicted_hit_rate": 0.502,
+    "predicted_egress_bytes": 1563106167527.886,
+    "hit_grad_norm": 0.0020477710665799307}
+J2_EGRESS_AT_MAX = 1563103135576.0
+J2_VERIFICATION = {"feasible": True, "attempts": 1,
+                   "achieved_hit_rate": 0.502663707322001,
+                   "achieved_egress_bytes": 1563103135576.0,
+                   "executor": "batched"}
+J3_LOSS = [   # each of J2's 28 histograms, in cache-name order
+    8.985795011370367e-05, 0.0001173403264536766, 0.00015713471434355706,
+    0.00011654411900581367, 0.00015482143538121939, 0.0001505207448380738,
+    0.00013478737361058717, 6.419141876941173e-05, 9.440682484790361e-05,
+    8.25071083827271e-05, 0.00015625112864179147, 0.0001395971635969277,
+    0.00012541663921387708, 8.924941922777326e-05, 7.765069128242567e-05,
+    0.00012353675422590058, 0.00017895093578457438, 0.00014458062776532621,
+    9.280006535714703e-05, 0.00014158680587340584, 9.583906184593765e-05,
+    6.37681163275037e-05, 0.00011015318256922452, 7.20887108252642e-05,
+    0.00013190515826581992, 0.00013329707451507417, 9.832684893444572e-05,
+    0.00010803183213436114]
+PLAN_KEYS = ("uniform_capacity", "predicted_hit_rate",
+             "predicted_egress_bytes", "hit_grad_norm")
+
+
+def _hetero_spec(core, device):
+    """``benchmarks/bench_plan.py``'s ``planner_scenario(quick=False)``:
+    pod0 700 zipf-1.6 requests over 6 objects, pod1 150 zipf-1.05 over
+    64."""
+    fed = core.FederationSpec.fleet(num_pods=2, hosts_per_pod=2,
+                                    cache_capacity=2e9)
+    wl = (core.generate_workload([fed.sites[0].name], 700, seed=0,
+                                 working_set=6, zipf_a=1.6)
+          + core.generate_workload([fed.sites[1].name], 150, seed=1,
+                                   working_set=64, zipf_a=1.05))
+    wl.sort(key=lambda r: r.time)
+    return core.ScenarioSpec(name="plan-hetero", engine="analytic",
+                             federation=fed, workload=wl, device=device)
+
+
+def _osdf_spec(core, device):
+    """The OSDF's two tiers (arXiv:2007.01408) at 4 regions x 6 edges: 24
+    L1 edges under 4 L2 backbones, a day of zipf traffic."""
+    return core.ScenarioSpec(
+        name="plan-osdf", engine="analytic",
+        federation=core.FederationSpec.osdf(regions=OSDF_REGIONS,
+                                            edges_per_region=OSDF_EDGES),
+        workload=core.WorkloadSpec(kind="zipf", n_requests=OSDF_REQUESTS,
+                                   working_set=1000, duration=86400.0),
+        device=device)
+
+
+def _plan_errors(got, want, gsize) -> dict:
+    """How far a solve's output (G + 4,) is from another's: each
+    capacity, the total, the uniform capacity, the egress and the gradient
+    norm relative, the hit rate absolute."""
+    import numpy as np
+    G = len(gsize)
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    return {"capacity": rel(got[:G], want[:G]),
+            "total": rel(gsize @ got[:G], gsize @ want[:G]),
+            "uniform": rel(got[G], want[G]),
+            "hit": abs(float(got[G + 1] - want[G + 1])),
+            "egress": rel(got[G + 2], want[G + 2]),
+            "gnorm": rel(got[G + 3], want[G + 3])}
+
+
+def _plan_close(got, want, gsize):
+    err = _plan_errors(got, want, gsize)
+    return all(v <= PLAN_RTOL for v in err.values()), err
+
+
+def _plan_row(plan) -> list:
+    return [plan.capacities[g] for g in sorted(plan.capacities)] + [
+        plan.telemetry["hit_grad_norm"] if k == "hit_grad_norm"
+        else getattr(plan, k) for k in PLAN_KEYS]
+
+
+def _want_row(want) -> list:
+    return list(want["capacities"]) + [want[k] for k in PLAN_KEYS]
+
+
+def _check_plan(label: str, plan, want) -> dict:
+    """A plan of groups of one cache each against the reference's."""
+    import numpy as np
+    ok, err = _plan_close(_plan_row(plan), _want_row(want),
+                          np.ones(len(want["capacities"])))
+    err["savings"] = abs(plan.savings_vs_uniform
+                         - want["savings_vs_uniform"])
+    if not ok or err["savings"] > PLAN_RTOL:
+        raise AssertionError(f"{label}: the plan differs from the "
+                             f"reference's: {err}")
+    return err
+
+
+def _verification(plan) -> dict:
+    return {k: plan.verification[k] for k in (
+        "feasible", "attempts", "achieved_hit_rate",
+        "achieved_egress_bytes", "executor")}
+
+
+def _mixture_errors(grid, got, got_loss, want, want_loss) -> dict:
+    """Two fits of one grid: parameters (3, K), the fitted CDF on the grid
+    (absolute) and the loss (relative)."""
+    import torch
+
+    from repro_torch.kernels import cache_model as cm
+    g = torch.as_tensor(grid, dtype=torch.float64).cpu()
+    got, want = (torch.as_tensor(p, dtype=torch.float64).cpu()
+                 for p in (got, want))
+    return {"param": float((got - want).abs().max()),
+            "cdf": float((cm._mixture_cdf(g, *got)
+                          - cm._mixture_cdf(g, *want)).abs().max()),
+            "loss": abs(float(got_loss) - float(want_loss))
+            / max(abs(float(want_loss)), 1e-300)}
+
+
+def _mixture_close(err: dict) -> bool:
+    return all(err[k] <= MIX_TOL[k] for k in MIX_TOL)
+
+
+def _plan_bound(n: int, bk: int, g: int, steps: int, threads: int,
+                clock_hz: float) -> dict:
+    """The solve's least time: its 2 x 64 + 8·inner + 8 + 1 dependent
+    evaluations, each at least a thread's buckets, a warp's tree, the
+    totals' tree and two barriers at one clock a step; its float64
+    operations (10 a bucket an evaluation) at the card's FP64 rate; its
+    bytes read and written once."""
+    import math
+    evals = 2 * 64 + 8 * max(steps // 8, 1) + 8 + 1
+    warps = threads // 32
+    per_eval = math.ceil(n / warps) * (math.ceil(bk / 32) + 5) \
+        + math.ceil(n / 32) + 5 + 2
+    chain_ms = 1e3 * evals * per_eval / clock_hz
+    ops_ms = 1e3 * evals * n * bk * 10 / FP64_FLOPS
+    nbytes = 8 * (3 * n * bk + 3 * n + 2 * g + 8 + g + 4) + 8 * n
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    bound = max(chain_ms, ops_ms, bytes_ms)
+    return {"chain_ms": chain_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": bound, "evaluations": evals,
+            "bound_by": "bytes" if bound == bytes_ms else "operations"}
+
+
+def _mixture_bound(fits: int, m: int, k: int, steps: int,
+                   clock_hz: float) -> dict:
+    """The fits' least time: ``steps`` dependent steps, each at least the
+    components' loop, a warp's tree, the warps' sum and two barriers at one
+    clock a step; 12 float64 operations a point and component a step at
+    the FP64 rate; the bytes read and written once."""
+    import math
+    warps = math.ceil(m / 32)
+    chain_ms = 1e3 * steps * (k + 5 + warps + 3) / clock_hz
+    ops_ms = 1e3 * fits * steps * m * k * 12 / FP64_FLOPS
+    bytes_ms = 1e3 * fits * 8 * (6 * k + 2 * m + 1) / HBM_BYTES_PER_S
+    bound = max(chain_ms, ops_ms, bytes_ms)
+    return {"chain_ms": chain_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bound == bytes_ms else "operations"}
+
+
+def _plan_args(spec, tiled: int = 1):
+    """``plan_solve``'s inputs for the plan ``spec`` on the card, its
+    caches tiled ``tiled`` times (a group each), and the groups' sizes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import planner
+    _, _, st, gidx, gsize = planner.plan_problem(spec)
+    inp = planner.solve_inputs(st, gidx, gsize, spec)
+    if tiled > 1:
+        n = len(gidx)
+        inp["stacked"] = np.tile(inp["stacked"], (1, 1, tiled, 1))
+        inp["per_cache"] = np.tile(inp["per_cache"], (1, 1, tiled))
+        inp["gidx"] = np.arange(n * tiled, dtype=np.int64)[None]
+        inp["gsize"] = np.ones((1, n * tiled))
+    return [torch.from_numpy(np.ascontiguousarray(inp[k])).cuda()
+            for k in ("stacked", "per_cache", "gidx", "gsize",
+                      "scalars")], inp["gsize"][0]
+
+
+def _host_ms(fn, iters: int) -> float:
+    """ms a call by the host clock around synchronised calls."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def phase_planner(card: str) -> dict:
+    """J: the planner on the card.  J1, the reference CI's planner gate
+    (``bench_plan.py``'s heterogeneous scenario at its full profile): a
+    fit sweep, a plan at target 0.5 and its verification.  J2, the OSDF's
+    two tiers at 28 caches under a day of traffic: the fit sweep, a plan,
+    a plan under an egress budget and the first plan's verification.  J3,
+    the same sweep fitting mixtures (one ``mixture_fit`` launch a
+    stream).  Everything against the reference's numbers, each kernel
+    against its plain version on the card, with controls; the kernels'
+    and the paths' times.  Returns the kernels' numbers."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as core
+    from repro_torch.kernels import cache_model as cm
+    from repro_torch.kernels import maxmin, ref
+
+    warm = core.run_sweep(core.SweepSpec(
+        name="warm", base=_hetero_spec(core, "cuda"), axes={}),
+        fit="mixture")
+    core.plan_capacity(core.PlannerSpec(models=warm.fitted_models(),
+                                        target_hit_rate=PLAN_TARGET))
+    _reset_counts()                       # J's path starts here
+    wall = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    h_base = _hetero_spec(core, None)
+    h_rep = timed("J1 fit sweep", lambda: core.run_sweep(core.SweepSpec(
+        name="j1", base=h_base, axes={}), fit=True))
+    h_models = h_rep.fitted_models()
+    j1_plan = timed("J1 plan_capacity", lambda: core.plan_capacity(
+        core.PlannerSpec(models=h_models, target_hit_rate=PLAN_TARGET,
+                         groups=core.groups_for_federation(
+                             h_base.federation.build(), h_models))))
+    j1_ver = timed("J1 verify_plan",
+                   lambda: core.verify_plan(j1_plan, h_base))
+    o_base = _osdf_spec(core, None)
+    with _SweepRecorder(scans=False) as j2_rec:
+        o_rep = timed("J2 fit sweep", lambda: core.run_sweep(
+            core.SweepSpec(name="j2", base=o_base, axes={}), fit=True))
+    models = o_rep.fitted_models()
+    spec = core.PlannerSpec(models=models, target_hit_rate=PLAN_TARGET,
+                            groups=core.groups_for_federation(
+                                o_base.federation.build(), models))
+    plan = timed("J2 plan_capacity", lambda: core.plan_capacity(spec))
+    stacked = cm.stack_models(models)
+    egress_max = float(cm.fleet_origin_egress(stacked, torch.full(
+        (len(stacked.names),), spec.max_capacity,
+        dtype=torch.float64).cuda()))
+    bspec = dataclasses.replace(spec, target_egress_bytes=0.5 * (
+        egress_max + plan.predicted_egress_bytes))
+    bplan = timed("J2 budget plan_capacity",
+                  lambda: core.plan_capacity(bspec))
+    ver = timed("J2 verify_plan", lambda: core.verify_plan(plan, o_base))
+    m_rep = timed("J3 mixture fit sweep", lambda: core.run_sweep(
+        core.SweepSpec(name="j3", base=o_base, axes={}), fit="mixture"))
+    launches = {"plan_solve": cm.PLAN_SOLVE.launches,
+                "mixture_fit": cm.MIXTURE_FIT.launches,
+                "maxmin_waterfill": maxmin.WATERFILL.launches}
+    waterfill_designs = dict(maxmin.WATERFILL.launches_by_design)  # ... ends
+
+    streams = m_rep.solver["fit_streams"]
+    if launches["plan_solve"] != 3:
+        raise AssertionError(f"J: plan_solve launches {launches}: one a "
+                             f"plan (3)")
+    if launches["mixture_fit"] != streams or streams != len(J3_LOSS):
+        raise AssertionError(f"J: {launches['mixture_fit']} mixture_fit "
+                             f"launches for {streams} streams")
+    # J1: the reference CI's gate
+    e1 = _check_plan("J1", j1_plan, J1_WANT)
+    if _verification(j1_ver) != J1_WANT["verification"]:
+        raise AssertionError(f"J1 verification {_verification(j1_ver)}, "
+                             f"the reference's {J1_WANT['verification']}")
+    if j1_ver.savings_vs_uniform <= SAVINGS_FLOOR:
+        raise AssertionError(f"J1 savings {j1_ver.savings_vs_uniform} "
+                             f"<= {SAVINGS_FLOOR}")
+    say(f"J1 (bench_plan's heterogeneous scenario, full profile, device "
+        f"cuda): fit sweep {wall['J1 fit sweep']:.2f} s, plan_capacity "
+        f"{1e3 * wall['J1 plan_capacity']:.2f} ms, verify_plan "
+        f"{wall['J1 verify_plan']:.2f} s (host clock); capacities "
+        f"{_plan_row(j1_plan)[:2]} B, uniform "
+        f"{j1_plan.uniform_capacity:.2f} B, savings "
+        f"{j1_ver.savings_vs_uniform:.5f} (> {SAVINGS_FLOOR}); within "
+        f"{PLAN_RTOL:g} of the reference's (worst {max(e1.values()):.2e}); "
+        f"verification {_verification(j1_ver)} equal to the reference's",
+        card)
+    if waterfill_designs["global"] < 1:
+        raise AssertionError(f"J: waterfill launches by design "
+                             f"{waterfill_designs}: J2's pricing bucket "
+                             f"keeps its lists in device memory")
+    # J2: counters, plans, verification
+    counters = {k: o_rep.cells[0].summary[k] for k in J2_COUNTERS}
+    if counters != J2_COUNTERS:
+        raise AssertionError(f"J2 counters {counters}, the reference's "
+                             f"{J2_COUNTERS}")
+    nofit = timed("J2 sweep without fit", lambda: core.run_sweep(
+        core.SweepSpec(name="j2", base=o_base, axes={})))
+    fit_summary = dict(o_rep.cells[0].summary, name=None)
+    for label, other in (("without fit", nofit), ("fit='mixture'", m_rep)):
+        if dict(other.cells[0].summary, name=None) != fit_summary:
+            raise AssertionError(f"J2: the sweep {label} has other "
+                                 f"counters than the fit sweep")
+    if m_rep.reuse_histograms() != o_rep.reuse_histograms():
+        raise AssertionError("J3: the mixture sweep's histograms differ "
+                             "from the fit sweep's")
+    if abs(egress_max / J2_EGRESS_AT_MAX - 1.0) > PLAN_RTOL:
+        raise AssertionError(f"J2 egress at max_capacity {egress_max}, the "
+                             f"reference's {J2_EGRESS_AT_MAX}")
+    e2 = _check_plan("J2", plan, J2_PLAN)
+    e2b = _check_plan("J2 budget", bplan, J2_BUDGET_PLAN)
+    shift = BUDGET_SHIFT * (plan.predicted_egress_bytes - egress_max)
+    ok, budget_cerr = _plan_close(
+        _plan_row(core.plan_capacity(dataclasses.replace(
+            bspec, target_egress_bytes=bspec.target_egress_bytes + shift))),
+        _want_row(J2_BUDGET_PLAN), np.ones(len(J2_PLAN["capacities"])))
+    if ok:
+        raise AssertionError(f"J2 budget control: a plan under a budget "
+                             f"moved by {shift:.1f} B passed the check "
+                             f"against the reference's budget plan")
+    if _verification(ver) != J2_VERIFICATION:
+        raise AssertionError(f"J2 verification {_verification(ver)}, the "
+                             f"reference's {J2_VERIFICATION}")
+    clock_hz = _max_sm_clock_hz()
+    pricing = _solver_numbers("J2", j2_rec.pricing, card, clock_hz,
+                              design="global")
+    pricing["launches"] = launches["maxmin_waterfill"]
+    pricing["launches_by_design"] = waterfill_designs
+    say(f"J2 (FederationSpec.osdf, {len(OSDF_REGIONS)} regions x "
+        f"{OSDF_EDGES} edges: {len(models)} caches; zipf "
+        f"{OSDF_REQUESTS} requests over a day; device cuda; the pricing's "
+        f"waterfill launches on J's path by design {waterfill_designs}): "
+        f"counters equal "
+        f"the reference's {J2_COUNTERS} and the sweep's without fit; fit "
+        f"sweep {wall['J2 fit sweep']:.2f} s against "
+        f"{wall['J2 sweep without fit']:.2f} s without fit (host clock); "
+        f"plan savings {plan.savings_vs_uniform:.6f}, within {PLAN_RTOL:g} "
+        f"of the reference's (worst {max(e2.values()):.2e}); budget "
+        f"{bspec.target_egress_bytes:.1f} B (halfway from {egress_max:.1f} "
+        f"B at max_capacity): savings {bplan.savings_vs_uniform:.6f}, "
+        f"within {PLAN_RTOL:g} of the reference's: {e2b}; control (the "
+        f"budget moved by {shift:.1f} B, {BUDGET_SHIFT:g} of its span) "
+        f"fails: {budget_cerr}; verify_plan "
+        f"{wall['J2 verify_plan']:.2f} s, {_verification(ver)} equal to "
+        f"the reference's", card)
+
+    _say_solver("J2", pricing, card)
+
+    # plan_solve against its plain version on the card
+
+    kernel = cm.PLAN_SOLVE
+    cases = {}
+    for label, sp, tiled in (("J2", spec, 1), ("J2 budget", bspec, 1),
+                             ("252 caches", spec, PLAN_TILE)):
+        args, gsize = _plan_args(sp, tiled)
+        got = kernel(*args, sp.steps)
+        again = kernel(*args, sp.steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref.plan_solve_ref(*args, sp.steps)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        ok, err = _plan_close(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                              gsize)
+        if not ok:
+            raise AssertionError(f"J {label}: plan_solve differs from its "
+                                 f"plain version on the card: {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"J {label}: two plan_solve launches "
+                                 f"differ")
+        n, bk = args[0].shape[2], args[0].shape[3]
+        g = args[3].shape[1]
+        case = {"caches": n, "buckets": bk, "groups": g,
+                "smem_bytes": kernel.smem_bytes(n, g),
+                "threads": kernel.threads(n), "errors": err,
+                "max_abs_err": float((got - want).abs().max()),
+                "iters": 20 if n < 100 else 5,
+                "plain_ms": plain_ms, "library_ms": None,
+                **_plan_bound(n, bk, g, sp.steps, kernel.threads(n),
+                              clock_hz)}
+        case["ms"] = time_ms(lambda: kernel(*args, sp.steps), case["iters"])
+        case["graph_ms"] = graph_ms(lambda: kernel(*args, sp.steps))
+        if label != "J2 budget":
+            cpu = [a.cpu() for a in args]
+            t0 = time.perf_counter()
+            ref.plan_solve_ref(*cpu, sp.steps)
+            case["cpu_plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        cases[label] = case
+        say(f"J plan_solve {label} (N {n}, Bk {bk}, G {g}, "
+            f"{case['smem_bytes']} B of shared memory, "
+            f"{case['threads']} threads): kernel {case['ms']:.4f} ms (CUDA "
+            f"events around {case['iters']} calls), {case['graph_ms']:.4f} "
+            f"ms (a CUDA "
+            f"graph of 20 launches); plain version on the card "
+            f"{plain_ms:.1f} ms" + (f", on the CPU "
+                                    f"{case['cpu_plain_ms']:.1f} ms"
+                                    if "cpu_plain_ms" in case else "")
+            + f" (host clock); bound {case['bound_ms']:.6f} ms by "
+            f"{case['bound_by']} (chain {case['chain_ms']:.6f} ms over "
+            f"{case['evaluations']} evaluations at {clock_hz / 1e6:.0f} MHz;"
+            f" FP64 {case['ops_ms']:.6f} ms; bytes {case['bytes_ms']:.6f} "
+            f"ms); against the plain version {err}; two launches equal",
+            card)
+    control = core.plan_capacity(dataclasses.replace(
+        spec, target_hit_rate=PLAN_TARGET + 0.001))
+    ok, plan_cerr = _plan_close(_plan_row(control), _want_row(J2_PLAN),
+                                np.ones(len(J2_PLAN["capacities"])))
+    if ok:
+        raise AssertionError("J2 control: a plan at target + 0.001 passed "
+                             "the check against the reference's plan")
+    whole_ms = _host_ms(lambda: core.plan_capacity(spec), 10)
+    say(f"J plan_capacity whole at J2 (host clock, 10 calls): {whole_ms:.3f}"
+        f" ms a plan, the kernel {cases['J2']['ms']:.4f} of it; control "
+        f"(target + 0.001) fails the check: {plan_cerr}", card)
+
+    # mixture_fit: per stream (the sweep's launches) and batched
+    hists = o_rep.reuse_histograms()
+    names = sorted(hists)
+    problems = [cm.mixture_problem(cm.ReuseHistogram.from_dict(hists[n]))
+                for n in names]
+    batch = [torch.from_numpy(np.stack([p[i] for p in problems])).cuda()
+             for i in range(3)]
+    mix = cm.MIXTURE_FIT
+    got_b, loss_b = mix(*batch, MIX_STEPS, MIX_LR)
+    again_b, again_l = mix(*batch, MIX_STEPS, MIX_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_b, wloss_b = ref.mixture_fit_ref(*batch, MIX_STEPS, MIX_LR)
+    torch.cuda.synchronize()
+    mix_plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not (torch.equal(got_b, again_b) and torch.equal(loss_b, again_l)):
+        raise AssertionError("J3: two mixture_fit launches differ")
+    fitted = m_rep.fitted_models()
+    worst = dict.fromkeys(MIX_TOL, 0.0)
+    worst_ref = 0.0
+    for i, name in enumerate(names):
+        mdl = fitted[name]
+        one = np.stack([mdl.mix_logits, mdl.mix_mu, mdl.mix_log_sigma])
+        if not np.array_equal(one, got_b[i].cpu().numpy()) or \
+                mdl.fit_loss != float(loss_b[i]):
+            raise AssertionError(f"J3 {name}: the sweep's fit differs from "
+                                 f"the batched launch's")
+        err = _mixture_errors(problems[i][1], got_b[i], loss_b[i],
+                              want_b[i], wloss_b[i])
+        if not _mixture_close(err):
+            raise AssertionError(f"J3 {name}: mixture_fit differs from its "
+                                 f"plain version on the card: {err}")
+        worst = {k: max(worst[k], err[k]) for k in worst}
+        rel = abs(mdl.fit_loss / J3_LOSS[i] - 1.0)
+        if rel > MIX_TOL["loss"]:
+            raise AssertionError(f"J3 {name}: loss {mdl.fit_loss}, the "
+                                 f"reference's {J3_LOSS[i]}")
+        worst_ref = max(worst_ref, rel)
+    moved = [t.clone() for t in batch]
+    moved[2][0, 64] += 1e-3
+    ctl_p, ctl_l = mix(*[t[:1].contiguous() for t in moved], MIX_STEPS,
+                       MIX_LR)
+    mix_cerr = _mixture_errors(problems[0][1], ctl_p[0], ctl_l[0],
+                               want_b[0], wloss_b[0])
+    if _mixture_close(mix_cerr):
+        raise AssertionError("J3 control: a fit to a target moved by 1e-3 "
+                             "at one point passed the check")
+    one = [t[:1].contiguous() for t in batch]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.mixture_fit_ref(*one, MIX_STEPS, MIX_LR)
+    torch.cuda.synchronize()
+    one_plain_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_b = [t.cpu() for t in batch]
+    t0 = time.perf_counter()
+    ref.mixture_fit_ref(*cpu_b, MIX_STEPS, MIX_LR)
+    cpu_plain_ms = 1e3 * (time.perf_counter() - t0)
+    m, k = batch[1].shape[1], batch[0].shape[2]
+    mixture = {
+        "stream": {"fits": 1, "ms": time_ms(
+            lambda: mix(*one, MIX_STEPS, MIX_LR), 20),
+            "graph_ms": graph_ms(lambda: mix(*one, MIX_STEPS, MIX_LR)),
+            "plain_ms": one_plain_ms, "library_ms": None,
+            **_mixture_bound(1, m, k, MIX_STEPS, clock_hz)},
+        "batched": {"fits": len(names), "ms": time_ms(
+            lambda: mix(*batch, MIX_STEPS, MIX_LR), 20),
+            "graph_ms": graph_ms(lambda: mix(*batch, MIX_STEPS, MIX_LR)),
+            "plain_ms": mix_plain_ms, "cpu_plain_ms": cpu_plain_ms,
+            "library_ms": None,
+            **_mixture_bound(len(names), m, k, MIX_STEPS, clock_hz)},
+        "errors": worst, "max_abs_err": float((got_b - want_b).abs().max()),
+        "loss_rel_err_reference": worst_ref, "control": mix_cerr,
+        "launches": launches["mixture_fit"], "points": m, "components": k,
+        "steps": MIX_STEPS}
+    for key in ("stream", "batched"):
+        c = mixture[key]
+        say(f"J3 mixture_fit {key} ({c['fits']} fit(s) of {k} components "
+            f"over {m} points, {MIX_STEPS} steps): kernel {c['ms']:.4f} ms "
+            f"(CUDA events around 20 calls), {c['graph_ms']:.4f} ms (a CUDA "
+            f"graph); plain version on the card {c['plain_ms']:.1f} ms"
+            + (f", on the CPU {c['cpu_plain_ms']:.1f} ms"
+               if "cpu_plain_ms" in c else "")
+            + f" (host clock); bound {c['bound_ms']:.6f} ms by "
+            f"{c['bound_by']} (chain {c['chain_ms']:.6f}, FP64 "
+            f"{c['ops_ms']:.6f}, bytes {c['bytes_ms']:.6f} ms)", card)
+    say(f"J3 mixture_fit: {launches['mixture_fit']} launches on the mixture "
+        f"sweep's path (one a stream), each equal to its row of one batched "
+        f"launch; against the plain version on the card {worst} (bounds "
+        f"{MIX_TOL}); losses within {worst_ref:.2e} of the reference's; "
+        f"control (a target point moved by 1e-3) fails: {mix_cerr}; mixture "
+        f"sweep {wall['J3 mixture fit sweep']:.2f} s (host clock)", card)
+    return {"plan_solve": {"launches": launches["plan_solve"],
+                           "cases": cases, "control": plan_cerr,
+                           "budget_control": budget_cerr,
+                           "plan_capacity_ms": whole_ms,
+                           "errors_vs_reference": {"J1": e1, "J2": e2,
+                                                   "J2 budget": e2b}},
+            "mixture_fit": mixture, "batched_maxmin": pricing,
+            "wall_s": wall}
+
+
+def _plan_solve_entry(nums: dict, card: str) -> dict:
+    source, replaces = KERNEL_FILES["plan_solve"]
+    main = nums["cases"]["J2"]
+    return {"name": "plan_solve", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": nums["launches"],
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "graph_ms", "cpu_plain_ms", "chain_ms",
+                                    "ops_ms", "bytes_ms", "errors")},
+            "tolerance": f"card vs the plain version on the card and vs the "
+                         f"reference: {PLAN_RTOL:g} relative, with and "
+                         f"without an egress budget",
+            "shape": f"J2's plan: {main['caches']} caches x "
+                     f"{main['buckets']} buckets, {main['groups']} groups, "
+                     f"600 steps",
+            "card": card,
+            "plan_capacity_ms": nums["plan_capacity_ms"],
+            "control": nums["control"],
+            "budget_control": nums["budget_control"],
+            "errors_vs_reference": nums["errors_vs_reference"],
+            "cases": {k: v for k, v in nums["cases"].items() if k != "J2"}}
+
+
+def _mixture_fit_entry(nums: dict, card: str) -> dict:
+    source, replaces = KERNEL_FILES["mixture_fit"]
+    main = nums["stream"]
+    return {"name": "mixture_fit", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": nums["launches"],
+            "max_abs_err": nums["max_abs_err"],
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "graph_ms", "chain_ms",
+                                    "ops_ms", "bytes_ms")},
+            "tolerance": f"card vs the plain version on the card {MIX_TOL}; "
+                         f"losses vs the reference's {MIX_TOL['loss']:g} "
+                         f"relative",
+            "shape": f"one of J2's histograms: {nums['components']} "
+                     f"components over {nums['points']} points, "
+                     f"{nums['steps']} steps",
+            "card": card, "errors": nums["errors"],
+            "loss_rel_err_reference": nums["loss_rel_err_reference"],
+            "control": nums["control"], "batched": nums["batched"]}
+
+
 def _scan_entry(name: str, nums: dict, card: str) -> dict:
     entry = _entry(name, nums["launches"], nums, "exact",
                    f"sweep I's largest bucket {nums['bucket']} (B, Np"
@@ -2146,21 +2867,29 @@ def _scan_entry(name: str, nums: dict, card: str) -> dict:
     return entry
 
 
-def _batched_maxmin_entry(nums: dict, card: str) -> dict:
+def _batched_maxmin_entry(nums: dict, planner: dict, card: str) -> dict:
+    """Sweep I's pricing bucket; beside it J2's largest bucket of the
+    design ``global``.  ``launches`` sums the two paths' launches."""
     source, replaces = KERNEL_FILES["batched_maxmin"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_rel_err_cpu", "cpu_plain_ms", "bytes_ms",
+            "chain_ms", "max_rounds", "design", "problems_checked",
+            "control")
     return {"name": "batched_maxmin", "route": "cuda", "source": source,
             "replaces": replaces,
-            **{k: nums[k] for k in ("launches", "max_abs_err", "ms",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "max_rel_err_cpu",
-                                    "cpu_plain_ms", "bytes_ms", "chain_ms",
-                                    "rounds", "max_rounds", "syncs",
-                                    "host_s")},
+            "launches": nums["launches"] + planner["launches"],
+            **{k: nums[k] for k in keys + ("rounds", "syncs", "host_s")},
             "tolerance": f"card vs the plain version on the CPU "
                          f"{MAXMIN_CPU_RTOL} relative; storm finish "
                          f"seconds vs the reference's {SOLVER_RTOL}",
             "shape": f"sweep I's pricing bucket {nums['bucket']} (B, Fp, "
-                     f"Lp, width)", "card": card}
+                     f"Lp, width)", "card": card,
+            "launches_by_path": {"sweep I": nums["launches"],
+                                 "planner J": planner["launches"]},
+            "J2_case": {"shape": f"J2's pricing bucket {planner['bucket']} "
+                                 f"(B, Fp, Lp, width)",
+                        "launches_by_design": planner["launches_by_design"],
+                        **{k: planner[k] for k in keys}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2251,6 +2980,7 @@ def main() -> int:
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
     sweep = phase_sweep(card)
+    plans = phase_planner(card)
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
@@ -2279,7 +3009,10 @@ def main() -> int:
         checksum_entry,
         _maxmin_entry(storm, card),
         *[_scan_entry(name, sweep[name], card) for name in SCANS],
-        _batched_maxmin_entry(sweep["batched_maxmin"], card),
+        _batched_maxmin_entry(sweep["batched_maxmin"],
+                              plans["batched_maxmin"], card),
+        _plan_solve_entry(plans["plan_solve"], card),
+        _mixture_fit_entry(plans["mixture_fit"], card),
     ]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

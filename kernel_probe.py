@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time four kernels of the port on synthetic inputs that isolate their
-parts, on one CUDA card:
+parts, and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
-                            [--parent DIR]
+                            [paths] [plan] [--parent DIR]
 
-(all four when none is named).
+(all six when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -40,6 +40,20 @@ parts, on one CUDA card:
   that version's ``ops.stack_distances`` is imported and built too and
   timed in turns with this one, old, new, new, old, on every case, and
   their distances must be equal.
+* ``paths``: ``chip_smoke.py``'s storm H (250 pods, every solve on the
+  card) and sweep I (32 cells, all batched) by the host's clock around
+  the run, and ``maxmin_rates_sparse``'s whole call (packing, copies,
+  launch and read) on a problem like storm H's (512 flows over 487
+  links) by the host's clock around 200 calls, and the waterfill
+  wrapper's design lookup (one ``ctypes`` call a solve) by the host's
+  clock around 10,000 calls.  With ``--parent DIR``
+  that tree's port runs the same in turns, old, new, new, old, and the
+  counters of both versions must be equal.
+* ``plan``: ``plan_solve`` at ``chip_smoke.py``'s J2 plan (28 caches x 64
+  buckets, from its fit sweep) and on J2's models tiled to 252 caches:
+  CUDA events around 20 calls and a CUDA graph of 20 launches.  With
+  ``--parent DIR`` that tree's ``ops.plan_solve`` in turns, old, new,
+  new, old, its outputs required equal bit for bit.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
@@ -194,18 +208,19 @@ def _host_us(fn, calls: int = 20) -> float:
     return 1e6 * (t1 - t0) / calls
 
 
-def _parent_ops(parent: str):
-    """The ``ops`` module of the port in an unpacked tree ``DIR``
+def _parent_module(parent: str, name: str = "kernels.ops"):
+    """The module ``name`` of the port in an unpacked tree ``DIR``
     (``DIR/src/repro_torch``), imported as a package of another name; its
     kernels build into that tree."""
-    root = pathlib.Path(parent).resolve() / "src" / "repro_torch"
-    spec = importlib.util.spec_from_file_location(
-        "parent_repro_torch", root / "__init__.py",
-        submodule_search_locations=[str(root)])
-    package = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = package
-    spec.loader.exec_module(package)
-    return importlib.import_module("parent_repro_torch.kernels.ops")
+    if "parent_repro_torch" not in sys.modules:
+        root = pathlib.Path(parent).resolve() / "src" / "repro_torch"
+        spec = importlib.util.spec_from_file_location(
+            "parent_repro_torch", root / "__init__.py",
+            submodule_search_locations=[str(root)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"parent_repro_torch.{name}")
 
 
 def _recorded_bucket():
@@ -223,7 +238,7 @@ def probe_distances(card: str, parent: Optional[str] = None) -> None:
     dev = torch.device("cuda")
     impls = {"new": ops.stack_distances}
     if parent:
-        impls["old"] = _parent_ops(parent).stack_distances
+        impls["old"] = _parent_module(parent).stack_distances
     order = ["old", "new", "new", "old"] if parent else ["new"]
 
     def same(outs, label):
@@ -301,6 +316,102 @@ def probe_distances(card: str, parent: Optional[str] = None) -> None:
             print(f"{line}  [{card}]", flush=True)
 
 
+def probe_paths(card: str, parent: Optional[str] = None) -> None:
+    import repro_torch.core as core
+    from chip_smoke import _storm_spec, _sweep_spec
+    impls = {"new": (core, maxmin)}
+    if parent:
+        impls["old"] = (_parent_module(parent, "core"),
+                        _parent_module(parent, "kernels.maxmin"))
+    order = ["old", "new", "new", "old"] if parent else ["new"]
+    rng = np.random.default_rng(0)
+    caps = rng.uniform(1e8, 1e10, 487).tolist()
+    rows = [rng.choice(487, 4, replace=False).tolist() for _ in range(512)]
+    fcaps = rng.uniform(1e7, 5e9, 512).tolist()
+    for c, _ in impls.values():                      # builds and warms
+        c.run_scenario(_storm_spec(c, "vector", "cuda", pods=4))
+        c.run_sweep(_sweep_spec(c, "cuda", n_requests=200))
+    times = {w: {"storm": [], "sweep": [], "call": []} for w in impls}
+    counters = {}
+    for which in order:
+        c, mm = impls[which]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = c.run_scenario(_storm_spec(c, "vector", "cuda"))
+        times[which]["storm"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sweep = c.run_sweep(_sweep_spec(c, None))
+        torch.cuda.synchronize()
+        times[which]["sweep"].append(time.perf_counter() - t0)
+        times[which]["call"].append(_host_us(
+            lambda: mm.maxmin_rates_sparse(caps, rows, fcaps, device="cuda"),
+            200) / 1e3)
+        counters[which] = ((rep.cache_hits, rep.cache_misses,
+                            rep.origin_egress_bytes, rep.reallocations),
+                           [cell.summary for cell in sweep.cells])
+    if parent and counters["old"] != counters["new"]:
+        raise AssertionError("paths: the two versions' counters differ")
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        maxmin.WATERFILL.design(512, 512, 8)
+    lookup_us = 1e6 * (time.perf_counter() - t0) / 10000
+    for which in impls:
+        t = times[which]
+        print(f"paths, {which}: storm H {_ms(t['storm'])} s, sweep I "
+              f"{_ms(t['sweep'])} s (host clock around the run); "
+              f"maxmin_rates_sparse like storm H's (512 flows, 487 links) "
+              f"{_ms(t['call'])} ms a call (host clock, 200 calls)"
+              + (f"; of it the waterfill wrapper's design lookup "
+                 f"{lookup_us:.3f} us (host clock, 10,000 calls)"
+                 if which == "new" else "") + f"  [{card}]", flush=True)
+    if parent:
+        ratio = {k: sum(times["old"][k]) / sum(times["new"][k])
+                 for k in ("storm", "sweep", "call")}
+        print(f"paths: old / new storm H {ratio['storm']:.3f}, sweep I "
+              f"{ratio['sweep']:.3f}, the whole call {ratio['call']:.3f}; "
+              f"counters equal  [{card}]", flush=True)
+
+
+def probe_plan(card: str, parent: Optional[str] = None) -> None:
+    import repro_torch.core as core
+    from chip_smoke import PLAN_TARGET, PLAN_TILE, _osdf_spec, _plan_args
+    impls = {"new": ops.plan_solve}
+    if parent:
+        impls["old"] = _parent_module(parent).plan_solve
+    order = ["old", "new", "new", "old"] if parent else ["new"]
+    base = _osdf_spec(core, "cuda")
+    models = core.run_sweep(core.SweepSpec(name="j2", base=base, axes={}),
+                            fit=True).fitted_models()
+    spec = core.PlannerSpec(models=models, target_hit_rate=PLAN_TARGET,
+                            groups=core.groups_for_federation(
+                                base.federation.build(), models))
+    for label, tiled in (("J2", 1), ("252 caches", PLAN_TILE)):
+        args, _ = _plan_args(spec, tiled)
+        times = {w: {"loop": [], "graph": []} for w in impls}
+        outs = {}
+        for which in order:
+            fn = impls[which]
+            outs[which] = fn(*args, spec.steps)
+            times[which]["loop"].append(time_ms(lambda: fn(*args, spec.steps),
+                                                20))
+            times[which]["graph"].append(graph_ms(
+                lambda: fn(*args, spec.steps)))
+        if parent and not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"plan_solve {label}: the two versions "
+                                 f"differ")
+        for which in impls:
+            t = times[which]
+            print(f"plan_solve, {label} ({args[0].shape[2]} caches), "
+                  f"{which}: {_ms(t['loop'])} ms a call by CUDA events "
+                  f"around 20 calls; {_ms(t['graph'])} ms in a CUDA graph "
+                  f"of 20 launches  [{card}]", flush=True)
+        if parent:
+            loop = {w: sum(times[w]["loop"]) for w in impls}
+            print(f"plan_solve, {label}: old / new "
+                  f"{loop['old'] / loop['new']:.3f}; outputs equal  "
+                  f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -314,7 +425,9 @@ def main() -> int:
         del args[at:at + 2]
     probes = {"cache_sim": probe_cache_sim, "fifo": probe_fifo,
               "waterfill": probe_waterfill,
-              "distances": lambda c: probe_distances(c, parent)}
+              "distances": lambda c: probe_distances(c, parent),
+              "paths": lambda c: probe_paths(c, parent),
+              "plan": lambda c: probe_plan(c, parent)}
     for name in args or probes:
         probes[name](card)
     return 0

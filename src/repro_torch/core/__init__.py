@@ -11,8 +11,9 @@ The federation is accessed through one typed data plane
 ``SimulatedPlane`` engines, declarative ``ScenarioSpec`` +
 ``run_scenario``, and batched sweeps (``SweepSpec`` + ``run_sweep``),
 whose stack-distance scans are CUDA kernels and whose contention pricing
-is the batched max-min solver.  Not ported yet: the capacity planner
-(and with it ``run_sweep(fit=...)``).
+is the batched max-min solver, and the capacity planner
+(``run_sweep(fit=...)``, ``plan_capacity``, ``verify_plan``), whose
+inverse solve and mixture fit are CUDA kernels.
 """
 from .api import (AnalyticPlane, ClientPlane, DataPlane, FetchRequest,
                   FetchResult, ScenarioReport, ScenarioSpec, SimulatedPlane,
@@ -37,6 +38,9 @@ from .monitoring import (CacheHealthMonitor, CacheUsagePacket, DecayGauge,
                          consumer_table, experiment_of)
 from .namespace import Namespace
 from .origin import ChunkStore, Origin
+from .planner import (PlannerSpec, PlanReport, apply_capacities,
+                      groups_for_federation, plan_capacity, predict,
+                      verify_plan)
 from .policies import (AdmissionPolicy, EVICTION_POLICIES, EvictionPolicy,
                        FIFOPolicy, LFUPolicy, LRUPolicy, SizeAwareAdmission,
                        TTLPolicy, make_eviction_policy)

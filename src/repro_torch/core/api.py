@@ -36,13 +36,14 @@ scenario runs on both engines — which is what the engine-parity tests
 and the CI smoke assert.
 
 This is the port of the reference's ``repro.core.api``, the batched
-sweeps (``SweepSpec``, ``run_sweep``) included; ``run_sweep(fit=...)``
-waits on the planner's slice.  Device work runs on a device:
+sweeps (``SweepSpec``, ``run_sweep``) and their fitted cache models
+(``run_sweep(fit=...)``) included.  Device work runs on a device:
 ``ScenarioSpec.device`` and ``SimulatedPlane(device=...)`` name the
 simulated engine's, and a sweep's template ``SweepSpec.base.device``
 names its kernels' (the stack-distance scans and the batched max-min
-solver); ``None`` means ``cuda`` and raises without a card.  The analytic
-engine of ``run_scenario`` has no device work and takes none.
+solver, and the mixture fit of ``fit="mixture"``); ``None`` means
+``cuda`` and raises without a card.  The analytic engine of
+``run_scenario`` has no device work and takes none.
 """
 from __future__ import annotations
 
@@ -59,6 +60,8 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.batched_maxmin import maxmin_rates_batch
+from ..kernels.cache_model import (fit_histogram_model,
+                                   fit_lognormal_mixture, reuse_histogram)
 from ..kernels.stack_distance import (cache_sim_batch, fifo_sim_batch,
                                       stack_distances_batch)
 from .client import StashClient
@@ -1349,8 +1352,8 @@ class SweepReport:
                 for v in self.axes.get(axis, sorted(agg))]
 
     def fitted_models(self, **params) -> Dict[str, object]:
-        """Per-cache fitted cache models from a ``fit=`` sweep (the
-        planner's slice, not ported yet: empty here) — the cell matching
+        """Per-cache fitted :class:`~repro_torch.kernels.cache_model.
+        CacheModel` objects from a ``fit=`` sweep — the cell matching
         ``params``, else the first cell that carries models (cells of
         one routing column share one model dict)."""
         if params:
@@ -2513,6 +2516,49 @@ def _plan_cell_vectorized(cspec: ScenarioSpec, routing_fed: FederationSpec,
     return _CellPlan(cspec, routing)
 
 
+def _fit_wanted(plan: "_CellPlan", wanted: List, l2: bool = False) -> None:
+    """Queue the *unfiltered* (all keys admitted) stack-distance
+    variant of every stream the plan touches — the capacity-free reuse
+    profile the differentiable cache models fit.  Rides the same
+    batched kernel call as the cells' own variants; streams that
+    already resolve through an all-admitted ``dist`` variant share it
+    byte for byte."""
+    order = ([(stream, None) for _q, stream, _m, _a in plan._l2_order]
+             if l2 else
+             [(plan.routing.streams[ci], None)
+              for ci, _m, _a in plan._order])
+    for stream, _ in order:
+        admitted = np.ones(stream.n_keys, bool)
+        wanted.append((stream, admitted.tobytes(), admitted))
+
+
+def _fit_products(stream: _CacheStream, fit, cache: Dict[int, Tuple],
+                  device: torch.device
+                  ) -> Tuple[Optional[Dict], Optional[object]]:
+    """(histogram dict, CacheModel) for one stream, built once per
+    stream object and shared by every cell of the routing column; a
+    mixture is fitted on ``device``."""
+    got = cache.get(id(stream))
+    if got is not None:
+        return got
+    sig = np.ones(stream.n_keys, bool).tobytes()
+    v = stream.variants.get(sig)
+    if v is None:
+        return None, None
+    if stream.is_fill is not None:
+        of = 1.0   # merged parent streams miss straight to the origin
+    else:
+        tot = float(stream.size.sum())
+        of = (float(stream.size[stream.parent_ci < 0].sum()) / tot
+              if tot > 0 else 1.0)
+    hist = reuse_histogram(v["dist"], v["sizes"])
+    model = (fit_lognormal_mixture(hist, origin_fraction=of, device=device)
+             if fit == "mixture"
+             else fit_histogram_model(hist, origin_fraction=of))
+    cache[id(stream)] = (hist.to_dict(), model)
+    return cache[id(stream)]
+
+
 def run_sweep(spec: SweepSpec, batched: bool = True,
               price_contention: bool = True, fit=False) -> SweepReport:
     """Execute every cell of a sweep.
@@ -2535,15 +2581,18 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
     ``batched=False`` is the all-serial baseline the parity tests compare
     against.
 
-    ``fit`` (the reference's fitted reuse-distance models) needs the
-    planner's cache models, which are not ported yet: a truthy ``fit``
-    raises ``NotImplementedError``.  ``SweepCell.reuse_histogram`` and
-    ``models`` stay ``None``.
+    ``fit=True`` additionally returns *fitted models* alongside the
+    exact cells: every batched stream's unfiltered reuse-distance
+    profile is resolved in the same batched scan calls, bucketed
+    into a per-cache ``reuse_histogram`` and fitted into a
+    differentiable :class:`~repro_torch.kernels.cache_model.CacheModel`
+    (``fit="mixture"`` fits parametric lognormal mixtures instead of
+    the nonparametric smoothed-histogram curve, one ``mixture_fit`` call
+    a stream on the sweep's device).  Both ride on the cells —
+    ``cell.reuse_histogram`` / ``cell.models``,
+    :meth:`SweepReport.fitted_models` — never inside the summaries the
+    parity tests compare, and feed :mod:`repro_torch.core.planner`.
     """
-    if fit:
-        raise NotImplementedError(
-            "run_sweep(fit=...) needs kernels/cache_model.py, the planner's "
-            "slice (ROADMAP queue 1, item 1: the planner), not ported yet")
     t0 = time.perf_counter()
     device = resolve_device(spec.base.device) if batched else None
     shared = _SharedFederations()
@@ -2567,6 +2616,8 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
             sim_problems.extend(plan.problems)
             fifo_problems.extend(plan.fifo_problems)
             dist_wanted.extend(plan.dist_wanted)
+            if fit:
+                _fit_wanted(plan, dist_wanted)
             batched_cells += 1
             entries.append((dict(params), cspec, plan, None))
         else:
@@ -2605,6 +2656,8 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
             l2_sim_problems.extend(plan.l2_problems)
             l2_fifo_problems.extend(plan.l2_fifo_problems)
             l2_dist_wanted.extend(plan.l2_dist_wanted)
+            if fit:
+                _fit_wanted(plan, l2_dist_wanted, l2=True)
     if l2_dist_wanted:
         _resolve_distances(l2_dist_wanted, telemetry, device)
     l2_sim_results: List = []
@@ -2634,6 +2687,7 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
     problems = []
     problem_bytes = []
     problem_cells: List[SweepCell] = []
+    fit_cache: Dict[int, Tuple] = {}
     for params, cspec, plan, report in entries:
         if plan is not None:
             report, (flow_specs, flow_bytes) = plan.finalize(
@@ -2646,12 +2700,29 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
         cell = SweepCell(params=params, name=cspec.name,
                          engine=cspec.engine, executor=executor,
                          summary=report.summary())
+        if fit and plan is not None:
+            r = plan.routing
+            hists: Dict[str, Dict] = {}
+            mods: Dict[str, object] = {}
+            pairs = [(r.cache_names[ci], r.streams[ci])
+                     for ci, _m, _a in plan._order]
+            pairs += [(r.cache_names[q], stream)
+                      for q, stream, _m, _a in plan._l2_order]
+            for name, stream in pairs:
+                h, mdl = _fit_products(stream, fit, fit_cache, device)
+                if h is not None:
+                    hists[name] = h
+                    mods[name] = mdl
+            cell.reuse_histogram = hists
+            cell.models = mods
         if executor == "batched" and price_contention and flow_specs:
             problems.append(sparse_flow_problem(flow_specs))
             problem_bytes.append(np.asarray(flow_bytes))
             problem_cells.append(cell)
         cells.append(cell)
     solver: Dict[str, object] = {"solve_calls": 0, "priced_cells": 0}
+    if fit:
+        telemetry["fit_streams"] = len(fit_cache)
     solver.update(telemetry)
     if problems:
         stats: Dict = {}

@@ -41,15 +41,16 @@ class CudaLibrary:
 
     ``signatures`` maps each exported C function to ``(argtypes,
     restype)``; every function is declared before first use.  ``defines``
-    are compile-time constants the source takes from its wrapper (``-D``);
-    they are part of the library's name, as the source is.  Every
-    source also exports ``<name>_error_string``, which ``check`` uses."""
+    are compile-time constants the source takes from its wrapper (``-D``)
+    and ``flags`` further ``nvcc`` options; both are part of the library's
+    name, as the source is.  Every source also exports
+    ``<name>_error_string``, which ``check`` uses."""
 
     def __init__(self, name: str, signatures: dict,
-                 defines: Optional[dict] = None) -> None:
+                 defines: Optional[dict] = None, flags: tuple = ()) -> None:
         self.name = name
         self.source = CSRC / f"{name}.cu"
-        self.flags = NVCC_FLAGS + tuple(
+        self.flags = NVCC_FLAGS + tuple(flags) + tuple(
             f"-D{key}={value}" for key, value in (defines or {}).items())
         tag = hashlib.sha256(self.source.read_bytes() +
                              "\0".join(self.flags).encode()).hexdigest()[:8]

@@ -70,11 +70,16 @@
 //
 // Shared memory per block (dynamic): link state 4 x (3 Lp + 1) B, build
 // counters 4 x build_warps x Lp B, flow caps and fs 8 Fp B, a state byte a
-// flow, and room for Fp x width list entries of 2 B (4 B when Fp >
-// 65536).  Storm H's peak bucket (Fp 512, Lp 512, width 8) needs 51,848
-// B, sweep I's (Fp 8192, Lp 32, width 8) 209,416 B; a shape over the
-// card's 227 KB is refused at launch, and the error comes back to the
-// caller.
+// flow (rounded up to 4 B), and room for Fp x width list entries of 2 B
+// (4 B when Fp > 65536).  Storm H's peak bucket (Fp 512, Lp 512, width 8)
+// needs 51,848 B, sweep I's (Fp 8192, Lp 32, width 8) 209,416 B.  Two
+// designs by that size: `smem`, the lists in shared memory, where they
+// fit; `global`, the lists in a workspace in device memory (Fp x width
+// entries a problem, the wrapper's), read through L1 and L2, everything
+// else as before: a two-tier OSDF sweep's pricing bucket (Fp 16384, Lp
+// 256, width 8) needs 183,432 B so.  A shape over the card's 227 KB
+// even without its lists is refused at launch, and the error comes back
+// to the caller.
 //
 // What bounds it: the rounds' chain of barriers and reductions (a problem
 // takes 1-20 rounds), not bytes: H's peak problem is 34 KB of input.
@@ -110,7 +115,7 @@ __global__ void __launch_bounds__(1024)
 waterfill(const float* __restrict__ link_caps,
           const float* __restrict__ flow_caps,
           const int* __restrict__ link_ids, int fp, int lp, int width,
-          int build_warps, float* __restrict__ out) {
+          int build_warps, Idx* __restrict__ work, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -124,8 +129,11 @@ waterfill(const float* __restrict__ link_caps,
   float* fcap = reinterpret_cast<float*>(cnt + build_warps * lp);  // fp
   unsigned* fs = reinterpret_cast<unsigned*>(fcap + fp);   // fp
   unsigned* red = fs + fp;                   // 32 warps' minima, a count
-  Idx* list = reinterpret_cast<Idx*>(red + 33);            // fp * width
-  unsigned char* state = reinterpret_cast<unsigned char*>(list + fp * width);
+  unsigned char* state = reinterpret_cast<unsigned char*>(red + 33);  // fp
+  // fp * width entries: after the states (design smem), else this
+  // problem's part of the workspace (design global)
+  Idx* list = work ? work + (long long)b * fp * width
+                   : reinterpret_cast<Idx*>(state + ((fp + 3) & ~3));
 
   const float* caps_b = link_caps + (long long)b * lp;
   const float* fcaps_b = flow_caps + (long long)b * fp;
@@ -366,10 +374,25 @@ waterfill(const float* __restrict__ link_caps,
   if (tid == 0) out_b[fp] = (float)rounds;
 }
 
-size_t smem_bytes(int fp, int lp, int width, int build_warps) {
-  const size_t idx = fp <= 65536 ? 2 : 4;
+constexpr size_t BLOCK_SMEM = 232448;  // what a block may have on Hopper
+
+size_t index_bytes(int fp) { return fp <= 65536 ? 2 : 4; }
+
+// Shared memory without the lists, and with them.
+size_t state_bytes(int fp, int lp, int build_warps) {
   return 4 * (3 * (size_t)lp + 1 + (size_t)build_warps * lp + 2 * (size_t)fp
-              + 33) + idx * (size_t)fp * width + (size_t)fp;
+              + 33) + (((size_t)fp + 3) & ~(size_t)3);
+}
+
+bool lists_in_smem(int fp, int lp, int width, int build_warps) {
+  return state_bytes(fp, lp, build_warps) +
+             index_bytes(fp) * (size_t)fp * width <= BLOCK_SMEM;
+}
+
+size_t smem_bytes(int fp, int lp, int width, int build_warps) {
+  return state_bytes(fp, lp, build_warps) +
+         (lists_in_smem(fp, lp, width, build_warps)
+              ? index_bytes(fp) * (size_t)fp * width : 0);
 }
 
 int threads_for(int fp) {
@@ -397,14 +420,24 @@ long long maxmin_smem_bytes(int fp, int lp, int width) {
   return (long long)smem_bytes(fp, lp, width, build_warps_for(fp, lp));
 }
 
+// The design for a bucket: 1 smem (the lists in shared memory), 0 global
+// (in a workspace of maxmin_work_bytes a problem).
+int maxmin_lists_in_smem(int fp, int lp, int width) {
+  return lists_in_smem(fp, lp, width, build_warps_for(fp, lp)) ? 1 : 0;
+}
+
+long long maxmin_work_bytes(int fp, int width) {
+  return (long long)(index_bytes(fp) * (size_t)fp * width);
+}
+
 int maxmin_threads(int fp) { return threads_for(fp); }
 
 // link_caps (B x lp) f32, flow_caps (B x fp) f32, link_ids (B x fp x width)
 // int32 → out (B x (fp + 1)) f32: each problem's rates, then its round
-// count.
+// count.  work: B x maxmin_work_bytes for the design global, else null.
 int maxmin_waterfill(const float* link_caps, const float* flow_caps,
                      const int* link_ids, int batch, int fp, int lp,
-                     int width, float* out, void* stream) {
+                     int width, void* work, float* out, void* stream) {
   const int threads = threads_for(fp);
   const int bw = build_warps_for(fp, lp);
   const size_t smem = smem_bytes(fp, lp, width, bw);
@@ -431,12 +464,17 @@ int maxmin_waterfill(const float* link_caps, const float* flow_caps,
     }
     if (limit) *limit = smem;
   }
+  if (!lists_in_smem(fp, lp, width, bw) && !work)
+    return cudaErrorInvalidValue;     // the design global needs its workspace
+  void* lists = lists_in_smem(fp, lp, width, bw) ? nullptr : work;
   if (wide)
     waterfill<int><<<batch, threads, smem, s>>>(
-        link_caps, flow_caps, link_ids, fp, lp, width, bw, out);
+        link_caps, flow_caps, link_ids, fp, lp, width, bw,
+        static_cast<int*>(lists), out);
   else
     waterfill<uint16_t><<<batch, threads, smem, s>>>(
-        link_caps, flow_caps, link_ids, fp, lp, width, bw, out);
+        link_caps, flow_caps, link_ids, fp, lp, width, bw,
+        static_cast<uint16_t*>(lists), out);
   return cudaGetLastError();
 }
 

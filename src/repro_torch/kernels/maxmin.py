@@ -198,18 +198,28 @@ def plain_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("maxmin", {
-    "maxmin_waterfill": ([_vp] * 3 + [_ci] * 4 + [_vp] * 2, _ci),
+    "maxmin_waterfill": ([_vp] * 3 + [_ci] * 4 + [_vp] * 3, _ci),
     "maxmin_smem_bytes": ([_ci] * 3, ctypes.c_longlong),
+    "maxmin_lists_in_smem": ([_ci] * 3, _ci),
+    "maxmin_work_bytes": ([_ci] * 2, ctypes.c_longlong),
     "maxmin_threads": ([_ci], _ci)})
 
 
 class WaterfillKernel:
     """``csrc/maxmin.cu``'s ``maxmin_waterfill``: the whole solve of each
     problem of a batch in one block of one launch.  ``launches`` is raised
-    once per launch that the card accepted."""
+    once per launch that the card accepted; ``launches_by_design`` counts
+    them by where the per-link flow lists live: ``smem`` (shared memory,
+    where they fit) or ``global`` (a workspace in device memory that the
+    wrapper allocates)."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.launches_by_design = {"smem": 0, "global": 0}
+
+    def design(self, Fp: int, Lp: int, width: int) -> str:
+        return "smem" if LIB.load().maxmin_lists_in_smem(Fp, Lp, width) \
+            else "global"
 
     def smem_bytes(self, Fp: int, Lp: int, width: int) -> int:
         return int(LIB.load().maxmin_smem_bytes(Fp, Lp, width))
@@ -223,7 +233,8 @@ class WaterfillKernel:
         flow_caps (B, Fp) float32, on one CUDA device → (B, Fp + 1)
         float32: each problem's rates, then its round count.  Raises on
         other inputs, and when the card refuses the launch (a bucket whose
-        lists need more shared memory than a block has)."""
+        state needs more shared memory than a block has even with its
+        lists in device memory)."""
         num, Fp, width = link_ids.shape
         Lp = link_caps.shape[1]
         dev = link_caps.device
@@ -242,14 +253,20 @@ class WaterfillKernel:
                                  f"on {t.device}")
         out = torch.empty(num, Fp + 1, dtype=torch.float32, device=dev)
         lib = LIB.load()
+        design = self.design(Fp, Lp, width)
+        work = None if design == "smem" else torch.empty(
+            num * int(lib.maxmin_work_bytes(Fp, width)), dtype=torch.uint8,
+            device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.maxmin_waterfill(
                 link_caps.data_ptr(), flow_caps.data_ptr(),
-                link_ids.data_ptr(), num, Fp, Lp, width, out.data_ptr(),
+                link_ids.data_ptr(), num, Fp, Lp, width,
+                None if work is None else work.data_ptr(), out.data_ptr(),
                 stream)
         LIB.check(err, "maxmin")
         self.launches += 1
+        self.launches_by_design[design] += 1
         return out
 
 

@@ -4,12 +4,15 @@ A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor
 goes to the hand-written kernel, which raises on anything it cannot
 serve.  There is no fallback from one to the other.  The max-min solver
 (``maxmin_waterfill``) follows the same rule: the plain version is
-``maxmin.plain_waterfill`` (torch ops), the kernel ``maxmin.WATERFILL``.
+``maxmin.plain_waterfill`` (torch ops), the kernel ``maxmin.WATERFILL``;
+so do the planner's two loops (``plan_solve``, ``mixture_fit``): the
+kernels ``cache_model.PLAN_SOLVE`` and ``cache_model.MIXTURE_FIT``.
 """
 from __future__ import annotations
 
 import torch
 
+from . import cache_model as _cm
 from . import maxmin as _maxmin
 from . import ref
 from . import stack_distance as _sd
@@ -116,3 +119,26 @@ def fifo_replay(keys: torch.Tensor, sizes: torch.Tensor, admit: torch.Tensor,
                                    capacity)
     return _sd.FIFO_REPLAY(keys, sizes, admit, reset, kcum0, capacity,
                            lengths)
+
+
+def plan_solve(stacked: torch.Tensor, per_cache: torch.Tensor,
+               gidx: torch.Tensor, gsize: torch.Tensor,
+               scalars: torch.Tensor, steps: int) -> torch.Tensor:
+    """The planner's inverse solve of a batch of P plans: stacked (P, 3,
+    N, Bk), per_cache (P, 3, N), gidx (P, N) int64, gsize (P, G) and
+    scalars (P, 8) float64 → (P, G + 4) float64 (see
+    ``ref.plan_solve_ref``)."""
+    if stacked.device.type == "cpu":
+        return ref.plan_solve_ref(stacked, per_cache, gidx, gsize, scalars,
+                                  steps)
+    return _cm.PLAN_SOLVE(stacked, per_cache, gidx, gsize, scalars, steps)
+
+
+def mixture_fit(params0: torch.Tensor, grid: torch.Tensor,
+                target: torch.Tensor, steps: int, lr: float):
+    """``steps`` Adam steps fitting log-normal mixtures, params0 (P, 3, K)
+    against grid and target (P, M), all float64 → (params (P, 3, K), the
+    last step's loss (P,)) (see ``ref.mixture_fit_ref``)."""
+    if params0.device.type == "cpu":
+        return ref.mixture_fit_ref(params0, grid, target, steps, lr)
+    return _cm.MIXTURE_FIT(params0, grid, target, steps, lr)

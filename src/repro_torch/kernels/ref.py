@@ -5,6 +5,8 @@ against.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 FNV_PRIME = 0x01000193
@@ -298,3 +300,166 @@ def fifo_replay_ref(keys: torch.Tensor, sizes: torch.Tensor,
         kcum[rows, k] = torch.where(ins, total, kcum[rows, k])
         hits[:, t] = hit
     return hits, ev, evb
+
+
+# ---------------------------------------------------------------------------
+# The planner's two loops: the reference's jitted JAX written as torch ops,
+# with autograd where the reference takes ``jax.grad``.  Both in float64.
+# ---------------------------------------------------------------------------
+PLAN_ROUNDS = 8          # augmented-Lagrangian rounds (planner.py:199)
+PLAN_BISECT_STEPS = 64   # each bisection's steps (planner.py:186)
+
+
+def plan_solve_ref(stacked: torch.Tensor, per_cache: torch.Tensor,
+                   gidx: torch.Tensor, gsize: torch.Tensor,
+                   scalars: torch.Tensor, steps: int) -> torch.Tensor:
+    """The planner's inverse solve (``core/planner.py:162`` ``_solve``)
+    for a batch of P plans of N caches, Bk buckets and G groups.
+
+    stacked (P, 3, N, Bk) float64: each cache's log centers, reference
+    weights and byte weights; per_cache (P, 3, N) float64: total refs,
+    total bytes and origin fraction; gidx (P, N) int64, each cache's group;
+    gsize (P, G) float64, caches a group; scalars (P, 8) float64: the
+    target (the target hit rate plus the margin), the egress budget (NaN
+    for none), lo and hi (ln of the capacity bounds), the smoothing tau,
+    Adam's lr, the first penalty rho and its growth a round; ``steps``
+    Adam steps in all, ``max(steps // 8, 1)`` a round.
+
+    → (P, G + 4) float64: each group's capacity, the uniform capacity,
+    the predicted hit rate and origin egress, and the norm of the hit
+    rate's gradient in log-capacity.  The stages, in the reference's
+    order: a 64-step bisection for the uniform capacity; 8 rounds of Adam
+    (β₂ 0.99) on the augmented Lagrangian, each followed by the dual
+    update; a 64-step repair bisection of a shift of every log-capacity;
+    the end point's telemetry."""
+    return torch.stack([
+        _plan_one(stacked[p], per_cache[p], gidx[p], gsize[p],
+                  scalars[p].tolist(), steps)
+        for p in range(stacked.shape[0])])
+
+
+def _plan_one(stacked, per_cache, gidx, gsize, scalars, steps):
+    target, budget, lo, hi, tau, lr, penalty, rho_growth = scalars
+    has_budget = budget == budget            # NaN: no egress budget
+    centers, refw, bytew = stacked
+    total_refs, total_bytes, origin_fraction = per_cache
+    dev = stacked.device
+    G = gsize.shape[0]
+    total = torch.clamp(total_refs.sum(), min=1.0)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+
+    def sig(u):
+        caps = torch.exp(u)[gidx]
+        logc = torch.log(torch.maximum(caps, torch.ones_like(caps)))
+        return torch.sigmoid((logc[:, None] - centers) / tau)
+
+    def hit_at(u):
+        return (refw * sig(u)).sum(1).sum() / total
+
+    def egress_at(u):
+        miss = total_bytes - (bytew * sig(u)).sum(1)
+        return (origin_fraction * miss).sum()
+
+    def feasible(u):
+        ok = hit_at(u) >= target
+        if has_budget:
+            ok = ok & (egress_at(u) <= budget)
+        return ok
+
+    def bisect(pred, a, b):
+        for _ in range(PLAN_BISECT_STEPS):
+            mid = 0.5 * (a + b)
+            good = pred(mid)
+            a, b = torch.where(good, a, mid), torch.where(good, mid, b)
+        return b
+
+    u_uni = bisect(lambda v: feasible(v.expand(G)), zero + lo, zero + hi)
+    u = u_uni.expand(G).clone()
+    scale = torch.clamp((gsize * torch.exp(u)).sum(), min=1.0)
+    bdiv = max(budget, 1.0) if has_budget else 1.0
+
+    def lagrangian(u, nu, nu2, rho):
+        aug = torch.maximum(nu + rho * (target - hit_at(u)), zero)
+        val = (gsize * torch.exp(u)).sum() / scale \
+            + (aug ** 2 - nu ** 2) / (2.0 * rho)
+        if has_budget:
+            c2 = (egress_at(u) - budget) / bdiv
+            aug2 = torch.maximum(nu2 + rho * c2, zero)
+            val = val + (aug2 ** 2 - nu2 ** 2) / (2.0 * rho)
+        return val
+
+    inner = max(steps // PLAN_ROUNDS, 1)
+    mom = torch.zeros(G, dtype=torch.float64, device=dev)
+    vel = torch.zeros_like(mom)
+    nu, nu2, rho = zero, zero, zero + penalty
+    for r in range(PLAN_ROUNDS):
+        for i in range(inner):
+            x = u.detach().requires_grad_()
+            g, = torch.autograd.grad(lagrangian(x, nu, nu2, rho), x)
+            mom = 0.9 * mom + 0.1 * g
+            vel = 0.99 * vel + 0.01 * g * g
+            t = r * inner + i + 1.0
+            u = u - lr * (mom / (1 - 0.9 ** t)) / (
+                torch.sqrt(vel / (1 - 0.99 ** t)) + 1e-8)
+            u = torch.clamp(u, lo, hi)
+        nu = torch.maximum(nu + rho * (target - hit_at(u)), zero)
+        if has_budget:
+            nu2 = torch.maximum(
+                nu2 + rho * (egress_at(u) - budget) / bdiv, zero)
+        rho = rho * rho_growth
+    m = bisect(lambda s: feasible(u + s), zero - 8.0, zero + 8.0)
+    u = torch.clamp(u + m, lo, hi)
+    x = u.detach().requires_grad_()
+    grad, = torch.autograd.grad(hit_at(x), x)
+    with torch.no_grad():
+        return torch.cat([torch.exp(u), torch.stack([
+            torch.exp(u_uni), hit_at(u), egress_at(u),
+            torch.linalg.vector_norm(grad)])])
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: exp(x − max) divided by its
+    sum.  ``torch.softmax`` multiplies by the sum's reciprocal instead,
+    which rounds otherwise: a mixture's weights then sum to 1 + 2^-52 and
+    its CDF can exceed 1 where the reference's does not."""
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values.detach())
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def mixture_loss(params: torch.Tensor, grid: torch.Tensor,
+                 target: torch.Tensor) -> torch.Tensor:
+    """Each fit's loss (P,): the mean over its grid of the squared gap
+    between the mixture's CDF and the target; params (P, 3, K) are the
+    logits, means and log-sigmas, grid and target (P, M)."""
+    logits, mu, log_sigma = params.unbind(1)
+    pis = softmax(logits)[:, None, :]
+    sigma = torch.exp(log_sigma)[:, None, :]
+    z = (grid[..., None] - mu[:, None, :]) / (sigma * math.sqrt(2.0))
+    pred = (pis * 0.5 * (1.0 + torch.special.erf(z))).sum(dim=-1)
+    return ((pred - target) ** 2).mean(dim=-1)
+
+
+def mixture_fit_ref(params0: torch.Tensor, grid: torch.Tensor,
+                    target: torch.Tensor, steps: int, lr: float):
+    """The mixture fit (``kernels/cache_model.py:267``
+    ``_mixture_fit_loop``) for a batch of P histograms: ``steps`` Adam
+    steps (β₁ 0.9, β₂ 0.999, ε 1e-8) on params0 (P, 3, K) float64 against
+    grid and target (P, M) float64 → (params (P, 3, K), loss (P,)).  The
+    loss is the reference's: the one the last step evaluated before its
+    own update (0 when ``steps`` is 0)."""
+    params = params0.clone()
+    mom = torch.zeros_like(params)
+    vel = torch.zeros_like(params)
+    loss = torch.zeros(params.shape[0], dtype=params.dtype,
+                       device=params.device)
+    for i in range(steps):
+        x = params.detach().requires_grad_()
+        losses = mixture_loss(x, grid, target)
+        g, = torch.autograd.grad(losses.sum(), x)
+        mom = 0.9 * mom + 0.1 * g
+        vel = 0.999 * vel + 0.001 * g * g
+        t = i + 1.0
+        params = params - lr * (mom / (1 - 0.9 ** t)) / (
+            torch.sqrt(vel / (1 - 0.999 ** t)) + 1e-8)
+        loss = losses.detach()
+    return params, loss

@@ -222,10 +222,6 @@ def test_sanitizer_catches_hidden_state(monkeypatch):
 
 
 def test_exports_match_the_reference(ref):
-    """The port exports what the reference's ``core`` exports, except the
-    planner's names, which are not ported yet."""
-    not_ported = {"PlannerSpec", "PlanReport", "apply_capacities",
-                  "groups_for_federation", "plan_capacity", "predict",
-                  "verify_plan", "planner"}
-    want = {n for n in ref.__all__ if n not in not_ported}
-    assert want - set(T.__all__) == set()
+    """The port exports what the reference's ``core`` exports, the
+    planner's names included."""
+    assert set(ref.__all__) - set(T.__all__) == set()

@@ -267,14 +267,6 @@ def test_report_helpers(runs):
     assert got.summary()["fitted_cells"] == 0
 
 
-def test_fit_raises_not_implemented():
-    sweep = T.SweepSpec(name="fit", base=base_spec(T, n_requests=4))
-    with pytest.raises(NotImplementedError, match="planner"):
-        T.run_sweep(sweep, fit=True)
-    with pytest.raises(NotImplementedError):
-        T.run_sweep(sweep, fit="mixture")
-
-
 def test_device_none_means_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = dataclasses.replace(base_spec(T, n_requests=4), device=None)

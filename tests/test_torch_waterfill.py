@@ -15,8 +15,9 @@ fix-up to ``maxmin_ref`` within the reference's rtol 2e-3 / atol 1e3, over
 the random family of ``test_torch_maxmin.py`` and named edge cases.
 
 The ``gpu`` tests hold the kernel to the plain version on the card, two
-launches to the same bits, and a bucket whose lists do not fit a block's
-shared memory to an error.
+launches to the same bits, a bucket whose lists do not fit a block's
+shared memory (the design that keeps them in device memory) likewise, and
+a bucket whose state does not fit even then to an error.
 """
 import dataclasses
 
@@ -337,8 +338,10 @@ def test_solve_on_card_is_one_launch_and_one_read(card):
 
 @pytest.mark.gpu
 def test_launch_refused_for_shared_memory_raises(card):
-    """Fp 16384 x width 8 needs lists of 256 KB: over a block's 227 KB."""
-    Fp, Lp, width = 16384, 32, 8
+    """Fp 32768 needs 299,528 B of flow and link state even with its lists
+    in device memory: over a block's 227 KB."""
+    Fp, Lp, width = 32768, 32, 8
+    assert maxmin.WATERFILL.design(Fp, Lp, width) == "global"
     assert maxmin.WATERFILL.smem_bytes(Fp, Lp, width) > 232448
     caps = torch.full((1, Lp), 1e9, dtype=torch.float32, device=card)
     ids = torch.zeros(1, Fp, width, dtype=torch.int32, device=card)
@@ -347,3 +350,33 @@ def test_launch_refused_for_shared_memory_raises(card):
     with pytest.raises(RuntimeError, match="maxmin launch failed"):
         maxmin.WATERFILL(caps, ids, fcaps)
     assert maxmin.WATERFILL.launches == before
+
+
+def large_problem(seed: int, n_flows: int = 14000, n_links: int = 200):
+    """A problem of a two-tier sweep's pricing size: 1-8 links a flow."""
+    rng = np.random.default_rng(seed)
+    caps = rng.uniform(1e8, 1e10, n_links)
+    rows = [[int(x) for x in rng.choice(n_links, int(rng.integers(1, 9)),
+                                        replace=False)]
+            for _ in range(n_flows)]
+    return caps, rows, rng.uniform(1e6, 1e9, n_flows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(2))
+def test_lists_in_device_memory_equal_plain_on_card(card, seed):
+    """A bucket whose lists do not fit shared memory (Fp 16384, Lp 256,
+    width 8) runs on the design global, equal to the plain version."""
+    arrays = padded(*large_problem(seed))
+    assert arrays[1].shape == (16384, 8) and arrays[0].shape == (256,)
+    assert maxmin.WATERFILL.design(16384, 256, 8) == "global"
+    args = [torch.from_numpy(a[None]).to(card) for a in arrays]
+    before = dict(maxmin.WATERFILL.launches_by_design)
+    got = ops.maxmin_waterfill(*args).cpu().numpy()[0]
+    assert maxmin.WATERFILL.launches_by_design["global"] == \
+        before["global"] + 1
+    want, rounds = plain(*arrays)
+    np.testing.assert_allclose(got[:-1], want, rtol=MODEL_RTOL, atol=0)
+    assert got[-1] == rounds
+    again = ops.maxmin_waterfill(*args).cpu().numpy()[0]
+    assert got.tobytes() == again.tobytes()
