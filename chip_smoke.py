@@ -374,15 +374,19 @@ def phase_build(card: str) -> None:
             f"maxmin_waterfill {maxmin.WATERFILL.design(f, lp, w)} (Fp {f}, "
             f"Lp {lp}, width {w}): {maxmin.WATERFILL.smem_bytes(f, lp, w)} "
             f"B, {maxmin.WATERFILL.threads(f)} threads"
-            for f, lp, w in ((512, 512, 8), (8192, 32, 8), (16384, 256, 8)))
+            for f, lp, w in ((512, 512, 8), (8192, 32, 8), (16384, 256, 8),
+                             (32768, 256, 8), (131072, 256, 8),
+                             (64, 16384, 4)))
         + ", " + ", ".join(
             f"{name} {kernel.design(kp)} (Kp {kp}): "
             f"{kernel.smem_bytes(kp)} B" for name, kernel in (
                 ("fifo_replay", sd.FIFO_REPLAY), ("cache_sim", sd.CACHE_SIM))
             for kp in (16384, 32768)) + ", " + ", ".join(
             f"plan_solve (N {n}, Bk 64, "
-            f"G {n}): {cm.PLAN_SOLVE.smem_bytes(n, n)} B, "
-            f"{cm.PLAN_SOLVE.threads(n)} threads" for n in (2, 28, 252)),
+            f"G {n}): {cm.PLAN_SOLVE.smem_bytes(n, n)} B, a cluster of "
+            f"{cm.PLAN_SOLVE.cluster(n, n)} CTAs of "
+            f"{cm.PLAN_SOLVE.threads(n, n)} threads"
+            for n in (2, 28, 252, 2048)),
         card)
     for lib in (fa.LIB, ssd_scan.LIB):
         sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
@@ -1569,14 +1573,16 @@ def _sweep_spec(core, device, n_requests=SWEEP_REQUESTS, axes=SWEEP_AXES):
 
 class _SweepRecorder:
     """Wraps the three scans' ``ops`` functions (unless ``scans`` is
-    false) and the sweep's batched solver for one run: keeps every call's
-    inputs and outputs (references, no copies) and CUDA events around
-    each scan call."""
+    false), ``ops.mixture_fit`` (if ``fits``) and the sweep's batched
+    solver for one run: keeps every call's inputs and outputs (references,
+    no copies) and CUDA events around each scan call."""
 
-    def __init__(self, scans: bool = True) -> None:
+    def __init__(self, scans: bool = True, fits: bool = False) -> None:
         self.calls = {name: [] for name in SCANS}
         self.pricing = []
+        self.fits = []
         self.scans = scans
+        self.record_fits = fits
 
     def __enter__(self):
         import torch
@@ -1597,6 +1603,15 @@ class _SweepRecorder:
                 self.calls[_name].append((args, out, start, end))
                 return out
             setattr(ops, fn, wrapped)
+
+        if self.record_fits:
+            self._saved.append((ops, "mixture_fit", ops.mixture_fit))
+
+            def fit(*args, _orig=ops.mixture_fit):
+                out = _orig(*args)
+                self.fits.append((args, out))
+                return out
+            ops.mixture_fit = fit
 
         def pricing(problems, stats=None, device=None,
                     _orig=api.maxmin_rates_batch):
@@ -2418,18 +2433,16 @@ def _mixture_close(err: dict) -> bool:
     return all(err[k] <= MIX_TOL[k] for k in MIX_TOL)
 
 
-def _plan_bound(n: int, bk: int, g: int, steps: int, threads: int,
+def _plan_bound(n: int, bk: int, g: int, steps: int,
                 clock_hz: float) -> dict:
     """The solve's least time: its 2 x 64 + 8·inner + 8 + 1 dependent
-    evaluations, each at least a thread's buckets, a warp's tree, the
-    totals' tree and two barriers at one clock a step; its float64
-    operations (10 a bucket an evaluation) at the card's FP64 rate; its
-    bytes read and written once."""
+    evaluations, each at least a lane's buckets and a warp's tree (a warp
+    a cache), the totals' lane-strided sum and tree, and a barrier, at one
+    clock a step; its float64 operations (10 a bucket an evaluation) at
+    the card's FP64 rate; its bytes read and written once."""
     import math
     evals = 2 * 64 + 8 * max(steps // 8, 1) + 8 + 1
-    warps = threads // 32
-    per_eval = math.ceil(n / warps) * (math.ceil(bk / 32) + 5) \
-        + math.ceil(n / 32) + 5 + 2
+    per_eval = (math.ceil(bk / 32) + 5) + (math.ceil(n / 32) + 5) + 1
     chain_ms = 1e3 * evals * per_eval / clock_hz
     ops_ms = 1e3 * evals * n * bk * 10 / FP64_FLOPS
     nbytes = 8 * (3 * n * bk + 3 * n + 2 * g + 8 + g + 4) + 8 * n
@@ -2495,9 +2508,9 @@ def phase_planner(card: str) -> dict:
     two tiers at 28 caches under a day of traffic: the fit sweep, a plan,
     a plan under an egress budget and the first plan's verification.  J3,
     the same sweep fitting mixtures (one ``mixture_fit`` launch a
-    stream).  Everything against the reference's numbers, each kernel
-    against its plain version on the card, with controls; the kernels'
-    and the paths' times.  Returns the kernels' numbers."""
+    kernel round: the edges', then the backbones').  Everything against
+    the reference's numbers, each kernel against its plain version on
+    the card, with controls; the kernels' and the paths' times.  Returns the kernels' numbers."""
     import numpy as np
     import torch
 
@@ -2549,20 +2562,24 @@ def phase_planner(card: str) -> dict:
     bplan = timed("J2 budget plan_capacity",
                   lambda: core.plan_capacity(bspec))
     ver = timed("J2 verify_plan", lambda: core.verify_plan(plan, o_base))
-    m_rep = timed("J3 mixture fit sweep", lambda: core.run_sweep(
-        core.SweepSpec(name="j3", base=o_base, axes={}), fit="mixture"))
+    with _SweepRecorder(scans=False, fits=True) as j3_rec:
+        m_rep = timed("J3 mixture fit sweep", lambda: core.run_sweep(
+            core.SweepSpec(name="j3", base=o_base, axes={}), fit="mixture"))
     launches = {"plan_solve": cm.PLAN_SOLVE.launches,
                 "mixture_fit": cm.MIXTURE_FIT.launches,
                 "maxmin_waterfill": maxmin.WATERFILL.launches}
     waterfill_designs = dict(maxmin.WATERFILL.launches_by_design)  # ... ends
 
     streams = m_rep.solver["fit_streams"]
+    fit_rounds = m_rep.solver.get("tier_rounds", 1)
     if launches["plan_solve"] != 3:
         raise AssertionError(f"J: plan_solve launches {launches}: one a "
                              f"plan (3)")
-    if launches["mixture_fit"] != streams or streams != len(J3_LOSS):
+    if launches["mixture_fit"] != fit_rounds or fit_rounds != 2 or \
+            streams != len(J3_LOSS):
         raise AssertionError(f"J: {launches['mixture_fit']} mixture_fit "
-                             f"launches for {streams} streams")
+                             f"launches for {streams} streams: one a kernel "
+                             f"round ({fit_rounds})")
     # J1: the reference CI's gate
     e1 = _check_plan("J1", j1_plan, J1_WANT)
     if _verification(j1_ver) != J1_WANT["verification"]:
@@ -2668,12 +2685,12 @@ def phase_planner(card: str) -> dict:
         g = args[3].shape[1]
         case = {"caches": n, "buckets": bk, "groups": g,
                 "smem_bytes": kernel.smem_bytes(n, g),
-                "threads": kernel.threads(n), "errors": err,
+                "threads": kernel.threads(n, g),
+                "cluster": kernel.cluster(n, g), "errors": err,
                 "max_abs_err": float((got - want).abs().max()),
                 "iters": 20 if n < 100 else 5,
                 "plain_ms": plain_ms, "library_ms": None,
-                **_plan_bound(n, bk, g, sp.steps, kernel.threads(n),
-                              clock_hz)}
+                **_plan_bound(n, bk, g, sp.steps, clock_hz)}
         case["ms"] = time_ms(lambda: kernel(*args, sp.steps), case["iters"])
         case["graph_ms"] = graph_ms(lambda: kernel(*args, sp.steps))
         if label != "J2 budget":
@@ -2683,8 +2700,9 @@ def phase_planner(card: str) -> dict:
             case["cpu_plain_ms"] = 1e3 * (time.perf_counter() - t0)
         cases[label] = case
         say(f"J plan_solve {label} (N {n}, Bk {bk}, G {g}, "
-            f"{case['smem_bytes']} B of shared memory, "
-            f"{case['threads']} threads): kernel {case['ms']:.4f} ms (CUDA "
+            f"{case['smem_bytes']} B of shared memory on each of a cluster "
+            f"of {case['cluster']} CTAs of {case['threads']} threads): "
+            f"kernel {case['ms']:.4f} ms (CUDA "
             f"events around {case['iters']} calls), {case['graph_ms']:.4f} "
             f"ms (a CUDA "
             f"graph of 20 launches); plain version on the card "
@@ -2783,6 +2801,15 @@ def phase_planner(card: str) -> dict:
         "loss_rel_err_reference": worst_ref, "control": mix_cerr,
         "launches": launches["mixture_fit"], "points": m, "components": k,
         "steps": MIX_STEPS}
+    # J3's fits as the sweep launches them (a launch a kernel round) and as
+    # one launch a stream did before: the rounds' recorded inputs, each
+    # launch by CUDA events around 20 calls
+    rounds = [args[:3] for args, _ in j3_rec.fits]
+    mixture["sweep"] = {
+        "launches": [int(r[0].shape[0]) for r in rounds],
+        "ms": sum(time_ms(lambda: mix(*r, MIX_STEPS, MIX_LR), 20)
+                  for r in rounds),
+        "per_stream_ms": len(names) * mixture["stream"]["ms"]}
     for key in ("stream", "batched"):
         c = mixture[key]
         say(f"J3 mixture_fit {key} ({c['fits']} fit(s) of {k} components "
@@ -2794,9 +2821,16 @@ def phase_planner(card: str) -> dict:
             + f" (host clock); bound {c['bound_ms']:.6f} ms by "
             f"{c['bound_by']} (chain {c['chain_ms']:.6f}, FP64 "
             f"{c['ops_ms']:.6f}, bytes {c['bytes_ms']:.6f} ms)", card)
+    sw = mixture["sweep"]
+    say(f"J3 mixture_fit as the sweep launches it: {len(sw['launches'])} "
+        f"launches of {sw['launches']} fits, {sw['ms']:.4f} ms of kernel "
+        f"(CUDA events around 20 calls each); one launch a stream, as before "
+        f"the batching: {len(names)} x {mixture['stream']['ms']:.4f} = "
+        f"{sw['per_stream_ms']:.4f} ms", card)
     say(f"J3 mixture_fit: {launches['mixture_fit']} launches on the mixture "
-        f"sweep's path (one a stream), each equal to its row of one batched "
-        f"launch; against the plain version on the card {worst} (bounds "
+        f"sweep's path (one a kernel round, for {streams} streams), each "
+        f"fit equal to its row of one launch of all {len(names)}; against "
+        f"the plain version on the card {worst} (bounds "
         f"{MIX_TOL}); losses within {worst_ref:.2e} of the reference's; "
         f"control (a target point moved by 1e-3) fails: {mix_cerr}; mixture "
         f"sweep {wall['J3 mixture fit sweep']:.2f} s (host clock)", card)
@@ -2810,6 +2844,101 @@ def phase_planner(card: str) -> dict:
             "wall_s": wall}
 
 
+# Buckets whose flow state exceeds a block's shared memory (the design
+# global_flows): flows over 200 links, 1-8 links a flow, as a sweep cell of
+# more than 16,384 storm flows would price them; Fp 131072 takes 4-byte
+# list entries.
+WATERFILL_LARGE = {"Fp 32768": 20000, "Fp 131072": 70000}
+
+
+def _large_problem(n_flows: int, n_links: int = 200, seed: int = 0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    caps = rng.uniform(1e8, 1e10, n_links)
+    rows = [rng.choice(n_links, int(rng.integers(1, 9)),
+                       replace=False).tolist() for _ in range(n_flows)]
+    return caps.tolist(), rows, rng.uniform(1e6, 1e9, n_flows).tolist()
+
+
+def phase_waterfill_large(card: str) -> dict:
+    """The waterfill's largest buckets (``WATERFILL_LARGE``, design
+    ``global_flows``): the kernel's rates and round count equal to the
+    plain version's on the card bit for bit, two launches equal, and a
+    control (the most-shared saturated link halved) whose plain rates
+    must differ; the kernel's time (CUDA events) and the plain version's
+    (host clock)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import maxmin
+    dev = torch.device("cuda")
+    out = {}
+    for label, flows in WATERFILL_LARGE.items():
+        caps, rows, fcaps = _large_problem(flows)
+        Fp, Lp, width = (maxmin._next_pow2(flows),
+                         maxmin._next_pow2(len(caps) + 1), 8)
+        design = maxmin.WATERFILL.design(Fp, Lp, width)
+        if design != "global_flows":
+            raise AssertionError(f"waterfill {label}: design {design}, not "
+                                 f"global_flows")
+        staging = maxmin.Staging(1, Fp, Lp, width, dev)
+        maxmin.pad_problem(caps, rows, fcaps, Fp, Lp, width,
+                           out=staging.problem(0))
+        args = staging.views(staging.upload())
+        before = maxmin.WATERFILL.launches_by_design["global_flows"]
+        got = maxmin.WATERFILL(*args)
+        again = maxmin.WATERFILL(*args)
+        if maxmin.WATERFILL.launches_by_design["global_flows"] != before + 2:
+            raise AssertionError(f"waterfill {label}: not launched on "
+                                 f"global_flows")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = maxmin.plain_waterfill(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if g.tobytes() != w.tobytes() or not torch.equal(got, again):
+            raise AssertionError(
+                f"waterfill {label}: the kernel's rates differ from the "
+                f"plain version's (max abs {np.abs(g - w).max()}) or two "
+                f"launches differ")
+        load = np.zeros(len(caps))
+        share = np.zeros(len(caps), np.int64)
+        for f, row in enumerate(rows):
+            load[row] += w[0, f]
+            share[row] += 1
+        saturated = np.flatnonzero(load >= 0.999 * np.asarray(caps))
+        if not saturated.size:
+            raise AssertionError(f"waterfill {label}: no saturated link to "
+                                 f"halve for the control")
+        halve = int(saturated[np.argmax(share[saturated])])
+        ctl_caps = args[0].clone()
+        ctl_caps[0, halve] /= 2
+        ctl = maxmin.plain_waterfill(ctl_caps, args[1], args[2])
+        if torch.equal(got, ctl):
+            raise AssertionError(f"waterfill {label}: the control (link "
+                                 f"{halve} halved) passed")
+        ms = time_ms(lambda: maxmin.WATERFILL(*args), 5)
+        out[label] = {
+            "bucket": [1, Fp, Lp, width], "flows": flows, "design": design,
+            "smem_bytes": maxmin.WATERFILL.smem_bytes(Fp, Lp, width),
+            "rounds": int(g[0, Fp]), "ms": ms, "plain_ms": plain_ms,
+            "equal_bits": True,
+            "control": {"link": halve, "link_flows": int(share[halve]),
+                        "changed_rates": int((ctl != got).sum())}}
+        say(f"waterfill {label} ({flows} flows over {len(caps)} links, "
+            f"bucket (1, {Fp}, {Lp}, {width}), design {design}, "
+            f"{out[label]['smem_bytes']} B of shared memory, "
+            f"{out[label]['rounds']} rounds): rates and round count equal "
+            f"to the plain version's on the card bit for bit, two launches "
+            f"equal; control (link {halve}, {int(share[halve])} flows, "
+            f"halved) changes {out[label]['control']['changed_rates']} "
+            f"rates; kernel {ms:.4f} ms (CUDA events around 5 calls), "
+            f"plain version on the card {plain_ms:.1f} ms (host clock)",
+            card)
+    return out
+
+
 def _plan_solve_entry(nums: dict, card: str) -> dict:
     source, replaces = KERNEL_FILES["plan_solve"]
     main = nums["cases"]["J2"]
@@ -2818,13 +2947,14 @@ def _plan_solve_entry(nums: dict, card: str) -> dict:
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "graph_ms", "cpu_plain_ms", "chain_ms",
-                                    "ops_ms", "bytes_ms", "errors")},
+                                    "ops_ms", "bytes_ms", "errors",
+                                    "cluster", "threads")},
             "tolerance": f"card vs the plain version on the card and vs the "
                          f"reference: {PLAN_RTOL:g} relative, with and "
                          f"without an egress budget",
             "shape": f"J2's plan: {main['caches']} caches x "
                      f"{main['buckets']} buckets, {main['groups']} groups, "
-                     f"600 steps",
+                     f"600 steps, a cluster of {main['cluster']} CTAs",
             "card": card,
             "plan_capacity_ms": nums["plan_capacity_ms"],
             "control": nums["control"],
@@ -2850,7 +2980,8 @@ def _mixture_fit_entry(nums: dict, card: str) -> dict:
                      f"{nums['steps']} steps",
             "card": card, "errors": nums["errors"],
             "loss_rel_err_reference": nums["loss_rel_err_reference"],
-            "control": nums["control"], "batched": nums["batched"]}
+            "control": nums["control"], "batched": nums["batched"],
+            "sweep": nums["sweep"]}
 
 
 def _scan_entry(name: str, nums: dict, card: str) -> dict:
@@ -2867,9 +2998,11 @@ def _scan_entry(name: str, nums: dict, card: str) -> dict:
     return entry
 
 
-def _batched_maxmin_entry(nums: dict, planner: dict, card: str) -> dict:
+def _batched_maxmin_entry(nums: dict, planner: dict, large: dict,
+                          card: str) -> dict:
     """Sweep I's pricing bucket; beside it J2's largest bucket of the
-    design ``global``.  ``launches`` sums the two paths' launches."""
+    design ``global`` and the buckets of the design ``global_flows``.
+    ``launches`` sums the two paths' launches."""
     source, replaces = KERNEL_FILES["batched_maxmin"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_rel_err_cpu", "cpu_plain_ms", "bytes_ms",
@@ -2889,7 +3022,8 @@ def _batched_maxmin_entry(nums: dict, planner: dict, card: str) -> dict:
             "J2_case": {"shape": f"J2's pricing bucket {planner['bucket']} "
                                  f"(B, Fp, Lp, width)",
                         "launches_by_design": planner["launches_by_design"],
-                        **{k: planner[k] for k in keys}}}
+                        **{k: planner[k] for k in keys}},
+            "large_buckets": large}
 
 
 # ---------------------------------------------------------------------------
@@ -2981,6 +3115,7 @@ def main() -> int:
     storm = phase_federation_storm(card)
     sweep = phase_sweep(card)
     plans = phase_planner(card)
+    large = phase_waterfill_large(card)
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
@@ -3010,7 +3145,7 @@ def main() -> int:
         _maxmin_entry(storm, card),
         *[_scan_entry(name, sweep[name], card) for name in SCANS],
         _batched_maxmin_entry(sweep["batched_maxmin"],
-                              plans["batched_maxmin"], card),
+                              plans["batched_maxmin"], large, card),
         _plan_solve_entry(plans["plan_solve"], card),
         _mixture_fit_entry(plans["mixture_fit"], card),
     ]}), flush=True)

@@ -3,9 +3,9 @@
 parts, and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
-                            [paths] [plan] [--parent DIR]
+                            [paths] [plan] [mix] [--parent DIR]
 
-(all six when none is named).
+(all seven when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -23,9 +23,14 @@ parts, and two of its paths, on one CUDA card:
   without an eviction give a step's cost; the rest add a search's.
 * ``maxmin_waterfill``: an all-padding problem (the launch, set-up and
   list building, no round), one like storm H's (512 flows over 487
-  links, 4 links a flow) and one like sweep I's (5,500 flows over 20
-  links), seeded random capacities; each launch alone through a CUDA
-  graph of 20 launches.
+  links, 4 links a flow), one like sweep I's (5,500 flows over 20 links,
+  5 a flow; both on the design ``smem``), one like J2's pricing bucket
+  (14,571 flows over 255 links, 8 a flow, design ``global``) and one of
+  Fp 32768 (20,000 flows over 200 links, 8 a flow, design
+  ``global_flows``), seeded random
+  capacities; each launch alone through a CUDA graph of 20 launches.
+  With ``--parent DIR`` that tree's kernel in turns, old, new, new, old,
+  on every case it serves, its rates required equal.
 * ``sd_distances`` on sweep I's largest bucket, recorded from a run of
   ``chip_smoke.py``'s sweep: a call through ``ops.stack_distances`` by
   CUDA events around a loop of 20 calls (as ``chip_smoke.py`` times it),
@@ -51,21 +56,37 @@ parts, and two of its paths, on one CUDA card:
   counters of both versions must be equal.
 * ``plan``: ``plan_solve`` at ``chip_smoke.py``'s J2 plan (28 caches x 64
   buckets, from its fit sweep) and on J2's models tiled to 252 caches:
-  CUDA events around 20 calls and a CUDA graph of 20 launches.  With
-  ``--parent DIR`` that tree's ``ops.plan_solve`` in turns, old, new,
-  new, old, its outputs required equal bit for bit.
+  CUDA events around 20 calls and a CUDA graph of 20 launches, and the
+  cluster it takes.  With ``--parent DIR`` that tree's ``ops.plan_solve``
+  in turns, old, new, new, old, its outputs required equal bit for bit.
+  Then, from the probe build (``PROBE_LIB``: the same source with
+  ``-DCM_PROBE=1``, whose own entry points take a cluster size and an
+  output for clock64() stamps between a stage's parts), the plan on
+  every cluster size, the phase split of a stage, each with its outputs
+  required equal to the ordinary build's, and the float64 instructions
+  of the probe build's terms in its SASS (``cuobjdump -sass``) with the
+  FP64 issue time they need.
+* ``mix``: ``mixture_fit`` on one of J2's histograms, on all 28 in one
+  launch, and J3's whole fit sweep (host clock, and CUDA events around
+  its calls); with ``--parent DIR`` in turns, old, new, new, old, the
+  fits and the sweep's models required equal bit for bit.  Then the
+  probe build's phase split of a step and the SASS counts.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import importlib.util
+import math
 import pathlib
+import re
+import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -73,8 +94,10 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from chip_smoke import card_label, graph_ms, time_ms  # noqa: E402
+from repro_torch.kernels import cache_model as cm  # noqa: E402
 from repro_torch.kernels import maxmin, ops  # noqa: E402
 from repro_torch.kernels import stack_distance as sd  # noqa: E402
+from repro_torch.kernels._build import CudaLibrary, cuda_tool  # noqa: E402
 
 
 def probe_cache_sim(card: str) -> None:
@@ -140,12 +163,17 @@ def probe_fifo(card: str) -> None:
               f"problem  [{card}]", flush=True)
 
 
-def probe_waterfill(card: str) -> None:
+def probe_waterfill(card: str, parent: Optional[str] = None) -> None:
     dev = torch.device("cuda")
+    kernels = {"new": maxmin.WATERFILL}
+    if parent:
+        kernels["old"] = _parent_module(parent, "kernels.maxmin").WATERFILL
     rng = np.random.default_rng(0)
-    for label, flows, links, per_flow in (("all padding", 0, 500, 0),
-                                          ("like storm H's", 512, 487, 4),
-                                          ("like sweep I's", 5500, 20, 5)):
+    for label, flows, links, per_flow in (
+            ("all padding", 0, 500, 0), ("like storm H's", 512, 487, 4),
+            ("like sweep I's", 5500, 20, 5),
+            ("like J2's pricing", 14571, 255, 8),
+            ("Fp 32768", 20000, 200, 8)):
         caps = rng.uniform(1e8, 1e10, links).tolist()
         rows = [rng.choice(links, per_flow, replace=False).tolist()
                 for _ in range(flows)]
@@ -159,11 +187,29 @@ def probe_waterfill(card: str) -> None:
             maxmin.pad_problem(caps, rows, fcaps, Fp, Lp, 8,
                                out=staging.problem(0))
         args = staging.views(staging.upload())
-        ms = graph_ms(lambda: maxmin.WATERFILL(*args))
-        rounds = int(maxmin.WATERFILL(*args)[0, -1])
-        print(f"maxmin_waterfill, {label} (Fp {Fp}, Lp {Lp}, width 8): "
-              f"{ms:.4f} ms a launch (CUDA graph), {rounds} rounds  "
-              f"[{card}]", flush=True)
+        design = maxmin.WATERFILL.design(Fp, Lp, 8)
+        # the parent's kernel refuses what it has no design for
+        served = [w for w in kernels
+                  if w == "new" or kernels[w].design(Fp, Lp, 8) == design]
+        order = ["old", "new", "new", "old"] if "old" in served else ["new"]
+        times = {w: [] for w in served}
+        outs = {}
+        for which in order:
+            kernel = kernels[which]
+            outs[which] = kernel(*args)
+            times[which].append(graph_ms(lambda: kernel(*args)))
+        if "old" in outs and not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"maxmin_waterfill {label}: the two "
+                                 f"versions differ")
+        rounds = int(outs["new"][0, -1])
+        line = (f"maxmin_waterfill, {label} (Fp {Fp}, Lp {Lp}, width 8, "
+                f"design {design}): new {_ms(times['new'])} ms a launch "
+                f"(CUDA graph of 20), {rounds} rounds")
+        if "old" in times:
+            line += (f"; old {_ms(times['old'])} ms; old / new "
+                     f"{sum(times['old']) / sum(times['new']):.3f}; rates "
+                     f"equal")
+        print(f"{line}  [{card}]", flush=True)
 
 
 def _prev(keys: np.ndarray) -> np.ndarray:
@@ -372,9 +418,156 @@ def probe_paths(card: str, parent: Optional[str] = None) -> None:
               f"counters equal  [{card}]", flush=True)
 
 
+# float64 instructions of the SASS: the FP64 pipe's (H100: 64 lanes an SM,
+# two warp instructions a clock)
+FP64_OPS = re.compile(r"\b(DADD|DMUL|DFMA|DSETP|DMNMX|DSET)\b")
+FP64_WARP_INSTR_PER_CLOCK = 2
+SMS = 132
+
+
+def _sass_fp64(lib) -> Dict[str, int]:
+    """Each kernel's count of float64 instructions in ``lib``'s SASS, by
+    its own name (``lib`` built first if it is not)."""
+    lib.load()
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts: Dict[str, int] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            # the function's own name out of its mangled one
+            short = re.search(r"probe_[a-z_]+|[a-z_]+_kernel", name)
+            current = short.group(0) if short else name
+            counts[current] = 0
+        elif current:
+            counts[current] += len(FP64_OPS.findall(line))
+    return counts
+
+
+def _count(counts: Dict[str, int], name: str) -> int:
+    return next(v for k, v in counts.items() if name in k)
+
+
+# The planner's kernels built with -DCM_PROBE=1: thread 0 of the first
+# block sums clock64() stamps by part (PLAN_PARTS, MIXTURE_PARTS), then
+# writes the count of stages or steps; entry points of that build alone.
+PROBE_PARTS = 8
+PLAN_PARTS = {6: "stage's block barrier", 0: "evaluate and send",
+              1: "transaction barrier", 2: "totals", 3: "group steps",
+              4: "block barrier after the steps", 5: "bias table",
+              7: "set-up"}
+MIXTURE_PARTS = {0: "per-point terms", 1: "ct and warp sums",
+                 2: "barrier", 3: "update", 6: "broadcast",
+                 4: "barrier after", 5: "bias table", 7: "set-up"}
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+PROBE_LIB = CudaLibrary("cache_model", {
+    "plan_solve_probe": ([_vp] * 5 + [_ci] * 6 + [_vp] * 3, _ci),
+    "plan_solve_threads_at": ([_ci] * 2, _ci),
+    "mixture_fit_probe": ([_vp] * 3 + [_ci] * 4 + [ctypes.c_double]
+                          + [_vp] * 4, _ci)},
+    defines={**cm.DEFINES, "CM_PROBE": 1}, flags=cm.FLAGS)
+
+
+def _probe_call(fn: str, *args) -> None:
+    err = getattr(PROBE_LIB.load(), fn)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    PROBE_LIB.check(err, fn)
+
+
+def plan_probe(args, steps: int, cluster: int,
+               clocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``plan_solve`` of the probe build on ``cluster`` CTAs a plan, with
+    ``chip_smoke._plan_args``'s inputs (its stamps' sums into ``clocks``)."""
+    stacked, per_cache, gidx, gsize, scalars = args
+    plans, _, n, bk = stacked.shape
+    g = gsize.shape[1]
+    out = torch.empty(plans, g + 4, dtype=torch.float64, device="cuda")
+    _probe_call("plan_solve_probe", stacked.data_ptr(), per_cache.data_ptr(),
+                gidx.data_ptr(), gsize.data_ptr(), scalars.data_ptr(), plans,
+                n, bk, g, max(steps // cm.PLAN_ROUNDS, 1), cluster,
+                out.data_ptr(), None if clocks is None else clocks.data_ptr())
+    return out
+
+
+def mix_probe(args, steps: int, lr: float,
+              clocks: Optional[torch.Tensor] = None) -> tuple:
+    """``mixture_fit`` of the probe build (its stamps' sums into
+    ``clocks``)."""
+    params0, grid, target = args
+    fits, _, k = params0.shape
+    params = torch.empty_like(params0)
+    loss = torch.empty(fits, dtype=torch.float64, device="cuda")
+    _probe_call("mixture_fit_probe", params0.data_ptr(), grid.data_ptr(),
+                target.data_ptr(), fits, grid.shape[1], k, steps, float(lr),
+                params.data_ptr(), loss.data_ptr(),
+                None if clocks is None else clocks.data_ptr())
+    return params, loss
+
+
+def _split(clocks: torch.Tensor, parts: Dict[int, str], what: str) -> str:
+    """The probe build's clock sums as each part's clocks a stage (or
+    step) and share."""
+    c = clocks.cpu().tolist()
+    count, total = c[PROBE_PARTS], sum(c[:PROBE_PARTS])
+    return (f"{count} {what}s, {total} clocks in all: " + ", ".join(
+        f"{name} {c[i] / max(count, 1):.0f} a {what} "
+        f"({100 * c[i] / max(total, 1):.1f}%)" for i, name in parts.items()))
+
+
+def _probe_run(launch) -> tuple:
+    """One probe-build launch, ``launch(clocks)``: its output, its clock
+    sums and its time (CUDA events around one launch after a warm-up)."""
+    clocks = torch.zeros(PROBE_PARTS + 1, dtype=torch.int64, device="cuda")
+    launch(clocks)
+    clocks.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = launch(clocks)
+    end.record()
+    end.synchronize()
+    return out, clocks, start.elapsed_time(end)
+
+
+def plan_fp64(counts: Dict[str, int], n: int, bk: int, g: int, steps: int,
+              csize: int, threads: int, budget: bool) -> dict:
+    """The solve's float64 warp instructions from the SASS counts of the
+    probe build's terms, and the FP64 issue time they need: on the SMs the
+    cluster design uses (the busiest CTA: its caches, every warp's totals
+    and every group's step, replicated) and spread over all 132 SMs (each
+    term once), at two warp instructions a clock an SM."""
+    term = _count(counts, "probe_bucket_term") - 8   # without its 4 sums
+    head = _count(counts, "probe_cache_head")
+    step = _count(counts, "probe_group_step")
+    div = _count(counts, "probe_division")
+    inner = max(steps // 8, 1)
+    # (stages, sums on in the evaluation, bytes in the totals, Adam steps)
+    kinds = [(64, 1 + budget, budget, False), (8 * inner, 2 + 2 * budget,
+                                               budget, True),
+             (8, 1 + budget, budget, False), (64, 1 + budget, budget, False),
+             (1, 3, True, False)]
+    lanes = math.ceil(bk / 32)
+    warps = threads // 32
+    busiest = all_sms = 0
+    for stages, sums, nbytes, adam in kinds:
+        cache = lanes * (term + 2 * sums) + head
+        totals = math.ceil(n / 32) * (1 + 3 * nbytes) + 10 + div
+        groups = math.ceil(g / 32) * step if adam else 0
+        busiest += stages * (math.ceil(n / csize) * cache + warps * totals
+                             + groups)
+        all_sms += stages * (n * cache + totals + groups)
+    return {"term": term, "head": head, "step": step, "division": div,
+            "busiest_sm_warp_instr": busiest, "all_warp_instr": all_sms,
+            "design_clocks": busiest / FP64_WARP_INSTR_PER_CLOCK,
+            "all_sms_clocks": all_sms / (FP64_WARP_INSTR_PER_CLOCK * SMS)}
+
+
 def probe_plan(card: str, parent: Optional[str] = None) -> None:
     import repro_torch.core as core
-    from chip_smoke import PLAN_TARGET, PLAN_TILE, _osdf_spec, _plan_args
+    from chip_smoke import (PLAN_TARGET, PLAN_TILE, _max_sm_clock_hz,
+                            _osdf_spec, _plan_args)
     impls = {"new": ops.plan_solve}
     if parent:
         impls["old"] = _parent_module(parent).plan_solve
@@ -385,8 +578,14 @@ def probe_plan(card: str, parent: Optional[str] = None) -> None:
     spec = core.PlannerSpec(models=models, target_hit_rate=PLAN_TARGET,
                             groups=core.groups_for_federation(
                                 base.federation.build(), models))
+    counts = _sass_fp64(PROBE_LIB)
+    clock_hz = _max_sm_clock_hz()
+    print(f"plan_solve SASS (probe build): float64 instructions "
+          f"{ {k: v for k, v in counts.items() if 'mixture' not in k} }"
+          f"  [{card}]", flush=True)
     for label, tiled in (("J2", 1), ("252 caches", PLAN_TILE)):
         args, _ = _plan_args(spec, tiled)
+        n, bk, g = args[0].shape[2], args[0].shape[3], args[3].shape[1]
         times = {w: {"loop": [], "graph": []} for w in impls}
         outs = {}
         for which in order:
@@ -399,10 +598,14 @@ def probe_plan(card: str, parent: Optional[str] = None) -> None:
         if parent and not torch.equal(outs["old"], outs["new"]):
             raise AssertionError(f"plan_solve {label}: the two versions "
                                  f"differ")
+        csize = cm.PLAN_SOLVE.cluster(n, g)
+        threads = cm.PLAN_SOLVE.threads(n, g)
         for which in impls:
             t = times[which]
-            print(f"plan_solve, {label} ({args[0].shape[2]} caches), "
-                  f"{which}: {_ms(t['loop'])} ms a call by CUDA events "
+            print(f"plan_solve, {label} ({n} caches, {g} groups), {which}"
+                  + (f" (a cluster of {csize} CTAs of {threads} threads)"
+                     if which == "new" else "")
+                  + f": {_ms(t['loop'])} ms a call by CUDA events "
                   f"around 20 calls; {_ms(t['graph'])} ms in a CUDA graph "
                   f"of 20 launches  [{card}]", flush=True)
         if parent:
@@ -410,6 +613,170 @@ def probe_plan(card: str, parent: Optional[str] = None) -> None:
             print(f"plan_solve, {label}: old / new "
                   f"{loop['old'] / loop['new']:.3f}; outputs equal  "
                   f"[{card}]", flush=True)
+        sizes = []
+        for c in (1, 2, 4, 8, 16):
+            if c > n:
+                continue
+            try:
+                got = plan_probe(args, spec.steps, c)
+                ms = time_ms(lambda: plan_probe(args, spec.steps, c), 20)
+            except RuntimeError as exc:
+                sizes.append(f"{c}: refused ({exc})")
+                continue
+            if not torch.equal(got, outs["new"]):
+                raise AssertionError(f"plan_solve {label}: a cluster of {c} "
+                                     f"gives other bits")
+            at = PROBE_LIB.load().plan_solve_threads_at(n, c)
+            sizes.append(f"{c} CTAs of {at} threads {ms:.4f} ms")
+        print(f"plan_solve {label} by cluster size (the probe build without "
+              f"stamps, CUDA events around 20 calls, outputs equal to the "
+              f"ordinary build's): {'; '.join(sizes)}  [{card}]", flush=True)
+        got, clocks, probe_ms = _probe_run(
+            lambda clk: plan_probe(args, spec.steps, csize, clk))
+        if not torch.equal(got, outs["new"]):
+            raise AssertionError(f"plan_solve {label}: the probe build's "
+                                 f"output differs")
+        stamped = int(clocks[:PROBE_PARTS].sum())
+        print(f"plan_solve {label}, the probe build (CTA 0's thread 0, "
+              f"{probe_ms:.4f} ms a launch, {stamped / probe_ms / 1e3:.0f} "
+              f"MHz of stamped clocks): "
+              + _split(clocks, PLAN_PARTS, "stage") + f"  [{card}]",
+              flush=True)
+        f = plan_fp64(counts, n, bk, g, spec.steps, csize, threads,
+                      budget=False)
+        pow_count = _count(counts, "probe_pow")
+        old_threads = 32 * min(n, 32)
+        one_block = plan_fp64(counts, n, bk, g, spec.steps, 1, old_threads,
+                              budget=False)["design_clocks"] + (
+            8 * max(spec.steps // 8, 1) * (old_threads // 32) * 2
+            * pow_count / FP64_WARP_INSTR_PER_CLOCK)
+        print(f"plan_solve {label}, FP64 issue from the SASS: a bucket term "
+              f"{f['term']} + 2 a sum, a cache's log-capacity {f['head']}, "
+              f"a group's step {f['step']}, a division {f['division']} "
+              f"instructions; the busiest SM of the cluster "
+              f"{f['busiest_sm_warp_instr']} warp instructions, "
+              f"{1e3 * f['design_clocks'] / clock_hz:.4f} ms at "
+              f"{clock_hz / 1e6:.0f} MHz; spread over {SMS} SMs "
+              f"{f['all_warp_instr']} warp instructions, "
+              f"{1e3 * f['all_sms_clocks'] / clock_hz:.6f} ms; the one-block "
+              f"design before it on its SM {1e3 * one_block / clock_hz:.4f} "
+              f"ms (its two pows a warp a step, {pow_count} instructions "
+              f"each, included)  [{card}]", flush=True)
+
+
+def probe_mix(card: str, parent: Optional[str] = None) -> None:
+    """``mixture_fit``: one fit, J2's 28 fits in one launch, and J3's whole
+    fit sweep (``run_sweep(fit="mixture")``: the host's clock around it,
+    and CUDA events around each of its ``mixture_fit`` calls); with
+    ``--parent`` that tree's version in turns, old, new, new, old, the
+    fits and the sweep's models required equal bit for bit.  Then the
+    probe build's phase split and the SASS counts."""
+    import repro_torch.core as core
+    from chip_smoke import MIX_LR, MIX_STEPS, _max_sm_clock_hz, _osdf_spec
+    impls = {"new": (ops, core)}
+    if parent:
+        impls["old"] = (_parent_module(parent),
+                        _parent_module(parent, "core"))
+    order = ["old", "new", "new", "old"] if parent else ["new"]
+    base = _osdf_spec(core, "cuda")
+    hists = core.run_sweep(core.SweepSpec(name="j2", base=base, axes={}),
+                           fit=True).reuse_histograms()
+    problems = [cm.mixture_problem(cm.ReuseHistogram.from_dict(hists[n]))
+                for n in sorted(hists)]
+    batch = [torch.from_numpy(np.stack([p[i] for p in problems])).cuda()
+             for i in range(3)]
+    one = [t[:1].contiguous() for t in batch]
+    for label, args in (("one fit", one), (f"{len(problems)} fits", batch)):
+        times = {w: [] for w in impls}
+        outs = {}
+        for which in order:
+            fn = impls[which][0].mixture_fit
+            outs[which] = fn(*args, MIX_STEPS, MIX_LR)
+            times[which].append(time_ms(
+                lambda: fn(*args, MIX_STEPS, MIX_LR), 20))
+        if parent and not all(torch.equal(a, b) for a, b in
+                              zip(outs["old"], outs["new"])):
+            raise AssertionError(f"mixture_fit {label}: the two versions "
+                                 f"differ")
+        line = (f"mixture_fit, {label} ({MIX_STEPS} steps): new "
+                f"{_ms(times['new'])} ms a launch (CUDA events around 20)")
+        if parent:
+            line += (f"; old {_ms(times['old'])} ms; old / new "
+                     f"{sum(times['old']) / sum(times['new']):.3f}; outputs "
+                     f"equal")
+        print(f"{line}  [{card}]", flush=True)
+    # J3's whole fit sweep
+    wall = {w: [] for w in impls}
+    kernel = {w: [] for w in impls}
+    launches = {}
+    models = {}
+    for which in order:
+        o, c = impls[which]
+        sweep_base = _osdf_spec(c, None)
+        real = o.mixture_fit
+        events = []
+
+        def timed(*a, _real=real, _events=events):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _real(*a)
+            end.record()
+            _events.append((start, end))
+            return out
+        o.mixture_fit = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = c.run_sweep(c.SweepSpec(name="j3", base=sweep_base,
+                                          axes={}), fit="mixture")
+            torch.cuda.synchronize()
+            wall[which].append(time.perf_counter() - t0)
+        finally:
+            o.mixture_fit = real
+        kernel[which].append(sum(s.elapsed_time(e) for s, e in events))
+        launches[which] = len(events)
+        models[which] = {n: (m.mix_logits.tobytes(), m.mix_mu.tobytes(),
+                             m.mix_log_sigma.tobytes(), m.fit_loss)
+                         for n, m in rep.fitted_models().items()}
+    if parent and models["old"] != models["new"]:
+        raise AssertionError("J3's sweep: the two versions' models differ")
+    for which in impls:
+        print(f"mixture_fit, J3's fit sweep, {which}: {launches[which]} "
+              f"mixture_fit calls, {_ms(kernel[which])} ms of them by CUDA "
+              f"events; the sweep {_ms(wall[which])} s (host clock)  "
+              f"[{card}]", flush=True)
+    if parent:
+        print(f"mixture_fit, J3's fit sweep: old / new kernel "
+              f"{sum(kernel['old']) / sum(kernel['new']):.2f}, wall "
+              f"{sum(wall['old']) / sum(wall['new']):.3f}; models equal  "
+              f"[{card}]", flush=True)
+    got, clocks, probe_ms = _probe_run(
+        lambda clk: mix_probe(one, MIX_STEPS, MIX_LR, clk))
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, ops.mixture_fit(*one, MIX_STEPS, MIX_LR))):
+        raise AssertionError("mixture_fit: the probe build's output differs")
+    stamped = int(clocks[:PROBE_PARTS].sum())
+    print(f"mixture_fit one fit, the probe build (thread 0, {probe_ms:.4f} "
+          f"ms a launch, {stamped / probe_ms / 1e3:.0f} MHz of stamped "
+          f"clocks): " + _split(clocks, MIXTURE_PARTS, "step")
+          + f"  [{card}]", flush=True)
+    counts = _sass_fp64(PROBE_LIB)
+    term = _count(counts, "probe_mixture_term")
+    update = _count(counts, "probe_mixture_update")
+    m, k = batch[1].shape[1], batch[0].shape[2]
+    warps = math.ceil(m / 32)
+    # a step: every warp's points and components and its 3K + 1 trees of
+    # 5 additions; the update warp's step
+    per_step = warps * (k * term + 5 * (3 * k + 1) + 4) + update
+    clock_hz = _max_sm_clock_hz()
+    fit_clocks = per_step / FP64_WARP_INSTR_PER_CLOCK
+    print(f"mixture_fit FP64 issue from the SASS: a point's component "
+          f"{term}, a parameter's update {update} instructions; a step "
+          f"{per_step} warp instructions on its SM, "
+          f"{1e3 * MIX_STEPS * fit_clocks / clock_hz:.4f} ms a fit of {MIX_STEPS} steps at {clock_hz / 1e6:.0f} MHz; "
+          f"{len(problems)} fits over {SMS} SMs the same (a block an SM)  "
+          f"[{card}]", flush=True)
 
 
 def main() -> int:
@@ -424,10 +791,11 @@ def main() -> int:
         parent = args[at + 1]
         del args[at:at + 2]
     probes = {"cache_sim": probe_cache_sim, "fifo": probe_fifo,
-              "waterfill": probe_waterfill,
+              "waterfill": lambda c: probe_waterfill(c, parent),
               "distances": lambda c: probe_distances(c, parent),
               "paths": lambda c: probe_paths(c, parent),
-              "plan": lambda c: probe_plan(c, parent)}
+              "plan": lambda c: probe_plan(c, parent),
+              "mix": lambda c: probe_mix(c, parent)}
     for name in args or probes:
         probes[name](card)
     return 0

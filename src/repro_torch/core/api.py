@@ -61,7 +61,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.batched_maxmin import maxmin_rates_batch
 from ..kernels.cache_model import (fit_histogram_model,
-                                   fit_lognormal_mixture, reuse_histogram)
+                                   fit_lognormal_mixtures, reuse_histogram)
 from ..kernels.stack_distance import (cache_sim_batch, fifo_sim_batch,
                                       stack_distances_batch)
 from .client import StashClient
@@ -2516,6 +2516,15 @@ def _plan_cell_vectorized(cspec: ScenarioSpec, routing_fed: FederationSpec,
     return _CellPlan(cspec, routing)
 
 
+def _fit_streams(plan: "_CellPlan", l2: bool = False) -> List:
+    """The streams whose models a fit sweep builds for ``plan``: its
+    first-round caches' streams, or with ``l2`` its parent tier's merged
+    streams."""
+    if l2:
+        return [stream for _q, stream, _m, _a in plan._l2_order]
+    return [plan.routing.streams[ci] for ci, _m, _a in plan._order]
+
+
 def _fit_wanted(plan: "_CellPlan", wanted: List, l2: bool = False) -> None:
     """Queue the *unfiltered* (all keys admitted) stack-distance
     variant of every stream the plan touches — the capacity-free reuse
@@ -2523,40 +2532,41 @@ def _fit_wanted(plan: "_CellPlan", wanted: List, l2: bool = False) -> None:
     batched kernel call as the cells' own variants; streams that
     already resolve through an all-admitted ``dist`` variant share it
     byte for byte."""
-    order = ([(stream, None) for _q, stream, _m, _a in plan._l2_order]
-             if l2 else
-             [(plan.routing.streams[ci], None)
-              for ci, _m, _a in plan._order])
-    for stream, _ in order:
+    for stream in _fit_streams(plan, l2):
         admitted = np.ones(stream.n_keys, bool)
         wanted.append((stream, admitted.tobytes(), admitted))
 
 
-def _fit_products(stream: _CacheStream, fit, cache: Dict[int, Tuple],
-                  device: torch.device
-                  ) -> Tuple[Optional[Dict], Optional[object]]:
-    """(histogram dict, CacheModel) for one stream, built once per
-    stream object and shared by every cell of the routing column; a
-    mixture is fitted on ``device``."""
-    got = cache.get(id(stream))
-    if got is not None:
-        return got
-    sig = np.ones(stream.n_keys, bool).tobytes()
-    v = stream.variants.get(sig)
-    if v is None:
-        return None, None
-    if stream.is_fill is not None:
-        of = 1.0   # merged parent streams miss straight to the origin
-    else:
-        tot = float(stream.size.sum())
-        of = (float(stream.size[stream.parent_ci < 0].sum()) / tot
-              if tot > 0 else 1.0)
-    hist = reuse_histogram(v["dist"], v["sizes"])
-    model = (fit_lognormal_mixture(hist, origin_fraction=of, device=device)
-             if fit == "mixture"
-             else fit_histogram_model(hist, origin_fraction=of))
-    cache[id(stream)] = (hist.to_dict(), model)
-    return cache[id(stream)]
+def _fit_round(streams: Sequence, fit, cache: Dict[int, Tuple],
+               device: torch.device) -> None:
+    """(histogram dict, CacheModel) of every stream of one kernel round
+    into ``cache``, once a stream object (shared by every cell of its
+    routing column), after the round's scans resolved its all-admitted
+    variant; ``fit="mixture"`` fits the round's mixtures in one
+    ``mixture_fit`` call on ``device``."""
+    todo: Dict[int, Tuple] = {}
+    for stream in streams:
+        if id(stream) in cache or id(stream) in todo:
+            continue
+        v = stream.variants.get(np.ones(stream.n_keys, bool).tobytes())
+        if v is None:
+            continue
+        if stream.is_fill is not None:
+            of = 1.0   # merged parent streams miss straight to the origin
+        else:
+            tot = float(stream.size.sum())
+            of = (float(stream.size[stream.parent_ci < 0].sum()) / tot
+                  if tot > 0 else 1.0)
+        todo[id(stream)] = (reuse_histogram(v["dist"], v["sizes"]), of)
+    hists = [h for h, _ in todo.values()]
+    fractions = [of for _, of in todo.values()]
+    models = (fit_lognormal_mixtures(hists, origin_fractions=fractions,
+                                     device=device)
+              if fit == "mixture" else
+              [fit_histogram_model(h, origin_fraction=of)
+               for h, of in zip(hists, fractions)])
+    for key, hist, model in zip(todo, hists, models):
+        cache[key] = (hist.to_dict(), model)
 
 
 def run_sweep(spec: SweepSpec, batched: bool = True,
@@ -2588,7 +2598,7 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
     differentiable :class:`~repro_torch.kernels.cache_model.CacheModel`
     (``fit="mixture"`` fits parametric lognormal mixtures instead of
     the nonparametric smoothed-histogram curve, one ``mixture_fit`` call
-    a stream on the sweep's device).  Both ride on the cells —
+    a kernel round on the sweep's device).  Both ride on the cells —
     ``cell.reuse_histogram`` / ``cell.models``,
     :meth:`SweepReport.fitted_models` — never inside the summaries the
     parity tests compare, and feed :mod:`repro_torch.core.planner`.
@@ -2626,6 +2636,10 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
 
     if dist_wanted:
         _resolve_distances(dist_wanted, telemetry, device)
+    fit_cache: Dict[int, Tuple] = {}
+    if fit:
+        _fit_round([s for _p, _c, plan, _r in entries if plan is not None
+                    for s in _fit_streams(plan)], fit, fit_cache, device)
     sim_results: List = []
     fifo_results: List = []
     if fifo_problems:
@@ -2660,6 +2674,10 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
                 _fit_wanted(plan, l2_dist_wanted, l2=True)
     if l2_dist_wanted:
         _resolve_distances(l2_dist_wanted, telemetry, device)
+    if fit:
+        _fit_round([s for _p, _c, plan, _r in entries if plan is not None
+                    for s in _fit_streams(plan, l2=True)], fit, fit_cache,
+                   device)
     l2_sim_results: List = []
     l2_fifo_results: List = []
     if l2_fifo_problems:
@@ -2687,7 +2705,6 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
     problems = []
     problem_bytes = []
     problem_cells: List[SweepCell] = []
-    fit_cache: Dict[int, Tuple] = {}
     for params, cspec, plan, report in entries:
         if plan is not None:
             report, (flow_specs, flow_bytes) = plan.finalize(
@@ -2709,10 +2726,8 @@ def run_sweep(spec: SweepSpec, batched: bool = True,
             pairs += [(r.cache_names[q], stream)
                       for q, stream, _m, _a in plan._l2_order]
             for name, stream in pairs:
-                h, mdl = _fit_products(stream, fit, fit_cache, device)
-                if h is not None:
-                    hists[name] = h
-                    mods[name] = mdl
+                if id(stream) in fit_cache:
+                    hists[name], mods[name] = fit_cache[id(stream)]
             cell.reuse_histogram = hists
             cell.models = mods
         if executor == "batched" and price_contention and flow_specs:

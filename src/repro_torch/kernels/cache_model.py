@@ -35,8 +35,9 @@ reference evaluates ``predict_hit_rate`` in its default float32 outside
 ``enable_x64``; the port always computes in float64.
 
 This module also holds the library of ``csrc/cache_model.cu`` and its two
-kernels: ``PLAN_SOLVE`` (the planner's whole inverse solve, a block a
-plan) and ``MIXTURE_FIT`` (the mixture's Adam loop, a block a histogram).
+kernels: ``PLAN_SOLVE`` (the planner's whole inverse solve, a thread block
+cluster a plan) and ``MIXTURE_FIT`` (the mixture's Adam loop, a block a
+histogram, a batch of histograms in one launch).
 ``ops.plan_solve`` and ``ops.mixture_fit`` send CUDA tensors to them and
 CPU tensors to the plain versions in ``ref``.
 """
@@ -384,20 +385,46 @@ def fit_lognormal_mixture(hist: ReuseHistogram, components: int = 3,
     the component logits, means and log-sigmas.  ``fit_loss`` is the
     reference's: the loss the last step evaluated before its own update.
     """
-    problem = mixture_problem(hist, components)
-    if problem is None:
+    if mixture_problem(hist, components) is None:
         return mixture_model(hist, None, origin_fraction=origin_fraction,
                              components=components)
-    from . import ops
-    dev = resolve_device(device)
-    params0, grid, target = (torch.from_numpy(a[None]).to(dev)
-                             for a in problem)
-    params, loss = ops.mixture_fit(params0, grid, target, steps, lr)
-    params, loss = params[0].cpu().numpy(), float(loss[0])
+    model = fit_lognormal_mixtures([hist], components, steps, lr,
+                                   [origin_fraction], device)[0]
     if stats is not None:
         stats["fit_steps"] = steps
-        stats["fit_loss"] = loss
-    return mixture_model(hist, params, loss, origin_fraction)
+        stats["fit_loss"] = model.fit_loss
+    return model
+
+
+def fit_lognormal_mixtures(hists: Sequence[ReuseHistogram],
+                           components: int = 3, steps: int = 400,
+                           lr: float = 0.08,
+                           origin_fractions: Optional[Sequence[float]] = None,
+                           device: Union[str, torch.device, None] = None
+                           ) -> List[CacheModel]:
+    """:func:`fit_lognormal_mixture` of every histogram, the fits of those
+    with finite reuse in one ``ops.mixture_fit`` call on ``device`` (on the
+    card one launch, a block a fit: each model equals its fit alone)."""
+    fractions = ([1.0] * len(hists) if origin_fractions is None
+                 else list(origin_fractions))
+    problems = [mixture_problem(h, components) for h in hists]
+    live = [i for i, p in enumerate(problems) if p is not None]
+    models = [mixture_model(h, None, origin_fraction=of,
+                            components=components)
+              for h, of in zip(hists, fractions)]
+    if not live:
+        return models
+    from . import ops
+    dev = resolve_device(device)
+    params0, grid, target = (
+        torch.from_numpy(np.stack([problems[i][j] for i in live])).to(dev)
+        for j in range(3))
+    params, loss = ops.mixture_fit(params0, grid, target, steps, lr)
+    params, loss = params.cpu().numpy(), loss.cpu().numpy()
+    for row, i in enumerate(live):
+        models[i] = mixture_model(hists[i], params[row], float(loss[row]),
+                                  fractions[i])
+    return models
 
 
 def fit_interp_model(capacities: Sequence[float],
@@ -524,20 +551,23 @@ def fleet_origin_egress(stacked: StackedModels, capacities) -> torch.Tensor:
 # The planner's kernels (csrc/cache_model.cu), built at first use
 # ---------------------------------------------------------------------------
 # What the kernels serve, compiled into the source with -D: caches a plan
-# (its state in shared memory), grid points a fit (a thread each) and
-# components a fit (in registers).
+# (its state in shared memory on every CTA of its cluster), grid points a
+# fit (a thread each) and components a fit (in registers).
 PLAN_MAX_CACHES = 2048
 MIXTURE_MAX_POINTS, MIXTURE_MAX_COMPONENTS = 256, 8
 _vp, _ci, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# (kernel_probe.py builds the same source with -DCM_PROBE=1 from these)
+DEFINES = {"PLAN_MAX_CACHES": PLAN_MAX_CACHES,
+           "MIX_MAX_POINTS": MIXTURE_MAX_POINTS,
+           "MIX_MAX_COMPONENTS": MIXTURE_MAX_COMPONENTS}
+FLAGS = ("--fmad=false",)
 LIB = CudaLibrary("cache_model", {
-    "plan_solve": ([_vp] * 5 + [_ci] * 5 + [_vp, _vp], _ci),
-    "plan_solve_threads": ([_ci], _ci),
+    "plan_solve": ([_vp] * 5 + [_ci] * 5 + [_vp] * 2, _ci),
+    "plan_solve_cluster": ([_ci] * 2, _ci),
+    "plan_solve_threads": ([_ci] * 2, _ci),
     "plan_solve_smem_bytes": ([_ci] * 2, ctypes.c_longlong),
     "mixture_fit": ([_vp] * 3 + [_ci] * 4 + [_cd] + [_vp] * 3, _ci)},
-    defines={"PLAN_MAX_CACHES": PLAN_MAX_CACHES,
-             "MIX_MAX_POINTS": MIXTURE_MAX_POINTS,
-             "MIX_MAX_COMPONENTS": MIXTURE_MAX_COMPONENTS},
-    flags=("--fmad=false",))
+    defines=DEFINES, flags=FLAGS)
 
 
 class _Kernel:
@@ -557,15 +587,20 @@ class _Kernel:
 
 
 class PlanSolveKernel(_Kernel):
-    """``plan_solve``: the planner's whole inverse solve, a block a plan, in
-    one launch (the stacked model read from device memory on every
-    pass)."""
+    """``plan_solve``: the planner's whole inverse solve, a thread block
+    cluster a plan, in one launch (the stacked model read from device
+    memory, each CTA its own caches' rows)."""
 
     def smem_bytes(self, n: int, g: int) -> int:
         return int(LIB.load().plan_solve_smem_bytes(n, g))
 
-    def threads(self, n: int) -> int:
-        return int(LIB.load().plan_solve_threads(n))
+    def cluster(self, n: int, g: int) -> int:
+        """CTAs a plan of ``n`` caches and ``g`` groups."""
+        return int(LIB.load().plan_solve_cluster(n, g))
+
+    def threads(self, n: int, g: int) -> int:
+        """Threads a CTA."""
+        return int(LIB.load().plan_solve_threads(n, g))
 
     def __call__(self, stacked: torch.Tensor, per_cache: torch.Tensor,
                  gidx: torch.Tensor, gsize: torch.Tensor,

@@ -69,17 +69,25 @@
 // with one copy when the launch is done.
 //
 // Shared memory per block (dynamic): link state 4 x (3 Lp + 1) B, build
-// counters 4 x build_warps x Lp B, flow caps and fs 8 Fp B, a state byte a
-// flow (rounded up to 4 B), and room for Fp x width list entries of 2 B
-// (4 B when Fp > 65536).  Storm H's peak bucket (Fp 512, Lp 512, width 8)
-// needs 51,848 B, sweep I's (Fp 8192, Lp 32, width 8) 209,416 B.  Two
-// designs by that size: `smem`, the lists in shared memory, where they
-// fit; `global`, the lists in a workspace in device memory (Fp x width
-// entries a problem, the wrapper's), read through L1 and L2, everything
-// else as before: a two-tier OSDF sweep's pricing bucket (Fp 16384, Lp
-// 256, width 8) needs 183,432 B so.  A shape over the card's 227 KB
-// even without its lists is refused at launch, and the error comes back
-// to the caller.
+// counters 4 x build_warps x Lp B and 33 words of reductions; flow state,
+// flow caps and fs 8 Fp B and a state byte a flow (rounded up to 4 B); and
+// room for Fp x width list entries of 2 B (4 B when Fp > 65536).  Storm
+// H's peak bucket (Fp 512, Lp 512, width 8) needs 51,848 B, sweep I's (Fp
+// 8192, Lp 32, width 8) 209,416 B.  Three designs by that size:
+//   `smem`, everything in shared memory, where it fits;
+//   `global`, the lists in a workspace in device memory (Fp x width
+//   entries a problem, the wrapper's), read through L1 and L2, everything
+//   else as before: a two-tier OSDF sweep's pricing bucket (Fp 16384, Lp
+//   256, width 8) needs 183,432 B so;
+//   `global_flows`, the flow state too in the workspace (caps, fs by
+//   atomicMin in device memory, state bytes), the link state and build
+//   counters alone in shared memory: a sweep cell of more than 16,384
+//   storm flows (Fp 32768: 294,912 B of flow state) and every bucket of
+//   more than 65,536 flows.
+// A bucket whose link state alone exceeds the card's 227 KB (16 B a link
+// once Lp >= 8192: Lp 16384) is refused before the launch, and the wrapper
+// names that limit.  The arithmetic and its order are the same in all
+// three designs, so a problem gets the same bits in each.
 //
 // What bounds it: the rounds' chain of barriers and reductions (a problem
 // takes 1-20 rounds), not bytes: H's peak problem is 34 KB of input.
@@ -99,6 +107,8 @@ constexpr int BUILD_COUNTERS = 8192;  // ints of build counters at most
 constexpr int BUILD_TILES = 8;        // tiles of ids a warp loads at once
 
 constexpr int SHORT_LIST = 32;       // flows a list has for one thread
+// where the flow state and the lists live (maxmin_design's codes)
+constexpr int kSmem = 0, kGlobal = 1, kGlobalFlows = 2, kRefused = -1;
 
 __device__ __forceinline__ float inf_f() { return __uint_as_float(INF_BITS); }
 
@@ -110,12 +120,16 @@ __device__ __forceinline__ float retire(float cap_left, double used,
   return !by_cap && share <= best ? 0.0f : c;
 }
 
-template <typename Idx>
+// A template over the design, so that the compiler knows which state
+// lies in shared memory and addresses it so (a pointer chosen at run
+// time would be a generic one for every design).
+template <typename Idx, int kDesign>
 __global__ void __launch_bounds__(1024)
 waterfill(const float* __restrict__ link_caps,
           const float* __restrict__ flow_caps,
           const int* __restrict__ link_ids, int fp, int lp, int width,
-          int build_warps, Idx* __restrict__ work, float* __restrict__ out) {
+          int build_warps, unsigned char* work, long long work_stride,
+          float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -126,14 +140,19 @@ waterfill(const float* __restrict__ link_caps,
   float* share = cap_left + lp;                            // lp
   int* off = reinterpret_cast<int*>(share + lp);           // lp + 1
   int* cnt = off + lp + 1;                                 // build_warps*lp
-  float* fcap = reinterpret_cast<float*>(cnt + build_warps * lp);  // fp
+  unsigned* red = reinterpret_cast<unsigned*>(cnt + build_warps * lp);
+  // 32 warps' minima and a count; then the flow state and the lists: in
+  // shared memory (design smem), the lists in this problem's part of the
+  // workspace (global), or both there (global_flows)
+  unsigned char* work_b = kDesign == kSmem ? nullptr
+                                            : work + b * work_stride;
+  unsigned char* flows = kDesign == kGlobalFlows
+      ? work_b : reinterpret_cast<unsigned char*>(red + 33);
+  float* fcap = reinterpret_cast<float*>(flows);           // fp
   unsigned* fs = reinterpret_cast<unsigned*>(fcap + fp);   // fp
-  unsigned* red = fs + fp;                   // 32 warps' minima, a count
-  unsigned char* state = reinterpret_cast<unsigned char*>(red + 33);  // fp
-  // fp * width entries: after the states (design smem), else this
-  // problem's part of the workspace (design global)
-  Idx* list = work ? work + (long long)b * fp * width
-                   : reinterpret_cast<Idx*>(state + ((fp + 3) & ~3));
+  unsigned char* state = reinterpret_cast<unsigned char*>(fs + fp);  // fp
+  Idx* list = reinterpret_cast<Idx*>(
+      kDesign == kGlobal ? work_b : state + ((fp + 3) & ~3));
 
   const float* caps_b = link_caps + (long long)b * lp;
   const float* fcaps_b = flow_caps + (long long)b * fp;
@@ -378,21 +397,45 @@ constexpr size_t BLOCK_SMEM = 232448;  // what a block may have on Hopper
 
 size_t index_bytes(int fp) { return fp <= 65536 ? 2 : 4; }
 
-// Shared memory without the lists, and with them.
-size_t state_bytes(int fp, int lp, int build_warps) {
-  return 4 * (3 * (size_t)lp + 1 + (size_t)build_warps * lp + 2 * (size_t)fp
-              + 33) + (((size_t)fp + 3) & ~(size_t)3);
+// Shared memory of the link state, build counters and reductions; of the
+// flow state; of the lists.
+size_t link_bytes(int lp, int build_warps) {
+  return 4 * (3 * (size_t)lp + 1 + (size_t)build_warps * lp + 33);
+}
+size_t flow_bytes(int fp) {
+  return 8 * (size_t)fp + (((size_t)fp + 3) & ~(size_t)3);
+}
+size_t list_bytes(int fp, int width) {
+  return index_bytes(fp) * (size_t)fp * width;
 }
 
-bool lists_in_smem(int fp, int lp, int width, int build_warps) {
-  return state_bytes(fp, lp, build_warps) +
-             index_bytes(fp) * (size_t)fp * width <= BLOCK_SMEM;
+int design_for(int fp, int lp, int width, int build_warps) {
+  const size_t links = link_bytes(lp, build_warps);
+  if (links + flow_bytes(fp) + list_bytes(fp, width) <= BLOCK_SMEM)
+    return kSmem;
+  if (links + flow_bytes(fp) <= BLOCK_SMEM) return kGlobal;
+  if (links <= BLOCK_SMEM) return kGlobalFlows;
+  return kRefused;
 }
 
-size_t smem_bytes(int fp, int lp, int width, int build_warps) {
-  return state_bytes(fp, lp, build_warps) +
-         (lists_in_smem(fp, lp, width, build_warps)
-              ? index_bytes(fp) * (size_t)fp * width : 0);
+// What a design keeps in shared memory (the link state alone when it is
+// refused), and in the workspace a problem.
+size_t smem_bytes(int design, int fp, int lp, int width, int build_warps) {
+  const size_t links = link_bytes(lp, build_warps);
+  switch (design) {
+    case kSmem: return links + flow_bytes(fp) + list_bytes(fp, width);
+    case kGlobal: return links + flow_bytes(fp);
+    default: return links;
+  }
+}
+size_t work_bytes(int design, int fp, int width) {
+  const size_t round16 = ~(size_t)15;
+  switch (design) {
+    case kGlobal: return (list_bytes(fp, width) + 15) & round16;
+    case kGlobalFlows:
+      return (flow_bytes(fp) + list_bytes(fp, width) + 15) & round16;
+    default: return 0;
+  }
 }
 
 int threads_for(int fp) {
@@ -407,6 +450,34 @@ int build_warps_for(int fp, int lp) {
   return bw < nw ? bw : nw;
 }
 
+// One design's launch, after raising its instantiation's shared-memory
+// limit where this bucket needs more than it was raised to on this
+// device (the simulator solves hundreds of small problems a second).
+template <typename Idx, int kDesign>
+cudaError_t launch(const float* link_caps, const float* flow_caps,
+                   const int* link_ids, int batch, int fp, int lp, int width,
+                   int bw, int threads, size_t smem, unsigned char* ws,
+                   long long stride, float* out, cudaStream_t s) {
+  static size_t raised[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  size_t* limit = device < 64 ? &raised[device] : nullptr;
+  if (!limit || smem > *limit) {
+    err = cudaFuncSetAttribute(waterfill<Idx, kDesign>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reported here: not to a later launch
+      return err;
+    }
+    if (limit) *limit = smem;
+  }
+  waterfill<Idx, kDesign><<<batch, threads, smem, s>>>(
+      link_caps, flow_caps, link_ids, fp, lp, width, bw, ws, stride, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,67 +486,66 @@ const char* maxmin_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory a block needs for an (Fp, Lp, width) bucket.
+// The design for an (Fp, Lp, width) bucket: 0 smem, 1 global (the lists
+// in a workspace of maxmin_work_bytes a problem), 2 global_flows (the
+// flow state there too), -1 refused (the link state alone is over a
+// block's shared memory).
+int maxmin_design(int fp, int lp, int width) {
+  return design_for(fp, lp, width, build_warps_for(fp, lp));
+}
+
+// Dynamic shared memory a block of the bucket's design needs (for a
+// refused bucket, what its link state alone would need).
 long long maxmin_smem_bytes(int fp, int lp, int width) {
-  return (long long)smem_bytes(fp, lp, width, build_warps_for(fp, lp));
+  const int bw = build_warps_for(fp, lp);
+  return (long long)smem_bytes(design_for(fp, lp, width, bw), fp, lp, width,
+                               bw);
 }
 
-// The design for a bucket: 1 smem (the lists in shared memory), 0 global
-// (in a workspace of maxmin_work_bytes a problem).
-int maxmin_lists_in_smem(int fp, int lp, int width) {
-  return lists_in_smem(fp, lp, width, build_warps_for(fp, lp)) ? 1 : 0;
-}
-
-long long maxmin_work_bytes(int fp, int width) {
-  return (long long)(index_bytes(fp) * (size_t)fp * width);
+long long maxmin_work_bytes(int fp, int lp, int width) {
+  return (long long)work_bytes(maxmin_design(fp, lp, width), fp, width);
 }
 
 int maxmin_threads(int fp) { return threads_for(fp); }
 
 // link_caps (B x lp) f32, flow_caps (B x fp) f32, link_ids (B x fp x width)
 // int32 → out (B x (fp + 1)) f32: each problem's rates, then its round
-// count.  work: B x maxmin_work_bytes for the design global, else null.
+// count.  work: B x maxmin_work_bytes for the designs global and
+// global_flows, else null.
 int maxmin_waterfill(const float* link_caps, const float* flow_caps,
                      const int* link_ids, int batch, int fp, int lp,
                      int width, void* work, float* out, void* stream) {
   const int threads = threads_for(fp);
   const int bw = build_warps_for(fp, lp);
-  const size_t smem = smem_bytes(fp, lp, width, bw);
+  const int design = design_for(fp, lp, width, bw);
+  if (design == kRefused) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(design, fp, lp, width, bw);
+  const long long stride = (long long)work_bytes(design, fp, width);
+  if (stride && !work)
+    return cudaErrorInvalidValue;     // the design needs its workspace
+  unsigned char* ws = stride ? static_cast<unsigned char*>(work) : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the shared-memory limit each instantiation has been raised to, per
-  // device: raised again only for a larger bucket (the simulator solves
-  // hundreds of small problems a second)
-  static size_t raised[2][64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const int wide = fp > 65536;
-  size_t* limit = device < 64 ? &raised[wide][device] : nullptr;
-  if (!limit || smem > *limit) {
-    err = wide ? cudaFuncSetAttribute(
-                     waterfill<int>,
-                     cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))
-               : cudaFuncSetAttribute(
-                     waterfill<uint16_t>,
-                     cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // reported here: not to a later launch
-      return err;
-    }
-    if (limit) *limit = smem;
+  // Fp > 65536 (4-byte list entries): over 589,824 B of flow state, so
+  // always global_flows
+  if (fp > 65536)
+    return launch<int, kGlobalFlows>(link_caps, flow_caps, link_ids, batch,
+                                     fp, lp, width, bw, threads, smem, ws,
+                                     stride, out, s);
+  switch (design) {
+    case kSmem:
+      return launch<uint16_t, kSmem>(link_caps, flow_caps, link_ids, batch,
+                                     fp, lp, width, bw, threads, smem, ws,
+                                     stride, out, s);
+    case kGlobal:
+      return launch<uint16_t, kGlobal>(link_caps, flow_caps, link_ids,
+                                       batch, fp, lp, width, bw, threads,
+                                       smem, ws, stride, out, s);
+    default:
+      return launch<uint16_t, kGlobalFlows>(link_caps, flow_caps, link_ids,
+                                            batch, fp, lp, width, bw,
+                                            threads, smem, ws, stride, out,
+                                            s);
   }
-  if (!lists_in_smem(fp, lp, width, bw) && !work)
-    return cudaErrorInvalidValue;     // the design global needs its workspace
-  void* lists = lists_in_smem(fp, lp, width, bw) ? nullptr : work;
-  if (wide)
-    waterfill<int><<<batch, threads, smem, s>>>(
-        link_caps, flow_caps, link_ids, fp, lp, width, bw,
-        static_cast<int*>(lists), out);
-  else
-    waterfill<uint16_t><<<batch, threads, smem, s>>>(
-        link_caps, flow_caps, link_ids, fp, lp, width, bw,
-        static_cast<uint16_t*>(lists), out);
-  return cudaGetLastError();
 }
 
 }  // extern "C"

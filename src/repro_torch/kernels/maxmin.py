@@ -200,26 +200,34 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("maxmin", {
     "maxmin_waterfill": ([_vp] * 3 + [_ci] * 4 + [_vp] * 3, _ci),
     "maxmin_smem_bytes": ([_ci] * 3, ctypes.c_longlong),
-    "maxmin_lists_in_smem": ([_ci] * 3, _ci),
-    "maxmin_work_bytes": ([_ci] * 2, ctypes.c_longlong),
+    "maxmin_design": ([_ci] * 3, _ci),
+    "maxmin_work_bytes": ([_ci] * 3, ctypes.c_longlong),
     "maxmin_threads": ([_ci], _ci)})
+
+
+BLOCK_SMEM = 232448          # the shared memory a block may have on Hopper
+DESIGNS = {0: "smem", 1: "global", 2: "global_flows", -1: "refused"}
 
 
 class WaterfillKernel:
     """``csrc/maxmin.cu``'s ``maxmin_waterfill``: the whole solve of each
     problem of a batch in one block of one launch.  ``launches`` is raised
     once per launch that the card accepted; ``launches_by_design`` counts
-    them by where the per-link flow lists live: ``smem`` (shared memory,
-    where they fit) or ``global`` (a workspace in device memory that the
-    wrapper allocates)."""
+    them by where the per-link flow lists and the flow state live:
+    ``smem`` (both in shared memory, where they fit), ``global`` (the
+    lists in a workspace in device memory that the wrapper allocates) or
+    ``global_flows`` (the flow state there too; the link state alone in
+    shared memory)."""
 
     def __init__(self) -> None:
         self.launches = 0
-        self.launches_by_design = {"smem": 0, "global": 0}
+        self.launches_by_design = {"smem": 0, "global": 0,
+                                   "global_flows": 0}
 
     def design(self, Fp: int, Lp: int, width: int) -> str:
-        return "smem" if LIB.load().maxmin_lists_in_smem(Fp, Lp, width) \
-            else "global"
+        """The bucket's design, or ``refused`` when its link state alone
+        exceeds a block's shared memory."""
+        return DESIGNS[LIB.load().maxmin_design(Fp, Lp, width)]
 
     def smem_bytes(self, Fp: int, Lp: int, width: int) -> int:
         return int(LIB.load().maxmin_smem_bytes(Fp, Lp, width))
@@ -232,9 +240,8 @@ class WaterfillKernel:
         """link_caps (B, Lp) float32, link_ids (B, Fp, width) int32,
         flow_caps (B, Fp) float32, on one CUDA device → (B, Fp + 1)
         float32: each problem's rates, then its round count.  Raises on
-        other inputs, and when the card refuses the launch (a bucket whose
-        state needs more shared memory than a block has even with its
-        lists in device memory)."""
+        other inputs, on a bucket whose link state alone needs more shared
+        memory than a block has, and when the card refuses the launch."""
         num, Fp, width = link_ids.shape
         Lp = link_caps.shape[1]
         dev = link_caps.device
@@ -251,12 +258,17 @@ class WaterfillKernel:
                                  f"contiguous {dtype} {shape} tensor on "
                                  f"{dev}, got {t.dtype} {tuple(t.shape)} "
                                  f"on {t.device}")
-        out = torch.empty(num, Fp + 1, dtype=torch.float32, device=dev)
         lib = LIB.load()
         design = self.design(Fp, Lp, width)
+        if design == "refused":
+            raise ValueError(
+                f"maxmin kernel: a bucket of Lp={Lp} links needs "
+                f"{self.smem_bytes(Fp, Lp, width)} B of link state in "
+                f"shared memory, over a block's {BLOCK_SMEM} B")
+        out = torch.empty(num, Fp + 1, dtype=torch.float32, device=dev)
         work = None if design == "smem" else torch.empty(
-            num * int(lib.maxmin_work_bytes(Fp, width)), dtype=torch.uint8,
-            device=dev)
+            num * int(lib.maxmin_work_bytes(Fp, Lp, width)),
+            dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.maxmin_waterfill(

@@ -30,7 +30,10 @@ CPU, and the kernels' algorithms modelled in numpy.
 
 The ``gpu`` tests hold each kernel to its plain version on the card, two
 launches to the same bits, and sizes the kernels do not serve to an
-error.
+error; ``plan_solve``'s cluster design at 1 to 2048 caches, G = 1 and
+G = N, with and without a budget; a batch of mixture fits to each fit
+alone, bit for bit, at 1, 3 and 8 components and on grids of 1 to 33
+points.
 """
 import dataclasses
 import math
@@ -723,6 +726,48 @@ def test_mixture_kernel_batch_equals_single_fits(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("components", [1, 3, 8])
+def test_mixture_kernel_batch_equals_single_fits_by_components(card,
+                                                               components):
+    """A batch of fits in one launch gives each fit's bits alone, for one
+    component, the sweeps' three and the most the kernel serves."""
+    problems = [cm.mixture_problem(cm.reuse_histogram(*random_stream(s)),
+                                   components=components) for s in range(6)]
+    batch = [torch.from_numpy(np.stack([p[i] for p in problems])).to(card)
+             for i in range(3)]
+    before = cm.MIXTURE_FIT.launches
+    got, gl = ops.mixture_fit(*batch, 400, 0.08)
+    assert cm.MIXTURE_FIT.launches == before + 1
+    for b, problem in enumerate(problems):
+        one, ol = ops.mixture_fit(*[torch.from_numpy(a[None]).to(card)
+                                    for a in problem], 400, 0.08)
+        assert torch.equal(got[b], one[0]) and torch.equal(gl[b], ol[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 20, 32, 33])
+def test_mixture_kernel_short_grids_equal_plain_on_card(card, m):
+    """Grids of at most a warp's points (a block of two warps, the second
+    with no point) and just over it, against the plain version on the
+    card; a batch of fits equal to each fit alone."""
+    problems = []
+    for s in range(3):
+        p = cm.mixture_problem(cm.reuse_histogram(*random_stream(s)))
+        at = np.linspace(0, len(p[1]) - 1, m).round().astype(int)
+        problems.append((p[0], p[1][at].copy(), p[2][at].copy()))
+    batch = [torch.from_numpy(np.stack([p[i] for p in problems])).to(card)
+             for i in range(3)]
+    got, gl = ops.mixture_fit(*batch, 400, 0.08)
+    for b, problem in enumerate(problems):
+        args = [torch.from_numpy(a[None]).to(card) for a in problem]
+        one, ol = ops.mixture_fit(*args, 400, 0.08)
+        assert torch.equal(got[b], one[0]) and torch.equal(gl[b], ol[0])
+        want, wl = ref.mixture_fit_ref(*args, 400, 0.08)
+        assert_mixture_close(one[0].cpu(), float(ol[0]), want[0].cpu(),
+                             float(wl[0]), problem[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["no budget", "budget", "below the clamp"])
 def test_plan_kernel_equals_plain_on_card(card, case):
     inp, spec = plan_inputs(11, min_capacity=0.01 if "clamp" in case
@@ -769,3 +814,43 @@ def test_kernels_refuse_sizes_they_do_not_serve(card):
         ops.mixture_fit(torch.zeros(1, 3, 9, **f64),
                         torch.zeros(1, 129, **f64),
                         torch.zeros(1, 129, **f64), 10, 0.08)
+
+
+# Plans of 1 to 2048 caches: below, at and above a warp of caches, not a
+# multiple of the cluster's CTAs, 16-CTA clusters (252) and the most served.
+CLUSTER_CACHES = [1, 31, 32, 33, 252, 2048]
+_PLANS = {}
+
+
+def cluster_plan(n, groups):
+    """``plan_inputs`` of ``n`` caches in ``groups`` groups, made once."""
+    if (n, groups) not in _PLANS:
+        _PLANS[n, groups] = plan_inputs(3, n_caches=n, groups=groups)
+    return _PLANS[n, groups]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [False, True])
+@pytest.mark.parametrize("groups", ["1", "N"])
+@pytest.mark.parametrize("n", CLUSTER_CACHES)
+def test_plan_kernel_clusters_equal_plain_on_card(card, n, groups, budget):
+    """The cluster design against the plain version on the card at every
+    cluster size it takes, with G = 1 and G = N, with and without a
+    binding egress budget; two launches give the same bits."""
+    inp, spec = cluster_plan(n, 1 if groups == "1" else n)
+    inp = {k: v.copy() for k, v in inp.items()}
+    if budget:
+        inp["scalars"][0, 1] = egress_budget(inp)
+    args = [torch.from_numpy(inp[k]).to(card) for k in (
+        "stacked", "per_cache", "gidx", "gsize", "scalars")]
+    g = inp["gsize"].shape[1]
+    csize = cm.PLAN_SOLVE.cluster(n, g)
+    assert csize in (1, 2, 4, 8, 16) and csize <= n
+    before = cm.PLAN_SOLVE.launches
+    got = ops.plan_solve(*args, spec.steps)
+    assert cm.PLAN_SOLVE.launches == before + 1
+    want = ref.plan_solve_ref(*args, spec.steps)
+    assert_plan_close(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                      inp["gsize"][0], budget)
+    again = ops.plan_solve(*args, spec.steps)
+    assert torch.equal(got, again)

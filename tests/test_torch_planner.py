@@ -478,9 +478,10 @@ def test_plan_and_verification_equal_reference(R, hetero_pair, osdf_pair,
         assert not reports[T][1].verification["feasible"]
 
 
-def test_mixture_fit_sweep_equals_reference(R, osdf_pair):
-    base = {C: osdf_spec(C, n_requests=300) for C in (R, T)}
-    reps = {C: C.run_sweep(C.SweepSpec(name="mix", base=base[C], axes={}),
+def assert_mixture_sweeps_close(R, spec) -> None:
+    """``run_sweep(fit="mixture")`` of ``spec(C)`` on both packages: the
+    same histograms, and every model within ``MIX_TOL``."""
+    reps = {C: C.run_sweep(C.SweepSpec(name="mix", base=spec(C), axes={}),
                            fit="mixture") for C in (R, T)}
     got, want = reps[T].fitted_models(), reps[R].fitted_models()
     assert sorted(got) == sorted(want)
@@ -491,6 +492,51 @@ def test_mixture_fit_sweep_equals_reference(R, osdf_pair):
         assert_mixture_close(mixture_params(got[name]), got[name].fit_loss,
                              mixture_params(want[name]),
                              want[name].fit_loss, mixture_grid(hists[name]))
+
+
+def test_mixture_fit_sweep_equals_reference(R, osdf_pair):
+    assert_mixture_sweeps_close(R, lambda C: osdf_spec(C, n_requests=300))
+
+
+def test_mixture_fit_sweep_hetero_equals_reference(R):
+    """The flat fleet's streams, fitted in one call, against the
+    reference's fits one at a time."""
+    assert_mixture_sweeps_close(R, hetero_spec)
+
+
+@pytest.mark.parametrize("which", ["hetero", "osdf"])
+def test_mixture_sweep_fits_a_round_in_one_call(monkeypatch, which):
+    """``run_sweep(fit="mixture")`` fits each kernel round's streams in one
+    ``ops.mixture_fit`` call (the flat fleet one round, the two-tier fleet
+    two), and every model equals its stream's histogram fitted alone, bit
+    for bit."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.mixture_fit
+
+    def counted(params0, *args):
+        calls.append(params0.shape[0])
+        return real(params0, *args)
+    monkeypatch.setattr(ops, "mixture_fit", counted)
+    base = hetero_spec(T) if which == "hetero" else osdf_spec(
+        T, n_requests=300)
+    rep = T.run_sweep(T.SweepSpec(name="mix", base=base, axes={}),
+                      fit="mixture")
+    hists = rep.reuse_histograms()
+    live = [n for n, h in hists.items() if cm.mixture_problem(
+        cm.ReuseHistogram.from_dict(h)) is not None]
+    assert len(calls) == (1 if which == "hetero" else 2)
+    assert sum(calls) == len(live) == rep.solver["fit_streams"]
+    calls.clear()
+    for name, model in rep.fitted_models().items():
+        alone = cm.fit_lognormal_mixture(
+            cm.ReuseHistogram.from_dict(hists[name]),
+            origin_fraction=model.origin_fraction, device=CPU)
+        np.testing.assert_array_equal(mixture_params(model),
+                                      mixture_params(alone))
+        assert model.fit_loss == alone.fit_loss
+        assert model.origin_fraction == alone.origin_fraction
+    assert calls == [1] * len(live)
 
 
 def mixture_params(model):
@@ -562,7 +608,8 @@ def test_mixture_sweep_on_card_equals_cpu(card):
     rep = T.run_sweep(T.SweepSpec(name="mix", base=base, axes={}),
                       fit="mixture")
     got = rep.fitted_models()
-    assert cm.MIXTURE_FIT.launches - before == rep.solver["fit_streams"]
+    # one launch a kernel round: the edges', then the backbones'
+    assert cm.MIXTURE_FIT.launches - before == rep.solver["tier_rounds"] == 2
     cpu = T.run_sweep(T.SweepSpec(name="mix", base=osdf_spec(
         T, n_requests=300), axes={}), fit="mixture")
     want, hists = cpu.fitted_models(), cpu.reuse_histograms()

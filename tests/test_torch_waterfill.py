@@ -16,8 +16,10 @@ the random family of ``test_torch_maxmin.py`` and named edge cases.
 
 The ``gpu`` tests hold the kernel to the plain version on the card, two
 launches to the same bits, a bucket whose lists do not fit a block's
-shared memory (the design that keeps them in device memory) likewise, and
-a bucket whose state does not fit even then to an error.
+shared memory (the design that keeps them in device memory) likewise,
+buckets whose flow state does not fit either (Fp 32768 and 131072: the
+design that keeps it in device memory too) to the plain version's bits,
+and a bucket whose link state alone does not fit to an error.
 """
 import dataclasses
 
@@ -338,16 +340,17 @@ def test_solve_on_card_is_one_launch_and_one_read(card):
 
 @pytest.mark.gpu
 def test_launch_refused_for_shared_memory_raises(card):
-    """Fp 32768 needs 299,528 B of flow and link state even with its lists
-    in device memory: over a block's 227 KB."""
-    Fp, Lp, width = 32768, 32, 8
-    assert maxmin.WATERFILL.design(Fp, Lp, width) == "global"
-    assert maxmin.WATERFILL.smem_bytes(Fp, Lp, width) > 232448
+    """Lp 16384 needs 262,280 B of link state and build counters in shared
+    memory even with the flow state and lists in device memory: over a
+    block's 227 KB, refused before the launch with that limit named."""
+    Fp, Lp, width = 64, 16384, 4
+    assert maxmin.WATERFILL.design(Fp, Lp, width) == "refused"
+    assert maxmin.WATERFILL.smem_bytes(Fp, Lp, width) > maxmin.BLOCK_SMEM
     caps = torch.full((1, Lp), 1e9, dtype=torch.float32, device=card)
     ids = torch.zeros(1, Fp, width, dtype=torch.int32, device=card)
     fcaps = torch.ones(1, Fp, dtype=torch.float32, device=card)
     before = maxmin.WATERFILL.launches
-    with pytest.raises(RuntimeError, match="maxmin launch failed"):
+    with pytest.raises(ValueError, match="link state in shared memory"):
         maxmin.WATERFILL(caps, ids, fcaps)
     assert maxmin.WATERFILL.launches == before
 
@@ -380,3 +383,49 @@ def test_lists_in_device_memory_equal_plain_on_card(card, seed):
     assert got[-1] == rounds
     again = ops.maxmin_waterfill(*args).cpu().numpy()[0]
     assert got.tobytes() == again.tobytes()
+
+
+# flows of a bucket whose flow state exceeds shared memory: Fp 32768, and
+# Fp 131072 (4-byte list entries above 65,536 flows)
+LARGE_FLOWS = {"Fp 32768": 20000, "Fp 131072": 70000}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bucket", list(LARGE_FLOWS))
+def test_flow_state_in_device_memory_equals_plain_on_card(card, bucket):
+    """A bucket whose flow state alone exceeds a block's shared memory
+    runs on the design global_flows, its rates and round count equal to
+    the plain version's on the card bit for bit; two launches agree; the
+    control (the most-shared saturated link halved) changes the rates and
+    still equals the plain version."""
+    caps, rows, fcaps = large_problem(0, n_flows=LARGE_FLOWS[bucket])
+    arrays = padded(caps, rows, fcaps)
+    Fp, width = arrays[1].shape
+    assert f"Fp {Fp}" == bucket
+    assert maxmin.WATERFILL.design(Fp, arrays[0].shape[0], width) == \
+        "global_flows"
+    args = [torch.from_numpy(a[None]).to(card) for a in arrays]
+    before = dict(maxmin.WATERFILL.launches_by_design)
+    got = ops.maxmin_waterfill(*args)
+    assert maxmin.WATERFILL.launches_by_design["global_flows"] == \
+        before["global_flows"] + 1
+    want = maxmin.plain_waterfill(*args)
+    assert torch.equal(got, want)
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    again = ops.maxmin_waterfill(*args)
+    assert maxmin.WATERFILL.launches_by_design["global_flows"] == \
+        before["global_flows"] + 2
+    assert torch.equal(got, again)
+    rates = want.cpu().numpy()[0]
+    load = np.zeros(len(caps))
+    share = np.zeros(len(caps), np.int64)
+    for f, row in enumerate(rows):
+        load[row] += rates[f]
+        share[row] += 1
+    saturated = np.flatnonzero(load >= 0.999 * caps)
+    assert saturated.size
+    ctl_caps = args[0].clone()
+    ctl_caps[0, saturated[np.argmax(share[saturated])]] /= 2
+    ctl = ops.maxmin_waterfill(ctl_caps, args[1], args[2])
+    assert not torch.equal(ctl, got)
+    assert torch.equal(ctl, maxmin.plain_waterfill(ctl_caps, *args[1:]))
