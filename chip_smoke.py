@@ -8,7 +8,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 JAX.  Every phase raises on a mismatch, so the exit code is non-zero if
 any phase fails:
 
-1. build   — compile the six kernel libraries from ``src/repro_torch``
+1. build   — compile the seven kernel libraries from ``src/repro_torch``
              (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
              warnings of both flash designs at every head_dim and both
@@ -29,6 +29,12 @@ any phase fails:
              no-decay control; the design that ran, its TFLOP/s, kernel,
              plain, library and bound times (fp32 CUDA cores, and the
              tensor cores' 3xTF32 route);
+             fnv1a64_chunks against the host ``fnv1a64`` bit for bit (an
+             object of two 24 MiB chunks and a tail of 24 MiB - 1 B, an
+             unaligned 7 B object, the empty object), with a flipped-byte
+             control that must fail ``Payload.verify``; ms a chunk, ns a
+             byte, the host loop's ms and the bound (the chain's two
+             dependent operations a byte at the top SM clock);
 3. serve   — gemma2-2b: a small model on the card against the same model
              on the CPU, then full width (random weights from seed 0) in
              engines A (short prompts, batch 4) and B (one 4352-token
@@ -56,6 +62,19 @@ any phase fails:
              ``wgmma`` design, with the share of each wave and decode
              step that the MoE layers, their routing and their expert
              products take;
+             the weight leg, after those weights are freed: mamba2-780m's
+             48 layers (random bf16 weights, seed 0) saved by
+             ``FederatedCheckpointer`` in the reference's layout through a
+             one-pod fleet whose chunk digests run on the card, drained,
+             restored by ``ServeEngine.from_federation``: every leaf
+             bit-exact, no checksum failure, stored bytes the ``.npy``
+             sizes and the manifest, a corrupted cached chunk caught and
+             refetched, engine C's tokens equal to the in-memory
+             engine's; save, drain, restore and digest times;
+             qwen2-7b: a small model card-vs-CPU check, then full width
+             (28 layers, 15.4 GB of random bf16 weights) in engine A's
+             shape, every flash launch on ``wgmma`` at hd 128;
+             ``launch.serve`` at its defaults on the card, its two lines;
 4. federation — the port's data plane on the simulated engine, its
              max-min solver on the card (the ``maxmin_waterfill`` kernel,
              one launch a solve):
@@ -117,10 +136,14 @@ any phase fails:
              the plain versions' on the card and the CPU, at J2 and at
              J2's models tiled to 252 caches, ``plan_capacity`` whole,
              the mixture per stream and batched, and the fit sweep's wall
-             against the sweep's without fit;
+             against the sweep's without fit; the waterfill's largest
+             buckets (design ``global_flows``) and its buckets of 8,192
+             links or more (Lp 16384 and 32768, design ``global_links``)
+             equal to the plain version bit for bit, with controls;
 7. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path, storm H, sweep I and the planner's path J runs with
+Each serving path, the weight leg, storm H, sweep I and the planner's
+path J runs with
 every launch count set to 0 just before it and read just after.  Every line with a measured
 number names the card and its power limit.
 """
@@ -149,6 +172,7 @@ class Widths(NamedTuple):
 
 GEMMA2 = Widths(16, 4, 256, 50.0)      # 16 q-heads, 8 of them zero pads
 MIXTRAL = Widths(48, 8, 128, 0.0)
+QWEN2 = Widths(32, 4, 128, 0.0)        # 32 q-heads, 4 of them zero pads
 # q at 4x unit scale gives scores of std 4, where the softcap bends the
 # top scores (50·tanh(16/50) is 15.47); the model's own q and k are larger
 Q_SCALE = 4.0
@@ -185,7 +209,10 @@ KERNEL_FILES = {
     "plan_solve": ("src/repro_torch/kernels/csrc/cache_model.cu",
                    "src/repro/core/planner.py:162"),
     "mixture_fit": ("src/repro_torch/kernels/csrc/cache_model.cu",
-                    "src/repro/kernels/cache_model.py:267")}
+                    "src/repro/kernels/cache_model.py:267"),
+    # no TPU kernel: the reference's host loop over real-bytes chunks
+    "fnv1a64_chunks": ("src/repro_torch/kernels/csrc/fnv1a.cu",
+                       "src/repro/core/chunk.py:27")}
 
 
 def engine_a_lengths(rng):
@@ -223,6 +250,7 @@ def kernel_cases():
         (GEMMA2, 1, 512, 64, "bfloat16"),
         *[(MIXTRAL, ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
         (MIXTRAL, 1, ENGINE_F_PROMPT, 4096, "bfloat16"),
+        *[(QWEN2, ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
         (MIXTRAL, 1, 1024, 0, "float32"),
         (MIXTRAL, 1, 300, 100, "float32"),
     ]
@@ -315,10 +343,11 @@ def graph_ms(fn, launches: int = 20, replays: int = 5) -> float:
 
 
 def _kernels():
-    from repro_torch.kernels import cache_model, chunk_checksum
+    from repro_torch.kernels import cache_model, chunk_checksum, fnv1a
     from repro_torch.kernels import flash_attention, maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
     return {"flash_attention": flash_attention.KERNEL,
+            "fnv1a64_chunks": fnv1a.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
             "chunk_checksum": chunk_checksum.KERNEL,
             "stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
@@ -341,9 +370,10 @@ def phase_build(card: str) -> None:
     from repro_torch.kernels import cache_model as cm
     from repro_torch.kernels import chunk_checksum as cc
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import maxmin, ssd_scan
+    from repro_torch.kernels import fnv1a, maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
-    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB, maxmin.LIB, cm.LIB)
+    libs = (fa.LIB, ssd_scan.LIB, cc.LIB, sd.LIB, maxmin.LIB, cm.LIB,
+            fnv1a.LIB)
     t0 = time.perf_counter()
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
@@ -376,7 +406,7 @@ def phase_build(card: str) -> None:
             f"B, {maxmin.WATERFILL.threads(f)} threads"
             for f, lp, w in ((512, 512, 8), (8192, 32, 8), (16384, 256, 8),
                              (32768, 256, 8), (131072, 256, 8),
-                             (64, 16384, 4)))
+                             (64, 16384, 4), (1024, 32768, 8)))
         + ", " + ", ".join(
             f"{name} {kernel.design(kp)} (Kp {kp}): "
             f"{kernel.smem_bytes(kp)} B" for name, kernel in (
@@ -1152,6 +1182,347 @@ def phase_serve_mixtral(card: str, checked: dict):
         raise AssertionError(f"the mixtral path sent flash launches to "
                              f"other designs than wgmma: {by_design}")
     return launches, sums_launches, checksum
+
+
+# ---------------------------------------------------------------------------
+# The chunks' digests, the weight leg through the federation, qwen2-7b
+# ---------------------------------------------------------------------------
+MiB = 2 ** 20
+FNV_OPS_PER_BYTE = 2      # h <- (h ^ b) * P: the low word's xor and multiply
+
+
+def _fnv_buffer(data: bytes, offset: int = 0):
+    """``data`` on the card at ``offset`` bytes past an aligned start."""
+    import numpy as np
+    import torch
+    padded = np.zeros(offset + len(data), np.uint8)
+    padded[offset:] = np.frombuffer(data, np.uint8)
+    return torch.from_numpy(padded).to("cuda")[offset:]
+
+
+def phase_fnv_kernel(card: str) -> dict:
+    """``fnv1a64_chunks`` against the host ``fnv1a64`` bit for bit: an
+    object of two whole 24 MiB chunks and a tail of 24 MiB - 1 B, an
+    unaligned 7 B object and the empty object.  Control: one byte flipped
+    in the middle chunk must change that chunk's digest alone, and a
+    payload of that chunk holding its kept digest must fail
+    ``Payload.verify`` on the card.  Times: a 24 MiB chunk's launch (CUDA
+    events), the three-chunk object's, the host loop over a chunk (host
+    clock); the bound is the function's chain over a chunk, two dependent
+    operations a byte (the xor into the low word, then the low word's
+    multiply: the high word never feeds back into the low one), at the
+    card's top SM clock."""
+    import numpy as np
+
+    from repro_torch.core.chunk import DEFAULT_CHUNK_SIZE as C
+    from repro_torch.core.chunk import Payload, fnv1a64
+    from repro_torch.kernels import fnv1a, ops
+    rng = np.random.default_rng(0)
+    big = rng.integers(0, 256, 3 * C - 1, np.uint8).tobytes()
+    cases = {"3 chunks, the last 24 MiB - 1 B": (big, 0),
+             "7 B at offset 5": (rng.integers(0, 256, 7, np.uint8)
+                                 .tobytes(), 5),
+             "empty": (b"", 0)}
+    host_s, digests = [], {}
+    for label, (data, offset) in cases.items():
+        want = []
+        for off in range(0, max(len(data), 1), C):
+            t0 = time.perf_counter()
+            want.append(fnv1a64(data[off:off + C]))
+            host_s.append((time.perf_counter() - t0, len(data[off:off + C])))
+        got = fnv1a.unsigned(ops.fnv1a64_chunks(_fnv_buffer(data, offset), C))
+        if got != want:
+            raise AssertionError(f"fnv1a64_chunks ({label}): {got} differs "
+                                 f"from the host loop's {want}")
+        digests[label] = got
+    if digests["empty"] != [0xCBF29CE484222325]:
+        raise AssertionError("fnv1a64_chunks: the empty object's digest is "
+                             "not the offset basis")
+    buf = _fnv_buffer(big)
+    flip = C + C // 2
+    bad = buf.clone()
+    bad[flip] ^= 0x01
+    flipped = fnv1a.unsigned(ops.fnv1a64_chunks(bad, C))
+    want = digests["3 chunks, the last 24 MiB - 1 B"]
+    changed = [i for i, (a, b) in enumerate(zip(flipped, want)) if a != b]
+    kept = Payload(size=C, data=bad[C:2 * C].cpu().numpy().tobytes(),
+                   digest=want[1])
+    if changed != [1] or kept.verify("cuda"):
+        raise AssertionError(f"fnv1a64_chunks control: flipped byte {flip} "
+                             f"changed chunks {changed}; verify of the kept "
+                             f"digest passed")
+    ms = time_ms(lambda: fnv1a.KERNEL(buf[:C], C), 3)
+    object_ms = time_ms(lambda: fnv1a.KERNEL(buf, C), 3)
+    whole = [sec for sec, n in host_s if n == C]
+    plain_ms = 1e3 * sum(whole) / len(whole)
+    clock_hz = _max_sm_clock_hz()
+    bound_ms = 1e3 * C * FNV_OPS_PER_BYTE / clock_hz
+    say(f"kernel fnv1a64_chunks: 3 chunks of one object (the last 24 MiB - "
+        f"1 B), 7 B at offset 5 and the empty object equal the host loop "
+        f"bit for bit; control: byte {flip} flipped changed chunk 1 alone "
+        f"and failed verify on the card; kernel {ms:.3f} ms a 24 MiB chunk "
+        f"(CUDA events, {1e6 * ms / C:.3f} ns a byte), the 3-chunk object "
+        f"{object_ms:.3f} ms in one launch; host loop {plain_ms:.1f} ms a "
+        f"chunk (host clock); chain bound {bound_ms:.3f} ms "
+        f"({FNV_OPS_PER_BYTE} dependent operations a byte at "
+        f"{clock_hz / 1e6:.0f} MHz)", card)
+    return dict(max_abs_err=0, err_over_tol=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by="operations",
+                object_ms=object_ms, ns_per_byte=1e6 * ms / C,
+                ops_per_byte=FNV_OPS_PER_BYTE, clock_mhz=clock_hz / 1e6)
+
+
+class _DigestTimes:
+    """CUDA events around every ``ops.fnv1a64_chunks`` call while the
+    context is open (``core.chunk`` calls it through the module)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+        self.events, self._ops, self._fn = [], ops, ops.fnv1a64_chunks
+
+        def timed(buf, chunk_size):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._fn(buf, chunk_size)
+            end.record()
+            self.events.append((start, end))
+            return out
+        ops.fnv1a64_chunks = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.fnv1a64_chunks = self._fn
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _npy_bytes(shape) -> int:
+    """The bytes of a float32 array of ``shape`` as ``np.save`` writes it."""
+    import io
+    import math
+
+    import numpy as np
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": np.lib.format.dtype_to_descr(np.dtype(np.float32)),
+        "fortran_order": False, "shape": tuple(shape)})
+    return buf.tell() + 4 * math.prod(shape)
+
+
+def phase_weight_leg(card: str, checked: dict) -> dict:
+    """mamba2-780m at full width through the federation: its 48 layers'
+    random bf16 weights (seed 0) saved by worker 0 in the reference's
+    layout through the launcher's one-pod fleet, which digests on the
+    card, drained to the origin, and restored by ``from_federation`` on
+    worker 1: every leaf bit-exact, no checksum failure, stored bytes the
+    ``.npy`` sizes and the manifest; a chunk corrupted in the pod cache
+    before worker 2's restore is counted and refetched; engine C's
+    requests give the same tokens on the restored engine as on one built
+    from the weights in memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import AnalyticPlane, build_fleet_federation
+    from repro_torch.models import init_lm, jax_layout
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import FederatedCheckpointer
+    from repro_torch.train.checkpoint import _leaf_paths
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0, card)
+    plane = AnalyticPlane(build_fleet_federation(num_pods=1, hosts_per_pod=4,
+                                                 device="cuda"))
+    state = jax_layout(params, cfg)
+    shapes = [tuple(t.shape) for _, t in _leaf_paths(state)]
+    _reset_counts()                          # the weight leg starts here
+    with _DigestTimes() as digests:
+        ck = FederatedCheckpointer("serve", plane, site="pod0", worker=0)
+        t0 = time.perf_counter()
+        saved = ck.save(0, state, drain=False)
+        save_s = time.perf_counter() - t0
+        store_launches, store_ms = _kernels()["fnv1a64_chunks"].launches, \
+            digests.ms()
+        t0 = time.perf_counter()
+        drained = plane.drain()
+        drain_s = time.perf_counter() - t0
+        ck.stats.add(drained)
+        drain_launches = _kernels()["fnv1a64_chunks"].launches - \
+            store_launches
+        drain_ms = digests.ms() - store_ms
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = ServeEngine.from_federation(
+            cfg, plane, "serve", site="pod0", worker=1, device="cuda",
+            batch_size=ENGINE_C_BATCH, max_seq=1088)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_launches = _kernels()["fnv1a64_chunks"].launches - \
+            store_launches - drain_launches
+        restore_ms = digests.ms() - store_ms - drain_ms
+    manifest = plane.fed.origins[0].meta(f"{ck.prefix(0)}/manifest.json")
+    want_bytes = sum(_npy_bytes(s) for s in shapes) + manifest.size
+    held = sum(m.size for m in plane.fed.origins[0].list_objects()
+               if m.path.startswith(ck.prefix(0)))
+    if not (saved.bytes == drained.bytes == held == want_bytes):
+        raise AssertionError(f"weight leg: stored {saved.bytes} B, drained "
+                             f"{drained.bytes}, origin {held}; the .npy "
+                             f"sizes and the manifest {want_bytes}")
+    pairs = list(zip(_leaves(engine.params), _leaves(params), strict=True))
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("weight leg: a restored leaf differs from the "
+                             "saved one")
+    failures = plane.client("pod0", 1).stats.checksum_failures
+    if failures:
+        raise AssertionError(f"weight leg: {failures} checksum failures")
+    stats = engine.data_stats
+    rng = np.random.default_rng(0)
+    lengths = engine_c_lengths(rng)
+
+    def requests():
+        return [Request(i, np.random.default_rng(10 + i).integers(
+            0, cfg.vocab_size, int(n)), max_new_tokens=32)
+            for i, n in enumerate(lengths)]
+    served = requests()
+    _drive("C from the federation (batch 4, max_seq 1088, 8 prompts of "
+           "64-1000)", engine, served, "ssd_intra", checked, card)
+    kernels = _kernels()                     # ... and ends here
+    launches = kernels["fnv1a64_chunks"].launches
+    ssd = kernels["ssd_intra"].launches
+    if not ssd or launches != store_launches + drain_launches + \
+            restore_launches:
+        raise AssertionError(f"the weight leg launched fnv1a64_chunks "
+                             f"{launches} times (save, drain and restore "
+                             f"{store_launches}, {drain_launches}, "
+                             f"{restore_launches}) and ssd_intra {ssd}")
+    # control: the middle chunk of the largest object corrupted in the pod
+    # cache, then a fresh worker's restore
+    origin = plane.fed.origins[0]
+    big = max(origin.list_objects(), key=lambda m: m.size)
+    bad = (big.path, big.num_chunks // 2)
+    cache = plane.fed.caches["pod0/cache"]
+    cache._lru[bad] = cache._lru[bad].corrupted()
+    tree, again = FederatedCheckpointer("serve", plane, site="pod0",
+                                        worker=2).restore(0, device="cuda")
+    caught = plane.client("pod0", 2).stats.checksum_failures
+    name = big.path[len(ck.prefix(0)) + 1:-len(".npy")]
+    if caught != 1 or again.cache_misses != 1 or not torch.equal(
+            tree[name], dict(_leaf_paths(jax_layout(params, cfg)))[name]):
+        raise AssertionError(f"weight leg control: {caught} checksum "
+                             f"failures, {again.cache_misses} misses after "
+                             f"corrupting chunk {bad[1]} of {big.path}")
+    del tree
+    # the same requests on an engine built from the weights in memory
+    in_memory = requests()
+    ServeEngine(cfg, params, batch_size=ENGINE_C_BATCH,
+                max_seq=1088).generate(in_memory)
+    if [r.output for r in served] != [r.output for r in in_memory]:
+        raise AssertionError("weight leg: the restored engine's tokens "
+                             "differ from the in-memory engine's")
+    gb = saved.bytes / 1e9
+    say(f"weight leg mamba2-780m: {len(shapes)} leaves, {saved.bytes} B "
+        f"stored (float32 .npy and the manifest) = Σ .npy sizes + manifest; "
+        f"save {save_s:.2f} s ({gb / save_s:.3f} GB/s), drain "
+        f"{drain_s:.2f} s ({gb / drain_s:.3f} GB/s), restore through "
+        f"from_federation {restore_s:.2f} s ({gb / restore_s:.3f} GB/s) "
+        f"(host clock); digest launches save {store_launches} "
+        f"({store_ms:.1f} ms of kernel), drain {drain_launches} "
+        f"({drain_ms:.1f} ms), restore {restore_launches} "
+        f"({restore_ms:.1f} ms) (CUDA events); the leg's launches: "
+        f"fnv1a64_chunks {launches}, ssd_intra {ssd}; restore: {stats.fetches} "
+        f"fetches, {stats.chunks} chunks, hits {stats.cache_hits}, misses "
+        f"{stats.cache_misses}; every leaf bit-exact, 0 checksum failures; "
+        f"control: chunk {bad[1]} of {big.path} corrupted in the pod "
+        f"cache, caught "
+        f"{caught} time and refetched ({again.cache_misses} miss); engine C "
+        f"from the federation and from memory give the same tokens; "
+        f"max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
+    return {"launches": launches, "ssd_launches": ssd,
+            "stored_bytes": saved.bytes, "save_s": save_s,
+            "drain_s": drain_s, "restore_s": restore_s,
+            "digest_launches": {"save": store_launches,
+                                "drain": drain_launches,
+                                "restore": restore_launches},
+            "digest_ms": {"save": store_ms, "drain": drain_ms,
+                          "restore": restore_ms}}
+
+
+def phase_serve_qwen2(card: str, checked: dict) -> int:
+    """qwen2-7b: a small model card-vs-CPU check, then full width (28
+    layers, random bf16 weights from seed 0) in engine A's shape, every
+    flash launch on ``wgmma`` at hd 128 (28 heads padded to 32 over 4
+    KV)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Request, ServeEngine
+
+    _check_small_model(
+        dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                            dtype="float32"),
+        "qwen2-7b smoke, f32", card)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    _describe(cfg, params, t0, card)
+    engine = ServeEngine(cfg, params, batch_size=ENGINE_A_BATCH, max_seq=512)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n)),
+                    max_new_tokens=32)
+            for i, n in enumerate(engine_a_lengths(rng))]
+    ServeEngine(cfg, params, batch_size=4, max_seq=512).generate(
+        [Request(-1, rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)])
+    _reset_counts()                          # the qwen2 path starts here
+    _drive("A on qwen2-7b (batch 4, max_seq 512, 8 prompts of 64-256)",
+           engine, reqs, "flash_attention", checked, card)
+    flash = _kernels()["flash_attention"]    # ... and ends here
+    launches, by_design = flash.launches, dict(flash.launches_by_design)
+    decode_bound_ms, _ = _bound(0, 1.0, sum(t.nbytes
+                                            for t in _leaves(params)))
+    say(f"serve qwen2-7b: {cfg.num_heads} heads padded to "
+        f"{cfg.padded_heads} over {cfg.num_kv_heads} KV of hd "
+        f"{cfg.head_dim}; flash launches {launches} by design {by_design}; "
+        f"a decode step reading every weight once {decode_bound_ms:.2f} ms "
+        f"at 3.35 TB/s; max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
+    if not launches or by_design["wgmma"] != launches:
+        raise AssertionError(f"the qwen2 path sent flash launches to other "
+                             f"designs than wgmma or none: {by_design}")
+    return launches
+
+
+def phase_launcher(card: str) -> None:
+    """``repro_torch.launch.serve.main`` at the reference's defaults on the
+    card: its two lines, in the reference's format."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch.serve import main as serve_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_main([])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or len(lines) != 2 or not re.fullmatch(
+            r"weights via federation: [0-9.]+ MB, hits=\d+ misses=\d+",
+            lines[0]) or lines[1] != ("served 6 requests: 8 prefills, 22 "
+                                      "decode steps, 66 tokens"):
+        raise AssertionError(f"launcher: exit {rc}, lines {lines}")
+    for line in lines:
+        say(f"launch.serve (gemma2-2b smoke, f32, on the card): {line}", card)
 
 
 # ---------------------------------------------------------------------------
@@ -2939,6 +3310,102 @@ def phase_waterfill_large(card: str) -> dict:
     return out
 
 
+# buckets whose link state alone exceeds a block's shared memory (design
+# global_links): (flows, links, most links a flow), seeded uniform-random
+WATERFILL_LINKS = {"Fp 64 Lp 16384": (60, 9000, 4),
+                   "Fp 1024 Lp 32768": (1000, 20000, 8)}
+
+
+def phase_waterfill_links(card: str) -> dict:
+    """The waterfill's buckets of 8,192 links or more (``WATERFILL_LINKS``,
+    design ``global_links``): rates and round count equal to the plain
+    version's on the card bit for bit, two launches equal; control: the
+    fastest flow's cap set to half its rate must change the kernel's
+    rates, which still equal the plain version's; the kernel's time
+    (CUDA events) and the plain version's (host clock)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import maxmin
+    dev = torch.device("cuda")
+    out = {}
+    for label, (flows, links, most) in WATERFILL_LINKS.items():
+        rng = np.random.default_rng(0)
+        caps = rng.uniform(1e8, 1e10, links).tolist()
+        rows = [rng.choice(links, int(rng.integers(1, most + 1)),
+                           replace=False).tolist() for _ in range(flows)]
+        fcaps = rng.uniform(1e6, 1e9, flows).tolist()
+        Fp, Lp, width = (maxmin._next_pow2(flows),
+                         maxmin._next_pow2(links + 1), most)
+        design = maxmin.WATERFILL.design(Fp, Lp, width)
+        if f"Fp {Fp} Lp {Lp}" != label or design != "global_links":
+            raise AssertionError(f"waterfill {label}: bucket ({Fp}, {Lp}), "
+                                 f"design {design}, not global_links")
+        staging = maxmin.Staging(1, Fp, Lp, width, dev)
+        maxmin.pad_problem(caps, rows, fcaps, Fp, Lp, width,
+                           out=staging.problem(0))
+        args = staging.views(staging.upload())
+        before = maxmin.WATERFILL.launches_by_design["global_links"]
+        got = maxmin.WATERFILL(*args)
+        again = maxmin.WATERFILL(*args)
+        if maxmin.WATERFILL.launches_by_design["global_links"] != before + 2:
+            raise AssertionError(f"waterfill {label}: not launched on "
+                                 f"global_links")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = maxmin.plain_waterfill(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        if g.tobytes() != w.tobytes() or not torch.equal(got, again):
+            raise AssertionError(
+                f"waterfill {label}: the kernel's rates differ from the "
+                f"plain version's (max abs {np.abs(g - w).max()}) or two "
+                f"launches differ")
+        fastest = int(np.argmax(w[0, :flows]))
+        ctl_fcaps = args[2].clone()
+        ctl_fcaps[0, fastest] = want[0, fastest] / 2
+        ctl = maxmin.WATERFILL(args[0], args[1], ctl_fcaps)
+        if torch.equal(ctl, got) or not torch.equal(
+                ctl, maxmin.plain_waterfill(args[0], args[1], ctl_fcaps)):
+            raise AssertionError(f"waterfill {label}: the control (flow "
+                                 f"{fastest}'s cap halved below its rate) "
+                                 f"did not change the rates, or differs "
+                                 f"from the plain version")
+        ms = time_ms(lambda: maxmin.WATERFILL(*args), 3)
+        out[label] = {
+            "bucket": [1, Fp, Lp, width], "flows": flows, "links": links,
+            "design": design,
+            "smem_bytes": maxmin.WATERFILL.smem_bytes(Fp, Lp, width),
+            "rounds": int(g[0, Fp]), "ms": ms, "plain_ms": plain_ms,
+            "equal_bits": True,
+            "control": {"flow": fastest,
+                        "changed_rates": int((ctl != got).sum())}}
+        say(f"waterfill {label} ({flows} flows over {links} links, bucket "
+            f"(1, {Fp}, {Lp}, {width}), design {design}, "
+            f"{out[label]['smem_bytes']} B of shared memory, "
+            f"{out[label]['rounds']} rounds): rates and round count equal "
+            f"to the plain version's on the card bit for bit, two launches "
+            f"equal; control (flow {fastest}'s cap halved below its rate) "
+            f"changes {out[label]['control']['changed_rates']} rates and "
+            f"equals the plain version; kernel {ms:.4f} ms (CUDA events "
+            f"around 3 calls), plain version on the card {plain_ms:.1f} ms "
+            f"(host clock)", card)
+    return out
+
+
+def _fnv1a_entry(kernel: dict, leg: dict, card: str) -> dict:
+    """The digest kernel's line: a 24 MiB chunk; its launches on the
+    weight leg."""
+    entry = _entry("fnv1a64_chunks", leg["launches"], kernel, "exact",
+                   "one 24 MiB chunk (one thread)", card)
+    entry.update({k: kernel[k] for k in ("object_ms", "ns_per_byte",
+                                         "ops_per_byte", "clock_mhz")})
+    entry["weight_leg"] = {k: v for k, v in leg.items()
+                           if k not in ("launches", "ssd_launches")}
+    return entry
+
+
 def _plan_solve_entry(nums: dict, card: str) -> dict:
     source, replaces = KERNEL_FILES["plan_solve"]
     main = nums["cases"]["J2"]
@@ -3104,6 +3571,7 @@ def main() -> int:
     phase_build(card)
     flash = phase_flash_kernel(card)
     ssd = phase_ssd_kernel(card)
+    fnv = phase_fnv_kernel(card)
     gemma_flash = phase_serve_gemma(card, flash)
     _free()
     ssd_launches, mamba_sums, checksum = phase_serve_mamba(card, ssd)
@@ -3111,19 +3579,27 @@ def main() -> int:
     mixtral_flash, mixtral_sums, mixtral_checksum = phase_serve_mixtral(
         card, flash)
     _free()
+    leg = phase_weight_leg(card, ssd)
+    _free()
+    qwen2_flash = phase_serve_qwen2(card, flash)
+    _free()
+    phase_launcher(card)
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
     sweep = phase_sweep(card)
     plans = phase_planner(card)
     large = phase_waterfill_large(card)
+    large.update(phase_waterfill_links(card))
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
-    flash_entry = _entry("flash_attention", gemma_flash + mixtral_flash,
+    flash_entry = _entry("flash_attention",
+                         gemma_flash + mixtral_flash + qwen2_flash,
                          flash[MAIN_CASE], TOLERANCE["bfloat16"], MAIN_CASE,
                          card)
     flash_entry["launches_by_path"] = {"gemma2-2b": gemma_flash,
-                                       "mixtral-8x22b": mixtral_flash}
+                                       "mixtral-8x22b": mixtral_flash,
+                                       "qwen2-7b": qwen2_flash}
     flash_entry["hd128_case"] = _case(flash[MAIN_CASE_128], MAIN_CASE_128,
                                       launches=mixtral_flash)
     checksum_entry = _entry(
@@ -3137,10 +3613,14 @@ def main() -> int:
         f"mixtral-8x22b ({MIXTRAL_LAYERS} layers), "
         f"{mixtral_checksum['nbytes']} bytes as uint8, block 1024",
         launches=mixtral_sums)
+    ssd_entry = _entry("ssd_intra", ssd_launches + leg["ssd_launches"],
+                       ssd[SSD_MAIN_CASE], SSD_TOLERANCE,
+                       f"{SSD_MAIN_CASE} float32", card)
+    ssd_entry["launches_by_path"] = {"mamba2-780m": ssd_launches,
+                                     "weight leg": leg["ssd_launches"]}
     print(json.dumps({"kernels": [
         flash_entry,
-        _entry("ssd_intra", ssd_launches, ssd[SSD_MAIN_CASE], SSD_TOLERANCE,
-               f"{SSD_MAIN_CASE} float32", card),
+        ssd_entry,
         checksum_entry,
         _maxmin_entry(storm, card),
         *[_scan_entry(name, sweep[name], card) for name in SCANS],
@@ -3148,6 +3628,7 @@ def main() -> int:
                               plans["batched_maxmin"], large, card),
         _plan_solve_entry(plans["plan_solve"], card),
         _mixture_fit_entry(plans["mixture_fit"], card),
+        _fnv1a_entry(fnv, leg, card),
     ]}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -214,6 +214,7 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
 
 
 def _ensure_loaded() -> None:
-    if _REGISTRY:
-        return
-    from . import gemma2_2b, mamba2_780m, mixtral_8x22b  # noqa: F401
+    # every config module, each imported once: a registry holding some
+    # configs (one module imported directly) is not a loaded one
+    from . import (gemma2_2b, mamba2_780m, mixtral_8x22b,  # noqa: F401
+                   qwen2_7b)

@@ -43,7 +43,12 @@ simulated engine's, and a sweep's template ``SweepSpec.base.device``
 names its kernels' (the stack-distance scans and the batched max-min
 solver, and the mixture fit of ``fit="mixture"``); ``None`` means
 ``cuda`` and raises without a card.  The analytic engine of
-``run_scenario`` has no device work and takes none.
+``run_scenario`` has no device work and takes none.  Real bytes
+(``publish``, ``store`` and verified reads of them) are digested on the
+federation's device (``FederationSpec.build(device)``, the builders'
+``device``; ``run_scenario`` builds with ``ScenarioSpec.device``), the
+same rule, resolved when real bytes are first digested: synthetic
+payloads, which every scenario, sweep and plan moves, never need it.
 """
 from __future__ import annotations
 
@@ -1057,7 +1062,8 @@ def run_scenario(spec: ScenarioSpec,
     (namespace-routed synthetic objects), executes the workload on the
     chosen engine, and aggregates the report.
     """
-    fed = federation if federation is not None else spec.federation.build()
+    fed = federation if federation is not None else \
+        spec.federation.build(spec.device)
     plane = spec.plane(fed)
     reqs = spec.requests(fed)
     sizes: Dict[str, int] = {}

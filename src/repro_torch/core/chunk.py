@@ -10,27 +10,39 @@ which guarantees consistency ... which HTTP proxies do not provide").
 Payloads may be *real* (backed by bytes — used by the data loader and
 checkpoint paths) or *synthetic* (size-only — used by the discrete-event
 simulator where multi-GB files must not be materialised).
+
+The digests of real bytes are taken on a device (``chunk_digests``): on
+the card, all of an object's chunks in one launch of the
+``fnv1a64_chunks`` kernel; on the CPU, by ``kernels.ref.fnv1a64``.
+``device`` ``None`` means ``cuda`` and raises without a card, when real
+bytes are first digested; synthetic payloads never need a device.
+Placement keys (:func:`synthetic_digest`, the hash ring) stay host
+Python.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import fnv1a as _fnv1a
+from ..kernels import ops
+from ..kernels.ref import fnv1a64
+
 # CVMFS chunk size used by the StashCache federation (paper §3.1).
 DEFAULT_CHUNK_SIZE = 24 * 2**20
 
-_FNV_OFFSET = 0xCBF29CE484222325
-_FNV_PRIME = 0x100000001B3
-_MASK64 = 0xFFFFFFFFFFFFFFFF
 
-
-def fnv1a64(data: bytes, seed: int = _FNV_OFFSET) -> int:
-    """64-bit FNV-1a over ``data``.  Pure-python oracle for the Pallas
-    ``chunk_checksum`` kernel (see ``repro_torch.kernels.chunk_checksum``)."""
-    h = seed
-    for b in data:
-        h = ((h ^ b) * _FNV_PRIME) & _MASK64
-    return h
+def chunk_digests(data: bytes, chunk_size: int, device=None) -> List[int]:
+    """The FNV-1a-64 digest of each ``chunk_size`` piece of ``data`` (the
+    last shorter; empty data is one piece), taken on ``device``."""
+    buf = torch.empty(len(data), dtype=torch.uint8)
+    buf.numpy()[:] = np.frombuffer(data, np.uint8)
+    return _fnv1a.unsigned(ops.fnv1a64_chunks(
+        buf.to(resolve_device(device)), chunk_size))
 
 
 def synthetic_digest(path: str, index: int, size: int) -> int:
@@ -47,19 +59,23 @@ class Payload:
     digest: int = 0
 
     @staticmethod
-    def from_bytes(data: bytes) -> "Payload":
-        return Payload(size=len(data), data=data, digest=fnv1a64(data))
+    def from_bytes(data: bytes, device=None) -> "Payload":
+        return Payload(size=len(data), data=data,
+                       digest=chunk_digests(data, max(len(data), 1),
+                                            device)[0])
 
     @staticmethod
     def synthetic(size: int, path: str = "", index: int = 0) -> "Payload":
         return Payload(size=size, data=None,
                        digest=synthetic_digest(path, index, size))
 
-    def verify(self) -> bool:
-        """Checksum validation at the chunk boundary (CVMFS behaviour)."""
+    def verify(self, device=None) -> bool:
+        """Checksum validation at the chunk boundary (CVMFS behaviour),
+        the digest taken on ``device``."""
         if self.data is None:
             return True
-        return fnv1a64(self.data) == self.digest
+        return chunk_digests(self.data, max(self.size, 1),
+                             device)[0] == self.digest
 
     def corrupted(self) -> "Payload":
         """Return a bit-flipped copy (for integrity tests); keeps digest."""
@@ -124,19 +140,15 @@ class ObjectMeta:
 
 def chunk_object(path: str, data: bytes,
                  chunk_size: int = DEFAULT_CHUNK_SIZE,
-                 mtime: float = 0.0) -> tuple[ObjectMeta, List[Payload]]:
-    """Split real bytes into chunk payloads + catalog metadata."""
-    payloads: List[Payload] = []
-    digests: List[int] = []
-    if len(data) == 0:
-        p = Payload.from_bytes(b"")
-        payloads.append(p)
-        digests.append(p.digest)
-    else:
-        for off in range(0, len(data), chunk_size):
-            p = Payload.from_bytes(data[off:off + chunk_size])
-            payloads.append(p)
-            digests.append(p.digest)
+                 mtime: float = 0.0, device=None
+                 ) -> tuple[ObjectMeta, List[Payload]]:
+    """Split real bytes into chunk payloads + catalog metadata; every
+    chunk's digest taken on ``device`` (on the card, in one launch)."""
+    digests = chunk_digests(data, chunk_size, device)
+    pieces = [data[off:off + chunk_size]
+              for off in range(0, max(len(data), 1), chunk_size)]
+    payloads = [Payload(size=len(piece), data=piece, digest=d)
+                for piece, d in zip(pieces, digests, strict=True)]
     meta = ObjectMeta(path=path, size=len(data), mtime=mtime,
                       chunk_size=chunk_size, chunk_digests=digests)
     return meta, payloads

@@ -98,8 +98,10 @@ class StashClient:
                  local_cache_bytes: int = 1 * 2**30,
                  groups: Optional[Sequence[CacheGroup]] = None,
                  now: float = 0.0,
-                 ranking: Union[str, RankingPolicy, None] = None) -> None:
+                 ranking: Union[str, RankingPolicy, None] = None,
+                 device=None) -> None:
         self.node = node
+        self.device = device    # where real chunks are verified
         self.caches = {c.name: c for c in caches}
         self.groups = list(groups) if groups else []
         for g in self.groups:
@@ -207,7 +209,8 @@ class StashClient:
                 ctrl.on_success(cache.name, self.now, seconds=st.seconds)
             if payload is None:
                 return None, agg
-            if verify and expected_digest and not payload.verify():
+            if verify and expected_digest and \
+                    not payload.verify(self.device):
                 # CVMFS consistency guarantee: drop the corrupt replica at
                 # the cache, refetch once from upstream (§6).
                 self.stats.checksum_failures += 1
@@ -215,7 +218,8 @@ class StashClient:
                 payload, st2 = cache.get_chunk(self.node.name, path, index,
                                                streams=streams)
                 agg.add(st2)
-                if payload is None or (expected_digest and not payload.verify()):
+                if payload is None or (expected_digest and
+                                       not payload.verify(self.device)):
                     tried.append(cache.name)
                     continue
             return payload, agg

@@ -145,6 +145,9 @@ class Federation:
     bus: MessageBus
     aggregator: UsageAggregator
     sites: List[SiteSpec]
+    # where real bytes are digested and verified (None means cuda,
+    # resolved when real bytes are first digested)
+    device: Optional[str] = None
 
     # -- factories ----------------------------------------------------------
     def client(self, site: str, worker: int = 0,
@@ -162,7 +165,7 @@ class Federation:
                            catalog=catalog, cvmfs_available=cvmfs,
                            xrootd_available=xrootd,
                            groups=list(self.groups.values()),
-                           ranking=ranking)
+                           ranking=ranking, device=self.device)
 
     def indexer(self, origin: Optional[Origin] = None) -> Indexer:
         return Indexer(origin or self.origins[0])
@@ -171,7 +174,8 @@ class Federation:
                   drain_rate: float = 2e9) -> WritebackCache:
         return WritebackCache(self.caches[cache_name], self.net,
                               self.redirectors,
-                              drain_rate_bytes_per_sec=drain_rate)
+                              drain_rate_bytes_per_sec=drain_rate,
+                              device=self.device)
 
     def nearest_cache(self, client_node: str, path: str = "/") -> CacheServer:
         """The cache a client at ``client_node`` would actually be served
@@ -220,7 +224,8 @@ class Federation:
             raise ValueError(f"origin node {name!r} already exists")
         node = self.topology.add_node(name, Coord(site, rack=255, host=idx),
                                       prof.origin_nic)
-        origin = Origin(node.name, node, exports=exports)
+        origin = Origin(node.name, node, exports=exports,
+                        device=self.device)
         self.redirectors.subscribe(origin)
         self.origins.append(origin)
         return origin
@@ -240,7 +245,8 @@ def _build(sites: Sequence[SiteSpec], origin_site: str,
            proxy_max_cacheable: int = 1 * 2**30,
            proxy_ttl: float = 3600.0,
            monitor_drop_rate: float = 0.0,
-           geoip_lookup_latency: float = 0.200) -> Federation:
+           geoip_lookup_latency: float = 0.200,
+           device=None) -> Federation:
     topo = Topology()
     for s in sites:
         topo.add_site(s.name, s.profile, region=s.region)
@@ -256,7 +262,7 @@ def _build(sites: Sequence[SiteSpec], origin_site: str,
                                 Coord(origin_site, rack=255, host=0),
                                 oprof.origin_nic)
     origin = Origin(f"{origin_site}/origin", origin_node,
-                    exports=origin_exports)
+                    exports=origin_exports, device=device)
 
     rsite = redirector_site or origin_site
     rprof = topo.profile(rsite)
@@ -310,7 +316,8 @@ def _build(sites: Sequence[SiteSpec], origin_site: str,
             if s.parent is not None:
                 cache.parent_group = groups[s.parent]
     return Federation(topo, net, geoip, [origin], redirectors, caches,
-                      groups, proxies, monitor, bus, aggregator, list(sites))
+                      groups, proxies, monitor, bus, aggregator, list(sites),
+                      device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,7 +359,11 @@ class FederationSpec:
         tiers = self.site_tiers()
         return max(tiers.values()) if tiers else 1
 
-    def build(self) -> Federation:
+    def build(self, device=None) -> Federation:
+        """The live federation; ``device`` digests and verifies its real
+        bytes (``None`` means ``cuda``, resolved when real bytes are first
+        digested, so a federation of synthetic payloads never needs a
+        card)."""
         if not self.sites:
             raise ValueError("FederationSpec needs at least one site")
         return _build(self.sites, self.origin_site or self.sites[0].name,
@@ -361,7 +372,8 @@ class FederationSpec:
                       proxy_max_cacheable=self.proxy_max_cacheable,
                       proxy_ttl=self.proxy_ttl,
                       monitor_drop_rate=self.monitor_drop_rate,
-                      geoip_lookup_latency=self.geoip_lookup_latency)
+                      geoip_lookup_latency=self.geoip_lookup_latency,
+                      device=device)
 
     @classmethod
     def osg(cls, workers_per_site: int = 4, monitor_drop_rate: float = 0.0,
@@ -473,12 +485,13 @@ OSG_SITE_PROFILES: Dict[str, BandwidthProfile] = {
 def build_osg_federation(workers_per_site: int = 4,
                          monitor_drop_rate: float = 0.0,
                          eviction_policy: str = "lru",
-                         cache_replicas: int = 1) -> Federation:
+                         cache_replicas: int = 1,
+                         device=None) -> Federation:
     return FederationSpec.osg(
         workers_per_site=workers_per_site,
         monitor_drop_rate=monitor_drop_rate,
         eviction_policy=eviction_policy,
-        cache_replicas=cache_replicas).build()
+        cache_replicas=cache_replicas).build(device)
 
 
 def build_fleet_federation(num_pods: int = 2, hosts_per_pod: int = 64,
@@ -487,13 +500,15 @@ def build_fleet_federation(num_pods: int = 2, hosts_per_pod: int = 64,
                            eviction_policy: str = "lru",
                            cache_replicas: int = 1,
                            ttl_seconds: float = 3600.0,
-                           admission_max_fraction: float = 1.0) -> Federation:
+                           admission_max_fraction: float = 1.0,
+                           device=None) -> Federation:
     """TPU-fleet mapping: one cache group per pod, origin = dataset store.
 
     Intra-pod links are ICI-class, cross-pod is DCN-class, the origin sits
     behind a storage-fabric link.  GeoIP lookup latency is LAN-scale.
     ``cache_replicas`` > 1 gives each pod an HA consistent-hash cache
     group; ``eviction_policy`` selects the per-cache policy fleet-wide.
+    ``device`` digests real bytes (``None`` means ``cuda``).
     """
     return FederationSpec.fleet(
         num_pods=num_pods, hosts_per_pod=hosts_per_pod,
@@ -501,7 +516,7 @@ def build_fleet_federation(num_pods: int = 2, hosts_per_pod: int = 64,
         monitor_drop_rate=monitor_drop_rate,
         eviction_policy=eviction_policy, cache_replicas=cache_replicas,
         ttl_seconds=ttl_seconds,
-        admission_max_fraction=admission_max_fraction).build()
+        admission_max_fraction=admission_max_fraction).build(device)
 
 
 def build_osdf_federation(regions: Sequence[str] = ("us-east", "us-west"),
@@ -509,9 +524,11 @@ def build_osdf_federation(regions: Sequence[str] = ("us-east", "us-west"),
                           workers_per_edge: int = 4,
                           l1_capacity: float = 2 * TB,
                           l2_capacity: float = 16 * TB,
-                          eviction_policy: str = "lru") -> Federation:
+                          eviction_policy: str = "lru",
+                          device=None) -> Federation:
     """Tiered OSDF-style CDN: regional L1 edges over L2 backbones."""
     return FederationSpec.osdf(
         regions=regions, edges_per_region=edges_per_region,
         workers_per_edge=workers_per_edge, l1_capacity=l1_capacity,
-        l2_capacity=l2_capacity, eviction_policy=eviction_policy).build()
+        l2_capacity=l2_capacity,
+        eviction_policy=eviction_policy).build(device)

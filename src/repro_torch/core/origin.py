@@ -57,8 +57,10 @@ class Origin:
 
     def __init__(self, name: str, node: Node,
                  exports: Iterable[str] = ("/",),
-                 chunk_size: int = DEFAULT_CHUNK_SIZE) -> None:
+                 chunk_size: int = DEFAULT_CHUNK_SIZE,
+                 device=None) -> None:
         self.name = name
+        self.device = device    # where real bytes are digested
         self.node = node
         self.exports = list(exports)
         self.chunk_size = chunk_size
@@ -72,7 +74,8 @@ class Origin:
         """Store real bytes, or a synthetic object when given an int size."""
         if isinstance(data, (bytes, bytearray)):
             meta, payloads = chunk_object(path, bytes(data),
-                                          self.chunk_size, mtime)
+                                          self.chunk_size, mtime,
+                                          device=self.device)
         else:
             meta, payloads = synthetic_object(path, int(data),
                                               self.chunk_size, mtime)

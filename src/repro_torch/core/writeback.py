@@ -39,8 +39,9 @@ class WritebackCache:
     def __init__(self, cache: CacheServer, net: NetworkModel,
                  redirectors: RedirectorPair,
                  drain_rate_bytes_per_sec: float = 2e9,
-                 max_inflight: int = 4) -> None:
+                 max_inflight: int = 4, device=None) -> None:
         self.cache = cache
+        self.device = device    # where real bytes are digested
         self.net = net
         self.redirectors = redirectors
         self.drain_rate = drain_rate_bytes_per_sec
@@ -54,7 +55,8 @@ class WritebackCache:
               data: Union[bytes, int]) -> Tuple[ObjectMeta, TransferStats]:
         """Write an object into the cache; ack as soon as it is resident."""
         if isinstance(data, (bytes, bytearray)):
-            meta, payloads = chunk_object(path, bytes(data))
+            meta, payloads = chunk_object(path, bytes(data),
+                                          device=self.device)
         else:
             meta, payloads = synthetic_object(path, int(data))
         stats = TransferStats(method="writeback")

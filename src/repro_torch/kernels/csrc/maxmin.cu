@@ -73,7 +73,7 @@
 // flow caps and fs 8 Fp B and a state byte a flow (rounded up to 4 B); and
 // room for Fp x width list entries of 2 B (4 B when Fp > 65536).  Storm
 // H's peak bucket (Fp 512, Lp 512, width 8) needs 51,848 B, sweep I's (Fp
-// 8192, Lp 32, width 8) 209,416 B.  Three designs by that size:
+// 8192, Lp 32, width 8) 209,416 B.  Four designs by that size:
 //   `smem`, everything in shared memory, where it fits;
 //   `global`, the lists in a workspace in device memory (Fp x width
 //   entries a problem, the wrapper's), read through L1 and L2, everything
@@ -83,11 +83,13 @@
 //   atomicMin in device memory, state bytes), the link state and build
 //   counters alone in shared memory: a sweep cell of more than 16,384
 //   storm flows (Fp 32768: 294,912 B of flow state) and every bucket of
-//   more than 65,536 flows.
-// A bucket whose link state alone exceeds the card's 227 KB (16 B a link
-// once Lp >= 8192: Lp 16384) is refused before the launch, and the wrapper
-// names that limit.  The arithmetic and its order are the same in all
-// three designs, so a problem gets the same bits in each.
+//   more than 65,536 flows;
+//   `global_links`, the link state and build counters there too (16 B a
+//   link once Lp >= 8192, so over 227 KB from Lp 16384: 8,192 links or
+//   more in one bucket), the 33 words of reductions alone in shared
+//   memory.
+// The arithmetic and its order are the same in all four designs, so a
+// problem gets the same bits in each.
 //
 // What bounds it: the rounds' chain of barriers and reductions (a problem
 // takes 1-20 rounds), not bytes: H's peak problem is 34 KB of input.
@@ -108,7 +110,7 @@ constexpr int BUILD_TILES = 8;        // tiles of ids a warp loads at once
 
 constexpr int SHORT_LIST = 32;       // flows a list has for one thread
 // where the flow state and the lists live (maxmin_design's codes)
-constexpr int kSmem = 0, kGlobal = 1, kGlobalFlows = 2, kRefused = -1;
+constexpr int kSmem = 0, kGlobal = 1, kGlobalFlows = 2, kGlobalLinks = 3;
 
 __device__ __forceinline__ float inf_f() { return __uint_as_float(INF_BITS); }
 
@@ -136,18 +138,27 @@ waterfill(const float* __restrict__ link_caps,
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int dummy = lp - 1;
 
-  float* cap_left = reinterpret_cast<float*>(smem);       // lp
+  // this problem's part of the workspace; the link state lies in shared
+  // memory, or at the workspace's start (global_links)
+  unsigned char* work_b = kDesign == kSmem ? nullptr
+                                            : work + b * work_stride;
+  unsigned char* link_base = kDesign == kGlobalLinks ? work_b : smem;
+  float* cap_left = reinterpret_cast<float*>(link_base);  // lp
   float* share = cap_left + lp;                            // lp
   int* off = reinterpret_cast<int*>(share + lp);           // lp + 1
   int* cnt = off + lp + 1;                                 // build_warps*lp
-  unsigned* red = reinterpret_cast<unsigned*>(cnt + build_warps * lp);
-  // 32 warps' minima and a count; then the flow state and the lists: in
-  // shared memory (design smem), the lists in this problem's part of the
-  // workspace (global), or both there (global_flows)
-  unsigned char* work_b = kDesign == kSmem ? nullptr
-                                            : work + b * work_stride;
-  unsigned char* flows = kDesign == kGlobalFlows
-      ? work_b : reinterpret_cast<unsigned char*>(red + 33);
+  // 32 warps' minima and a count, always in shared memory; then the flow
+  // state and the lists: in shared memory (design smem), the lists in the
+  // workspace (global), or both there (global_flows, global_links: after
+  // the link state, at a 16-byte boundary)
+  unsigned* red = kDesign == kGlobalLinks
+      ? reinterpret_cast<unsigned*>(smem)
+      : reinterpret_cast<unsigned*>(cnt + build_warps * lp);
+  const long long link_state =
+      (4 * (3LL * lp + 1 + (long long)build_warps * lp) + 15) & ~15LL;
+  unsigned char* flows = kDesign == kGlobalFlows ? work_b
+      : kDesign == kGlobalLinks ? work_b + link_state
+      : reinterpret_cast<unsigned char*>(red + 33);
   float* fcap = reinterpret_cast<float*>(flows);           // fp
   unsigned* fs = reinterpret_cast<unsigned*>(fcap + fp);   // fp
   unsigned char* state = reinterpret_cast<unsigned char*>(fs + fp);  // fp
@@ -394,13 +405,18 @@ waterfill(const float* __restrict__ link_caps,
 }
 
 constexpr size_t BLOCK_SMEM = 232448;  // what a block may have on Hopper
+constexpr size_t RED_BYTES = 4 * 33;   // the reductions' words
 
 size_t index_bytes(int fp) { return fp <= 65536 ? 2 : 4; }
+size_t round16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-// Shared memory of the link state, build counters and reductions; of the
-// flow state; of the lists.
+// Bytes of the link state and build counters; of those and the
+// reductions; of the flow state; of the lists.
+size_t link_state_bytes(int lp, int build_warps) {
+  return 4 * (3 * (size_t)lp + 1 + (size_t)build_warps * lp);
+}
 size_t link_bytes(int lp, int build_warps) {
-  return 4 * (3 * (size_t)lp + 1 + (size_t)build_warps * lp + 33);
+  return link_state_bytes(lp, build_warps) + RED_BYTES;
 }
 size_t flow_bytes(int fp) {
   return 8 * (size_t)fp + (((size_t)fp + 3) & ~(size_t)3);
@@ -415,25 +431,26 @@ int design_for(int fp, int lp, int width, int build_warps) {
     return kSmem;
   if (links + flow_bytes(fp) <= BLOCK_SMEM) return kGlobal;
   if (links <= BLOCK_SMEM) return kGlobalFlows;
-  return kRefused;
+  return kGlobalLinks;
 }
 
-// What a design keeps in shared memory (the link state alone when it is
-// refused), and in the workspace a problem.
+// What a design keeps in shared memory, and in the workspace a problem.
 size_t smem_bytes(int design, int fp, int lp, int width, int build_warps) {
   const size_t links = link_bytes(lp, build_warps);
   switch (design) {
     case kSmem: return links + flow_bytes(fp) + list_bytes(fp, width);
     case kGlobal: return links + flow_bytes(fp);
-    default: return links;
+    case kGlobalFlows: return links;
+    default: return RED_BYTES;
   }
 }
-size_t work_bytes(int design, int fp, int width) {
-  const size_t round16 = ~(size_t)15;
+size_t work_bytes(int design, int fp, int lp, int width, int build_warps) {
   switch (design) {
-    case kGlobal: return (list_bytes(fp, width) + 15) & round16;
-    case kGlobalFlows:
-      return (flow_bytes(fp) + list_bytes(fp, width) + 15) & round16;
+    case kGlobal: return round16(list_bytes(fp, width));
+    case kGlobalFlows: return round16(flow_bytes(fp) + list_bytes(fp, width));
+    case kGlobalLinks:
+      return round16(link_state_bytes(lp, build_warps)) +
+             round16(flow_bytes(fp) + list_bytes(fp, width));
     default: return 0;
   }
 }
@@ -488,14 +505,12 @@ const char* maxmin_error_string(int err) {
 
 // The design for an (Fp, Lp, width) bucket: 0 smem, 1 global (the lists
 // in a workspace of maxmin_work_bytes a problem), 2 global_flows (the
-// flow state there too), -1 refused (the link state alone is over a
-// block's shared memory).
+// flow state there too), 3 global_links (the link state too).
 int maxmin_design(int fp, int lp, int width) {
   return design_for(fp, lp, width, build_warps_for(fp, lp));
 }
 
-// Dynamic shared memory a block of the bucket's design needs (for a
-// refused bucket, what its link state alone would need).
+// Dynamic shared memory a block of the bucket's design needs.
 long long maxmin_smem_bytes(int fp, int lp, int width) {
   const int bw = build_warps_for(fp, lp);
   return (long long)smem_bytes(design_for(fp, lp, width, bw), fp, lp, width,
@@ -503,34 +518,40 @@ long long maxmin_smem_bytes(int fp, int lp, int width) {
 }
 
 long long maxmin_work_bytes(int fp, int lp, int width) {
-  return (long long)work_bytes(maxmin_design(fp, lp, width), fp, width);
+  const int bw = build_warps_for(fp, lp);
+  return (long long)work_bytes(design_for(fp, lp, width, bw), fp, lp, width,
+                               bw);
 }
 
 int maxmin_threads(int fp) { return threads_for(fp); }
 
 // link_caps (B x lp) f32, flow_caps (B x fp) f32, link_ids (B x fp x width)
 // int32 → out (B x (fp + 1)) f32: each problem's rates, then its round
-// count.  work: B x maxmin_work_bytes for the designs global and
-// global_flows, else null.
+// count.  work: B x maxmin_work_bytes for the designs other than smem,
+// else null.
 int maxmin_waterfill(const float* link_caps, const float* flow_caps,
                      const int* link_ids, int batch, int fp, int lp,
                      int width, void* work, float* out, void* stream) {
   const int threads = threads_for(fp);
   const int bw = build_warps_for(fp, lp);
   const int design = design_for(fp, lp, width, bw);
-  if (design == kRefused) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(design, fp, lp, width, bw);
-  const long long stride = (long long)work_bytes(design, fp, width);
+  const long long stride =
+      (long long)work_bytes(design, fp, lp, width, bw);
   if (stride && !work)
     return cudaErrorInvalidValue;     // the design needs its workspace
   unsigned char* ws = stride ? static_cast<unsigned char*>(work) : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Fp > 65536 (4-byte list entries): over 589,824 B of flow state, so
-  // always global_flows
+  // global_flows or global_links
   if (fp > 65536)
-    return launch<int, kGlobalFlows>(link_caps, flow_caps, link_ids, batch,
-                                     fp, lp, width, bw, threads, smem, ws,
-                                     stride, out, s);
+    return design == kGlobalLinks
+        ? launch<int, kGlobalLinks>(link_caps, flow_caps, link_ids, batch,
+                                    fp, lp, width, bw, threads, smem, ws,
+                                    stride, out, s)
+        : launch<int, kGlobalFlows>(link_caps, flow_caps, link_ids, batch,
+                                    fp, lp, width, bw, threads, smem, ws,
+                                    stride, out, s);
   switch (design) {
     case kSmem:
       return launch<uint16_t, kSmem>(link_caps, flow_caps, link_ids, batch,
@@ -540,8 +561,13 @@ int maxmin_waterfill(const float* link_caps, const float* flow_caps,
       return launch<uint16_t, kGlobal>(link_caps, flow_caps, link_ids,
                                        batch, fp, lp, width, bw, threads,
                                        smem, ws, stride, out, s);
-    default:
+    case kGlobalFlows:
       return launch<uint16_t, kGlobalFlows>(link_caps, flow_caps, link_ids,
+                                            batch, fp, lp, width, bw,
+                                            threads, smem, ws, stride, out,
+                                            s);
+    default:
+      return launch<uint16_t, kGlobalLinks>(link_caps, flow_caps, link_ids,
                                             batch, fp, lp, width, bw,
                                             threads, smem, ws, stride, out,
                                             s);

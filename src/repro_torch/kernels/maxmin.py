@@ -205,8 +205,7 @@ LIB = CudaLibrary("maxmin", {
     "maxmin_threads": ([_ci], _ci)})
 
 
-BLOCK_SMEM = 232448          # the shared memory a block may have on Hopper
-DESIGNS = {0: "smem", 1: "global", 2: "global_flows", -1: "refused"}
+DESIGNS = {0: "smem", 1: "global", 2: "global_flows", 3: "global_links"}
 
 
 class WaterfillKernel:
@@ -215,18 +214,17 @@ class WaterfillKernel:
     once per launch that the card accepted; ``launches_by_design`` counts
     them by where the per-link flow lists and the flow state live:
     ``smem`` (both in shared memory, where they fit), ``global`` (the
-    lists in a workspace in device memory that the wrapper allocates) or
+    lists in a workspace in device memory that the wrapper allocates),
     ``global_flows`` (the flow state there too; the link state alone in
-    shared memory)."""
+    shared memory) or ``global_links`` (the link state there too; the
+    reductions alone in shared memory)."""
 
     def __init__(self) -> None:
         self.launches = 0
-        self.launches_by_design = {"smem": 0, "global": 0,
-                                   "global_flows": 0}
+        self.launches_by_design = dict.fromkeys(DESIGNS.values(), 0)
 
     def design(self, Fp: int, Lp: int, width: int) -> str:
-        """The bucket's design, or ``refused`` when its link state alone
-        exceeds a block's shared memory."""
+        """The bucket's design."""
         return DESIGNS[LIB.load().maxmin_design(Fp, Lp, width)]
 
     def smem_bytes(self, Fp: int, Lp: int, width: int) -> int:
@@ -240,8 +238,7 @@ class WaterfillKernel:
         """link_caps (B, Lp) float32, link_ids (B, Fp, width) int32,
         flow_caps (B, Fp) float32, on one CUDA device → (B, Fp + 1)
         float32: each problem's rates, then its round count.  Raises on
-        other inputs, on a bucket whose link state alone needs more shared
-        memory than a block has, and when the card refuses the launch."""
+        other inputs and when the card refuses the launch."""
         num, Fp, width = link_ids.shape
         Lp = link_caps.shape[1]
         dev = link_caps.device
@@ -260,11 +257,6 @@ class WaterfillKernel:
                                  f"on {t.device}")
         lib = LIB.load()
         design = self.design(Fp, Lp, width)
-        if design == "refused":
-            raise ValueError(
-                f"maxmin kernel: a bucket of Lp={Lp} links needs "
-                f"{self.smem_bytes(Fp, Lp, width)} B of link state in "
-                f"shared memory, over a block's {BLOCK_SMEM} B")
         out = torch.empty(num, Fp + 1, dtype=torch.float32, device=dev)
         work = None if design == "smem" else torch.empty(
             num * int(lib.maxmin_work_bytes(Fp, Lp, width)),

@@ -6,7 +6,9 @@ serve.  There is no fallback from one to the other.  The max-min solver
 (``maxmin_waterfill``) follows the same rule: the plain version is
 ``maxmin.plain_waterfill`` (torch ops), the kernel ``maxmin.WATERFILL``;
 so do the planner's two loops (``plan_solve``, ``mixture_fit``): the
-kernels ``cache_model.PLAN_SOLVE`` and ``cache_model.MIXTURE_FIT``.
+kernels ``cache_model.PLAN_SOLVE`` and ``cache_model.MIXTURE_FIT``; and
+the chunks' FNV-1a digests (``fnv1a64_chunks``): ``fnv1a.KERNEL``, whose
+plain version is the reference's host loop.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from . import ref
 from . import stack_distance as _sd
 from .chunk_checksum import chunk_checksum as _checksum_kernel
 from .chunk_checksum import chunk_checksums as _checksums_kernel
+from .fnv1a import KERNEL as _fnv1a_kernel
 from .flash_attention import KERNEL as _flash_kernel
 from .ssd_scan import KERNEL as _ssd_kernel
 
@@ -60,6 +63,16 @@ def chunk_checksums(buffers, block: int = 1024, *,
             t.reshape(-1).view(torch.uint8) if as_bytes else t, block)[0]
             for t in buffers])
     return _checksums_kernel(buffers, block, as_bytes=as_bytes)
+
+
+def fnv1a64_chunks(buf: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """The FNV-1a-64 digest of each ``chunk_size`` piece of one object's
+    bytes (a 1-D uint8 tensor; the last piece shorter, an empty object one
+    piece), as int64 (n_chunks,) holding the uint64 bits: on the card, one
+    launch for the whole object."""
+    if buf.device.type == "cpu":
+        return ref.fnv1a64_chunks_ref(buf, chunk_size)
+    return _fnv1a_kernel(buf, chunk_size)
 
 
 def maxmin_waterfill(link_caps: torch.Tensor, link_ids: torch.Tensor,

@@ -12,6 +12,10 @@ import torch
 FNV_PRIME = 0x01000193
 _MASK32 = 0xFFFFFFFF
 
+FNV64_OFFSET = 0xCBF29CE484222325
+FNV64_PRIME = 0x100000001B3
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
@@ -100,6 +104,28 @@ def fold_digests(digests: torch.Tensor) -> torch.Tensor:
     d = digests.reshape(-1).view(torch.int32).to(torch.int64) & _MASK32
     total = _mulmod32(d, _powers(d.numel(), d.device)).sum() & _MASK32
     return _as_uint32(total)
+
+
+def fnv1a64(data: bytes, seed: int = FNV64_OFFSET) -> int:
+    """64-bit FNV-1a over ``data`` on the host, the reference's own loop:
+    the federation's placement keys, and the plain version of the
+    ``fnv1a64_chunks`` kernel."""
+    h = seed
+    for b in data:
+        h = ((h ^ b) * FNV64_PRIME) & _MASK64
+    return h
+
+
+def fnv1a64_chunks_ref(buf: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """FNV-1a-64 of each ``chunk_size`` piece of a uint8 buffer (the last
+    shorter; an empty buffer is one chunk) by :func:`fnv1a64` over Python
+    ints: no torch op wraps uint64 products.  Returns int64 (n_chunks,)
+    holding the uint64 bits."""
+    data = buf.reshape(-1).numpy().tobytes()
+    digests = [fnv1a64(data[off:off + chunk_size])
+               for off in range(0, max(len(data), 1), chunk_size)]
+    return torch.tensor([d - (1 << 64) if d >> 63 else d for d in digests],
+                        dtype=torch.int64)
 
 
 def err_over_tolerance(got: torch.Tensor, want: torch.Tensor,

@@ -1,9 +1,9 @@
 """Decoder LMs: the dense (attention), MoE and SSM families, with decode
 caches."""
-from .convert import param_checksums, params_from_jax
+from .convert import jax_layout, param_checksums, params_from_jax
 from .model import (decode_step, forward, forward_with_cache,
                     init_decode_cache, init_lm)
 
 __all__ = ["decode_step", "forward", "forward_with_cache",
-           "init_decode_cache", "init_lm", "param_checksums",
+           "init_decode_cache", "init_lm", "jax_layout", "param_checksums",
            "params_from_jax"]

@@ -1,9 +1,11 @@
-"""Reference weights into the port's parameter layout.
+"""The reference's parameter layout into the port's, and back.
 
 The reference keeps per-pattern-position parameters stacked over groups
 (``params["blocks"][pos]`` leaves have a leading ``num_groups`` axis); the
 port keeps one dictionary per layer in execution order, layer
-``g * len(pattern) + pos``.
+``g * len(pattern) + pos``.  ``params_from_jax`` reads the reference's
+layout (numpy or tensor leaves), ``jax_layout`` writes it (tensor
+leaves): what a checkpoint of the reference's holds.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from .model import layer_specs, torch_dtype
 FLOAT32_LEAVES = ssm.FLOAT32_LEAVES | moe.FLOAT32_LEAVES
 
 
-def _to_tensor(arr: np.ndarray, dtype: torch.dtype,
+def _to_tensor(arr, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, dtype=dtype)
     arr = np.array(arr)                  # a writable, contiguous copy
     if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16, by name
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -46,7 +50,8 @@ def _map(tree, fn, name=""):
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device=None) -> Dict[str, Any]:
     """``tree``: the reference's ``init_lm`` parameters with numpy leaves
-    (float32 or ``ml_dtypes.bfloat16``).  Returns the port's parameters
+    (float32 or ``ml_dtypes.bfloat16``) or tensor leaves (a restored
+    checkpoint's, ``jax_layout``'s).  Returns the port's parameters
     on ``device`` in the dtypes the reference gives them: the config's
     dtype, except the SSM leaves and the MoE router it keeps in
     float32."""
@@ -69,6 +74,26 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
     return {"embed": _map(tree["embed"], convert),
             "final_norm": convert("final_norm", tree["final_norm"]),
             "blocks": blocks}
+
+
+def jax_layout(params: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the port's parameters as the
+    reference's tree, ``blocks`` a tuple over pattern positions whose
+    leaves stack that position's layers over groups (a leading
+    ``num_groups`` axis), each leaf in its dtype on its device."""
+    pattern_len = len(cfg.pattern())
+    blocks = params["blocks"]
+    if len(blocks) % pattern_len:
+        raise ValueError(f"{len(blocks)} layers, not whole groups of "
+                         f"{pattern_len}")
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "blocks": tuple(stack(blocks[pos::pattern_len])
+                            for pos in range(pattern_len))}
 
 
 def param_checksums(params: Dict[str, Any], block: int = 1024

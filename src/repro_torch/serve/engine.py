@@ -10,22 +10,28 @@ The reference's engine, on PyTorch:
     reference's does); decode advances every slot one token per step
     with :func:`decode_step`;
   * ``EngineStats`` counts as the reference does: one prefill per slot
-    of a wave, pad slots included.
-
-The engine takes its weights directly; weight delivery through the
-federation's data plane is not ported yet.
+    of a wave, pad slots included;
+  * model weights are *distributed to serving hosts through the
+    federation's data plane* (:meth:`ServeEngine.from_federation`, weight
+    shards via :meth:`ServeEngine.fetch_shard`): a checkpoint in the
+    reference's layout, restored through the nearest cache onto the
+    engine's device.  Every fetch folds into ``engine.data_stats`` (the
+    unified :class:`~repro_torch.core.monitoring.FetchRollup`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..core.api import DataPlane, FetchRequest, FetchResult
+from ..core.monitoring import FetchRollup
 from ..device import resolve_device
-from ..models import decode_step, forward_with_cache
+from ..models import (decode_step, forward_with_cache, init_lm, jax_layout,
+                      params_from_jax)
 
 
 @dataclasses.dataclass
@@ -50,7 +56,8 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params, batch_size: int = 4,
                  max_seq: int = 256, greedy: bool = True, seed: int = 0,
-                 device=None) -> None:
+                 plane: Optional[DataPlane] = None, site: str = "",
+                 worker: int = 0, device=None) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -59,6 +66,53 @@ class ServeEngine:
         self.greedy = greedy
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = EngineStats()
+        self.plane = plane
+        self.site = site
+        self.worker = worker
+        self.data_stats = FetchRollup("serve")
+
+    # -- federation weight path ----------------------------------------
+    @classmethod
+    def from_federation(cls, cfg: ArchConfig, plane: DataPlane, run: str,
+                        step: Optional[int] = None, *, site: str = "",
+                        worker: int = 0, like=None, device=None,
+                        **engine_kw) -> "ServeEngine":
+        """Build an engine whose weights arrive through the data plane:
+        restore the newest (or given) checkpoint of ``run`` (the
+        reference's layout, ``models.jax_layout``) via the federation's
+        cache tier onto ``device`` (``None`` means ``cuda``) and account
+        the fetches on ``engine.data_stats``.  ``like`` is the parameter
+        template in the port's layout; omitted, a fresh
+        :func:`~repro_torch.models.init_lm` tree seeded by the engine's
+        own ``seed`` is used."""
+        from ..train.checkpoint import FederatedCheckpointer
+        dev = resolve_device(device)
+        ck = FederatedCheckpointer(run, plane, site=site, worker=worker)
+        if step is None:
+            step = ck.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint for run {run!r}")
+        if like is None:
+            # the template tracks the engine's own seed, as the
+            # reference's does
+            like = init_lm(cfg, seed=engine_kw.get("seed", 0), device=dev)
+        tree, _ = ck.restore(step, like=jax_layout(like, cfg), device=dev)
+        eng = cls(cfg, params_from_jax(tree, cfg, device=dev), plane=plane,
+                  site=site, worker=worker, device=dev, **engine_kw)
+        eng.data_stats.merge(ck.stats)
+        return eng
+
+    def fetch_shard(self, path: str, method: str = "stash") -> FetchResult:
+        """Pull one weight/KV shard object through the data plane (the
+        serving-traffic read path — Zipf-popular shard objects under
+        ``/models/<name>``)."""
+        if self.plane is None:
+            raise RuntimeError("engine was built without a data plane")
+        res = self.plane.fetch(FetchRequest(
+            path=path, site=self.site, worker=self.worker, method=method,
+            tenant="serving"))
+        self.data_stats.add(res)
+        return res
 
     def _prefill_batch(self, prompts: np.ndarray):
         """prompts: (B, P) — one shared prompt length per wave."""

@@ -47,7 +47,8 @@ def test_fnv1a64_and_chunking_equal(ref, n):
     assert T.fnv1a64(data) == ref.fnv1a64(data)
     assert T.fnv1a64(data, seed=12345) == ref.fnv1a64(data, seed=12345)
     for chunk in (1000, 4096, T.DEFAULT_CHUNK_SIZE):
-        meta, payloads = T.chunk_object("/d/f", data, chunk_size=chunk)
+        meta, payloads = T.chunk_object("/d/f", data, chunk_size=chunk,
+                                        device="cpu")
         want_meta, want_payloads = ref.chunk_object("/d/f", data,
                                                     chunk_size=chunk)
         assert dataclasses.asdict(meta) == dataclasses.asdict(want_meta)
@@ -145,7 +146,9 @@ def test_eviction_sequence_equal(ref, policy):
 
 def test_writeback_queue_equal(ref):
     def run(core):
-        fed = core.FederationSpec.osg().build()
+        # the port digests real bytes on the federation's device
+        fed = core.FederationSpec.osg().build(
+            **({"device": "cpu"} if core is T else {}))
         wb = fed.writeback("nebraska/cache", drain_rate=5e7)
         wb.max_inflight = 2
         node = fed.client("nebraska", 0).node.name

@@ -42,6 +42,19 @@ def test_port_file_imports_neither_jax_nor_repro(path):
     assert forbidden_imports(path.read_text(), str(path)) == []
 
 
+@pytest.mark.parametrize("module", [
+    "train/__init__.py", "train/checkpoint.py", "launch/__init__.py",
+    "launch/serve.py", "configs/qwen2_7b.py", "kernels/fnv1a.py"])
+def test_the_walk_covers_the_weight_leg(module):
+    """The weight leg's modules are among the files walked, and import."""
+    import importlib
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in port_files()
+    name = "repro_torch." + module.removesuffix(".py").replace("/", ".") \
+        .removesuffix(".__init__")
+    importlib.import_module(name)
+
+
 def test_the_walk_finds_what_it_must():
     assert len(port_files()) > 40
     sim = (ROOT / "src" / "repro" / "core" / "simulator.py").read_text()

@@ -146,3 +146,105 @@ def test_entry_points_default_to_cuda(weights, monkeypatch):
         init_decode_cache(cfg, 1, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The weight leg: weights through the federation (``from_federation``,
+# ``fetch_shard``), as the reference's ``tests/test_train_traffic.py``
+# serves qwen2-7b's smoke model from a one-pod fleet of 4 hosts
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def qwen_weights():
+    return _weights("qwen2-7b")
+
+
+def _published(jcfg, cfg, jp, p, run="srv"):
+    """The reference's and the port's fleets, each holding step 0 of
+    ``run`` saved by worker 0 (the port's in the reference's layout,
+    its bytes digested on the CPU)."""
+    import repro.core as RC
+    from repro.train import FederatedCheckpointer as JaxCheckpointer
+
+    import repro_torch.core as TC
+    from repro_torch.models import jax_layout
+    from repro_torch.train import FederatedCheckpointer
+    ref_plane = RC.AnalyticPlane(RC.build_fleet_federation(
+        num_pods=1, hosts_per_pod=4))
+    plane = TC.AnalyticPlane(TC.build_fleet_federation(
+        num_pods=1, hosts_per_pod=4, device="cpu"))
+    JaxCheckpointer(run, ref_plane, site="pod0", worker=0).save(0, jp)
+    FederatedCheckpointer(run, plane, site="pod0", worker=0).save(
+        0, jax_layout(p, cfg))
+    return ref_plane, plane
+
+
+def test_from_federation_serves_the_references_tokens(qwen_weights):
+    jcfg, cfg, jp, p = qwen_weights
+    ref_plane, plane = _published(jcfg, cfg, jp, p)
+    ref = JaxServeEngine.from_federation(jcfg, ref_plane, "srv", step=0,
+                                         site="pod0", worker=1, like=jp,
+                                         batch_size=2, max_seq=48)
+    port = ServeEngine.from_federation(cfg, plane, "srv", site="pod0",
+                                       worker=1, like=p, device="cpu",
+                                       batch_size=2, max_seq=48)
+    assert port.data_stats.fetches > 0
+    assert dataclasses.asdict(port.data_stats) == \
+        dataclasses.asdict(ref.data_stats)
+    assert port.device.type == "cpu" and port.plane is plane
+    for name, t in port.params["blocks"][1]["mixer"].items():
+        assert torch.equal(t, p["blocks"][1]["mixer"][name]), name
+    ref_out = ref.generate(_requests(JaxRequest, (-1, -1, -1), 256))
+    port_out = port.generate(_requests(Request, (-1, -1, -1), 256))
+    assert [r.output for r in port_out] == [r.output for r in ref_out]
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+
+
+def test_from_federation_template_and_missing_run(qwen_weights):
+    """Without ``like`` the template is ``init_lm`` at the engine's seed:
+    only its structure counts, so the restored weights are the saved
+    ones; a run with no checkpoint raises."""
+    jcfg, cfg, jp, p = qwen_weights
+    _, plane = _published(jcfg, cfg, jp, p)
+    eng = ServeEngine.from_federation(cfg, plane, "srv", site="pod0",
+                                      worker=3, device="cpu", seed=5)
+    assert torch.equal(eng.params["embed"]["head"], p["embed"]["head"])
+    assert torch.equal(eng.params["blocks"][0]["ffn"]["w2"],
+                       p["blocks"][0]["ffn"]["w2"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        ServeEngine.from_federation(cfg, plane, "other", site="pod0",
+                                    device="cpu")
+
+
+def test_fetch_shard_folds_into_data_stats(qwen_weights):
+    jcfg, cfg, jp, p = qwen_weights
+    ref_plane, plane = _published(jcfg, cfg, jp, p)
+    path = "/ckpt/srv/step_00000000/manifest.json"
+    ref = JaxServeEngine(jcfg, jp, batch_size=1, max_seq=64,
+                         plane=ref_plane, site="pod0", worker=2)
+    port = ServeEngine(cfg, p, batch_size=1, max_seq=64, plane=plane,
+                       site="pod0", worker=2, device="cpu")
+    want = ref.fetch_shard(path, method="cvmfs")
+    got = port.fetch_shard(path, method="cvmfs")
+    assert got.ok and got.bytes == want.bytes > 0
+    assert port.data_stats.fetches == 1
+    assert port.data_stats.by_method.get("cvmfs")
+    assert dataclasses.asdict(port.data_stats) == \
+        dataclasses.asdict(ref.data_stats)
+    with pytest.raises(RuntimeError, match="without a data plane"):
+        ServeEngine(cfg, p, device="cpu").fetch_shard(path)
+
+
+def test_launcher_prints_the_references_lines(capsys):
+    """``python -m repro_torch.launch.serve --device cpu`` against the
+    reference's launcher at its defaults: both lines, character for
+    character."""
+    from repro.launch.serve import main as jax_main
+
+    from repro_torch.launch.serve import main
+    assert jax_main([]) == 0
+    want = capsys.readouterr().out
+    assert main(["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert got.startswith("weights via federation: ") and \
+        got.count("\n") == 2

@@ -19,7 +19,10 @@ launches to the same bits, a bucket whose lists do not fit a block's
 shared memory (the design that keeps them in device memory) likewise,
 buckets whose flow state does not fit either (Fp 32768 and 131072: the
 design that keeps it in device memory too) to the plain version's bits,
-and a bucket whose link state alone does not fit to an error.
+and buckets whose link state alone does not fit (Lp 16384 and 32768: the
+design that keeps that in device memory too) likewise.  On the CPU, the
+plain version at those link counts is held to the reference's
+``maxmin_rates_batch``.
 """
 import dataclasses
 
@@ -29,7 +32,8 @@ import torch
 
 from repro_torch.kernels import batched_maxmin, maxmin, ops
 from repro_torch.kernels.ref import maxmin_ref
-from test_torch_maxmin import N_PROBLEMS, dense, padded, random_problem
+from test_torch_maxmin import (JAX_RTOL, N_PROBLEMS, dense, padded,
+                              random_problem)
 
 MODEL_RTOL = 1e-6
 REF_RTOL, REF_ATOL = 2e-3, 1e3
@@ -338,21 +342,68 @@ def test_solve_on_card_is_one_launch_and_one_read(card):
     assert run.rounds == model_waterfill(*padded(caps, rows, fcaps))[1]
 
 
+# buckets whose link state alone exceeds a block's shared memory:
+# (flows, links, most links a flow) padded to (Fp 64, Lp 16384, width 4)
+# and (Fp 1024, Lp 32768, width 8)
+LINK_BUCKETS = {"Fp 64 Lp 16384": (60, 9000, 4),
+                "Fp 1024 Lp 32768": (1000, 20000, 8)}
+
+
+def wide_problem(bucket: str, seed: int = 0):
+    """Seeded uniform-random flows over thousands of links: each flow
+    crosses 1 to its bucket's width of them."""
+    n_flows, n_links, most = LINK_BUCKETS[bucket]
+    rng = np.random.default_rng(seed)
+    caps = rng.uniform(1e8, 1e10, n_links)
+    rows = [[int(x) for x in rng.choice(
+        n_links, int(rng.integers(1, most + 1)), replace=False)]
+        for _ in range(n_flows)]
+    return caps, rows, rng.uniform(1e6, 1e9, n_flows)
+
+
+@pytest.fixture(scope="module")
+def ref_batched():
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    from repro.kernels import batched_maxmin as ref
+    return ref
+
+
+@pytest.mark.parametrize("bucket", list(LINK_BUCKETS))
+def test_plain_at_many_links_matches_reference(ref_batched, bucket):
+    """The plain version at Lp 16384 and 32768 against the reference's
+    batched solver, to ``test_torch_maxmin.py``'s port-vs-JAX tolerance."""
+    problems = [wide_problem(bucket, seed) for seed in range(2)]
+    stats = {}
+    got = batched_maxmin.maxmin_rates_batch(problems, stats=stats,
+                                            device="cpu")
+    want = ref_batched.maxmin_rates_batch(problems)
+    Fp, Lp, width = (int(x) for x in stats["buckets"][0][1:])
+    assert (f"Fp {Fp} Lp {Lp}", width) == (bucket, LINK_BUCKETS[bucket][2])
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g, w, rtol=JAX_RTOL, atol=0)
+
+
 @pytest.mark.gpu
-def test_launch_refused_for_shared_memory_raises(card):
-    """Lp 16384 needs 262,280 B of link state and build counters in shared
-    memory even with the flow state and lists in device memory: over a
-    block's 227 KB, refused before the launch with that limit named."""
-    Fp, Lp, width = 64, 16384, 4
-    assert maxmin.WATERFILL.design(Fp, Lp, width) == "refused"
-    assert maxmin.WATERFILL.smem_bytes(Fp, Lp, width) > maxmin.BLOCK_SMEM
-    caps = torch.full((1, Lp), 1e9, dtype=torch.float32, device=card)
-    ids = torch.zeros(1, Fp, width, dtype=torch.int32, device=card)
-    fcaps = torch.ones(1, Fp, dtype=torch.float32, device=card)
-    before = maxmin.WATERFILL.launches
-    with pytest.raises(ValueError, match="link state in shared memory"):
-        maxmin.WATERFILL(caps, ids, fcaps)
-    assert maxmin.WATERFILL.launches == before
+@pytest.mark.parametrize("bucket", list(LINK_BUCKETS))
+def test_link_state_in_device_memory_equals_plain_on_card(card, bucket):
+    """A bucket whose link state alone exceeds a block's shared memory runs
+    on the design global_links, its rates and round count equal to the
+    plain version's on the card bit for bit; two launches agree."""
+    arrays = padded(*wide_problem(bucket))
+    Lp = arrays[0].shape[0]
+    Fp, width = arrays[1].shape
+    assert f"Fp {Fp} Lp {Lp}" == bucket
+    assert maxmin.WATERFILL.design(Fp, Lp, width) == "global_links"
+    args = [torch.from_numpy(a[None]).to(card) for a in arrays]
+    before = dict(maxmin.WATERFILL.launches_by_design)
+    got = ops.maxmin_waterfill(*args)
+    again = ops.maxmin_waterfill(*args)
+    assert maxmin.WATERFILL.launches_by_design["global_links"] == \
+        before["global_links"] + 2
+    want = maxmin.plain_waterfill(*args)
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    assert torch.equal(got, again)
+    assert int(got[0, -1]) > 1
 
 
 def large_problem(seed: int, n_flows: int = 14000, n_links: int = 200):
