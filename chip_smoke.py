@@ -31,10 +31,13 @@ any phase fails:
              tensor cores' 3xTF32 route);
              fnv1a64_chunks against the host ``fnv1a64`` bit for bit (an
              object of two 24 MiB chunks and a tail of 24 MiB - 1 B, an
-             unaligned 7 B object, the empty object), with a flipped-byte
-             control that must fail ``Payload.verify``; ms a chunk, ns a
-             byte, the host loop's ms and the bound (the chain's two
-             dependent operations a byte at the top SM clock);
+             unaligned 7 B object, the empty object, the kernel's segment
+             length L - 1, L and L + 1 bytes, chunks of L + 1, 1,000
+             segments unaligned, chunks of 70 segments), each call counted
+             on its design (short, split), with flipped-byte controls
+             (mid-chunk, a segment's first and last byte) that must fail
+             ``Payload.verify``; ms a chunk, ns a byte, the host loop's ms
+             and the bound (the chunk's bytes read once);
 3. serve   — gemma2-2b: a small model on the card against the same model
              on the CPU, then full width (random weights from seed 0) in
              engines A (short prompts, batch 4) and B (one 4352-token
@@ -70,7 +73,10 @@ any phase fails:
              bit-exact, no checksum failure, stored bytes the ``.npy``
              sizes and the manifest, a corrupted cached chunk caught and
              refetched, engine C's tokens equal to the in-memory
-             engine's; save, drain, restore and digest times;
+             engine's; save, drain, restore and digest times, the
+             digests' designs, and one verified 24 MiB read split into
+             the host copy, the copy to the card, the kernel and the
+             read back;
              qwen2-7b: a small model card-vs-CPU check, then full width
              (28 layers, 15.4 GB of random bf16 weights) in engine A's
              shape, every flash launch on ``wgmma`` at hd 128;
@@ -1188,7 +1194,6 @@ def phase_serve_mixtral(card: str, checked: dict):
 # The chunks' digests, the weight leg through the federation, qwen2-7b
 # ---------------------------------------------------------------------------
 MiB = 2 ** 20
-FNV_OPS_PER_BYTE = 2      # h <- (h ^ b) * P: the low word's xor and multiply
 
 
 def _fnv_buffer(data: bytes, offset: int = 0):
@@ -1203,73 +1208,97 @@ def _fnv_buffer(data: bytes, offset: int = 0):
 def phase_fnv_kernel(card: str) -> dict:
     """``fnv1a64_chunks`` against the host ``fnv1a64`` bit for bit: an
     object of two whole 24 MiB chunks and a tail of 24 MiB - 1 B, an
-    unaligned 7 B object and the empty object.  Control: one byte flipped
-    in the middle chunk must change that chunk's digest alone, and a
-    payload of that chunk holding its kept digest must fail
-    ``Payload.verify`` on the card.  Times: a 24 MiB chunk's launch (CUDA
+    unaligned 7 B object, the empty object, objects of the kernel's own
+    segment length L - 1, L and L + 1 bytes, an object of 3 chunks of
+    L + 1, an unaligned object of 1,000 segments and 7 B, and one of 2
+    chunks of 70 segments + 3 and a last of L + 2.  Controls: a byte
+    flipped in the middle chunk, at a segment's first byte and at a
+    segment's last byte, must each change that chunk's digest alone, and
+    a payload of that chunk holding its kept digest must fail
+    ``Payload.verify`` on the card.  Times: a 24 MiB chunk's call (CUDA
     events), the three-chunk object's, the host loop over a chunk (host
-    clock); the bound is the function's chain over a chunk, two dependent
-    operations a byte (the xor into the low word, then the low word's
-    multiply: the high word never feeds back into the low one), at the
-    card's top SM clock."""
+    clock); the bound is the chunk's bytes read once at 3.35 TB/s."""
     import numpy as np
 
     from repro_torch.core.chunk import DEFAULT_CHUNK_SIZE as C
     from repro_torch.core.chunk import Payload, fnv1a64
     from repro_torch.kernels import fnv1a, ops
+    L = fnv1a.SEG
     rng = np.random.default_rng(0)
-    big = rng.integers(0, 256, 3 * C - 1, np.uint8).tobytes()
-    cases = {"3 chunks, the last 24 MiB - 1 B": (big, 0),
-             "7 B at offset 5": (rng.integers(0, 256, 7, np.uint8)
-                                 .tobytes(), 5),
-             "empty": (b"", 0)}
+
+    def data(n):
+        return rng.integers(0, 256, n, np.uint8).tobytes()
+    big = data(3 * C - 1)
+    cases = {"3 chunks, the last 24 MiB - 1 B": (big, 0, C),
+             "7 B at offset 5": (data(7), 5, C),
+             "empty": (b"", 0, C),
+             "L - 1 B": (data(L - 1), 0, C), "L B": (data(L), 0, C),
+             "L + 1 B": (data(L + 1), 0, C),
+             "3 chunks of L + 1": (data(3 * (L + 1)), 0, L + 1),
+             "1,000 segments + 7 B at offset 3": (data(1000 * L + 7), 3, C),
+             "2 chunks of 70 segments + 3, a last of L + 2, at offset 9": (
+                 data(2 * (70 * L + 3) + L + 2), 9, 70 * L + 3)}
+    before = dict(fnv1a.KERNEL.launches_by_design)
     host_s, digests = [], {}
-    for label, (data, offset) in cases.items():
+    for label, (raw, offset, chunk) in cases.items():
         want = []
-        for off in range(0, max(len(data), 1), C):
+        for off in range(0, max(len(raw), 1), chunk):
             t0 = time.perf_counter()
-            want.append(fnv1a64(data[off:off + C]))
-            host_s.append((time.perf_counter() - t0, len(data[off:off + C])))
-        got = fnv1a.unsigned(ops.fnv1a64_chunks(_fnv_buffer(data, offset), C))
+            want.append(fnv1a64(raw[off:off + chunk]))
+            if chunk == C:
+                host_s.append((time.perf_counter() - t0,
+                               len(raw[off:off + chunk])))
+        got = fnv1a.unsigned(ops.fnv1a64_chunks(_fnv_buffer(raw, offset),
+                                                chunk))
         if got != want:
             raise AssertionError(f"fnv1a64_chunks ({label}): {got} differs "
                                  f"from the host loop's {want}")
         digests[label] = got
+    designs = {k: v - before[k]
+               for k, v in fnv1a.KERNEL.launches_by_design.items()}
     if digests["empty"] != [0xCBF29CE484222325]:
         raise AssertionError("fnv1a64_chunks: the empty object's digest is "
                              "not the offset basis")
+    if designs != {"short": 4, "split": 5}:
+        raise AssertionError(f"fnv1a64_chunks: designs {designs}, not 4 "
+                             f"short and 5 split")
     buf = _fnv_buffer(big)
-    flip = C + C // 2
-    bad = buf.clone()
-    bad[flip] ^= 0x01
-    flipped = fnv1a.unsigned(ops.fnv1a64_chunks(bad, C))
     want = digests["3 chunks, the last 24 MiB - 1 B"]
-    changed = [i for i, (a, b) in enumerate(zip(flipped, want)) if a != b]
-    kept = Payload(size=C, data=bad[C:2 * C].cpu().numpy().tobytes(),
-                   digest=want[1])
-    if changed != [1] or kept.verify("cuda"):
-        raise AssertionError(f"fnv1a64_chunks control: flipped byte {flip} "
-                             f"changed chunks {changed}; verify of the kept "
-                             f"digest passed")
-    ms = time_ms(lambda: fnv1a.KERNEL(buf[:C], C), 3)
-    object_ms = time_ms(lambda: fnv1a.KERNEL(buf, C), 3)
+    flips = {"mid-chunk": C + C // 2, "a segment's first byte": C + 5 * L,
+             "a segment's last byte": C + 6 * L - 1}
+    for where, flip in flips.items():
+        bad = buf.clone()
+        bad[flip] ^= 0x01
+        flipped = fnv1a.unsigned(ops.fnv1a64_chunks(bad, C))
+        changed = [i for i, (a, b) in enumerate(zip(flipped, want))
+                   if a != b]
+        kept = Payload(size=C, data=bad[C:2 * C].cpu().numpy().tobytes(),
+                       digest=want[1])
+        if changed != [1] or kept.verify("cuda"):
+            raise AssertionError(f"fnv1a64_chunks control ({where}): "
+                                 f"flipped byte {flip} changed chunks "
+                                 f"{changed}; verify of the kept digest "
+                                 f"passed")
+    ms = time_ms(lambda: fnv1a.KERNEL(buf[:C], C), 20)
+    object_ms = time_ms(lambda: fnv1a.KERNEL(buf, C), 20)
     whole = [sec for sec, n in host_s if n == C]
     plain_ms = 1e3 * sum(whole) / len(whole)
-    clock_hz = _max_sm_clock_hz()
-    bound_ms = 1e3 * C * FNV_OPS_PER_BYTE / clock_hz
-    say(f"kernel fnv1a64_chunks: 3 chunks of one object (the last 24 MiB - "
-        f"1 B), 7 B at offset 5 and the empty object equal the host loop "
-        f"bit for bit; control: byte {flip} flipped changed chunk 1 alone "
-        f"and failed verify on the card; kernel {ms:.3f} ms a 24 MiB chunk "
-        f"(CUDA events, {1e6 * ms / C:.3f} ns a byte), the 3-chunk object "
-        f"{object_ms:.3f} ms in one launch; host loop {plain_ms:.1f} ms a "
-        f"chunk (host clock); chain bound {bound_ms:.3f} ms "
-        f"({FNV_OPS_PER_BYTE} dependent operations a byte at "
-        f"{clock_hz / 1e6:.0f} MHz)", card)
+    bound_ms = 1e3 * C / HBM_BYTES_PER_S
+    say(f"kernel fnv1a64_chunks: {len(cases)} objects equal the host loop "
+        f"bit for bit (3 chunks, the last 24 MiB - 1 B; 7 B at offset 5; "
+        f"empty; L - 1, L, L + 1 B at L = {L}; 3 chunks of L + 1; 1,000 "
+        f"segments + 7 B at offset 3; 2 chunks of 70 segments + 3 and L + 2 "
+        f"at offset 9), designs {designs}; controls: a byte flipped "
+        f"{', '.join(f'{k} ({v})' for k, v in flips.items())} changed "
+        f"chunk 1 alone and failed verify on the card; {ms:.4f} ms a 24 "
+        f"MiB chunk (CUDA events around 20 calls, {1e6 * ms / C:.5f} ns a "
+        f"byte, {bound_ms / ms:.4f} of the bytes bound {bound_ms:.5f} ms), "
+        f"the 3-chunk object {object_ms:.4f} ms in one call; host loop "
+        f"{plain_ms:.1f} ms a chunk (host clock)", card)
     return dict(max_abs_err=0, err_over_tol=0.0, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by="operations",
+                library_ms=None, bound_ms=bound_ms, bound_by="bytes",
                 object_ms=object_ms, ns_per_byte=1e6 * ms / C,
-                ops_per_byte=FNV_OPS_PER_BYTE, clock_mhz=clock_hz / 1e6)
+                designs=designs)
 
 
 class _DigestTimes:
@@ -1311,6 +1340,60 @@ def _npy_bytes(shape) -> int:
         "descr": np.lib.format.dtype_to_descr(np.dtype(np.float32)),
         "fortran_order": False, "shape": tuple(shape)})
     return buf.tell() + 4 * math.prod(shape)
+
+
+def _verified_read_split(payload, card: str, reps: int = 5) -> dict:
+    """One verified 24 MiB read (``Payload.verify`` on the card, as the
+    client calls it) whole and in its parts, as ``chunk_digests`` takes
+    them: the host copy of the bytes into a tensor, the copy to the card
+    (pageable, synchronised), the kernel (CUDA events) and the digest's
+    read back; host clock, the median of ``reps``."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fnv1a, ops
+    parts = {k: [] for k in ("verify", "host copy", "to the card",
+                             "kernel", "read back")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not payload.verify("cuda"):
+            raise AssertionError("weight leg: a cached chunk fails verify")
+        parts["verify"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        buf = torch.empty(len(payload.data), dtype=torch.uint8)
+        buf.numpy()[:] = np.frombuffer(payload.data, np.uint8)
+        t1 = time.perf_counter()
+        dev = buf.to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ops.fnv1a64_chunks(dev, max(payload.size, 1))
+        end.record()
+        t3 = time.perf_counter()
+        digest = fnv1a.unsigned(out)[0]
+        t4 = time.perf_counter()
+        if digest != payload.digest:
+            raise AssertionError("weight leg: the split read's digest "
+                                 "differs")
+        parts["host copy"].append(t1 - t0)
+        parts["to the card"].append(t2 - t1)
+        parts["kernel"].append(start.elapsed_time(end) / 1e3)
+        parts["read back"].append(t4 - t3)
+    ms = {k: 1e3 * statistics.median(v) for k, v in parts.items()}
+    say(f"weight leg, one verified read of {payload.size} B (median of "
+        f"{reps}, host clock; the kernel by CUDA events): verify "
+        f"{ms['verify']:.3f} ms = host copy into a tensor "
+        f"{ms['host copy']:.3f} + copy to the card {ms['to the card']:.3f}"
+        f" + kernel {ms['kernel']:.4f} + read back {ms['read back']:.3f} "
+        f"(the launch's host work and the wait inside it)", card)
+    return {"bytes": payload.size,
+            **{k.replace(" the", "").replace(" ", "_") + "_ms": v
+               for k, v in ms.items()}}
 
 
 def phase_weight_leg(card: str, checked: dict) -> dict:
@@ -1396,19 +1479,22 @@ def phase_weight_leg(card: str, checked: dict) -> dict:
            "64-1000)", engine, served, "ssd_intra", checked, card)
     kernels = _kernels()                     # ... and ends here
     launches = kernels["fnv1a64_chunks"].launches
+    designs = dict(kernels["fnv1a64_chunks"].launches_by_design)
     ssd = kernels["ssd_intra"].launches
-    if not ssd or launches != store_launches + drain_launches + \
-            restore_launches:
+    if not ssd or not designs["split"] or launches != store_launches + \
+            drain_launches + restore_launches:
         raise AssertionError(f"the weight leg launched fnv1a64_chunks "
                              f"{launches} times (save, drain and restore "
                              f"{store_launches}, {drain_launches}, "
-                             f"{restore_launches}) and ssd_intra {ssd}")
-    # control: the middle chunk of the largest object corrupted in the pod
-    # cache, then a fresh worker's restore
+                             f"{restore_launches}; by design {designs}) "
+                             f"and ssd_intra {ssd}")
     origin = plane.fed.origins[0]
     big = max(origin.list_objects(), key=lambda m: m.size)
-    bad = (big.path, big.num_chunks // 2)
     cache = plane.fed.caches["pod0/cache"]
+    read = _verified_read_split(cache._lru[(big.path, 0)], card)
+    # control: the middle chunk of the largest object corrupted in the pod
+    # cache, then a fresh worker's restore
+    bad = (big.path, big.num_chunks // 2)
     cache._lru[bad] = cache._lru[bad].corrupted()
     tree, again = FederatedCheckpointer("serve", plane, site="pod0",
                                         worker=2).restore(0, device="cuda")
@@ -1437,7 +1523,8 @@ def phase_weight_leg(card: str, checked: dict) -> dict:
         f"({store_ms:.1f} ms of kernel), drain {drain_launches} "
         f"({drain_ms:.1f} ms), restore {restore_launches} "
         f"({restore_ms:.1f} ms) (CUDA events); the leg's launches: "
-        f"fnv1a64_chunks {launches}, ssd_intra {ssd}; restore: {stats.fetches} "
+        f"fnv1a64_chunks {launches} ({designs}), ssd_intra {ssd}; restore: "
+        f"{stats.fetches} "
         f"fetches, {stats.chunks} chunks, hits {stats.cache_hits}, misses "
         f"{stats.cache_misses}; every leaf bit-exact, 0 checksum failures; "
         f"control: chunk {bad[1]} of {big.path} corrupted in the pod "
@@ -1447,6 +1534,7 @@ def phase_weight_leg(card: str, checked: dict) -> dict:
         f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
     return {"launches": launches, "ssd_launches": ssd,
+            "launches_by_design": designs, "verified_read": read,
             "stored_bytes": saved.bytes, "save_s": save_s,
             "drain_s": drain_s, "restore_s": restore_s,
             "digest_launches": {"save": store_launches,
@@ -3097,6 +3185,7 @@ def phase_planner(card: str) -> dict:
     say(f"J plan_capacity whole at J2 (host clock, 10 calls): {whole_ms:.3f}"
         f" ms a plan, the kernel {cases['J2']['ms']:.4f} of it; control "
         f"(target + 0.001) fails the check: {plan_cerr}", card)
+    evaluators = _evaluators(stacked, spec.max_capacity, card)
 
     # mixture_fit: per stream (the sweep's launches) and batched
     hists = o_rep.reuse_histograms()
@@ -3212,7 +3301,39 @@ def phase_planner(card: str) -> dict:
                            "errors_vs_reference": {"J1": e1, "J2": e2,
                                                    "J2 budget": e2b}},
             "mixture_fit": mixture, "batched_maxmin": pricing,
-            "wall_s": wall}
+            "evaluators": evaluators, "wall_s": wall}
+
+
+def _evaluators(stacked, capacity: float, card: str) -> dict:
+    """The eager cache-model evaluators (torch ops, no kernel of their
+    own) on their own at J2's 28 stacked models: ``fleet_origin_egress``
+    as J calls it once (the egress at ``max_capacity``) and
+    ``fleet_hit_rate`` beside it; CUDA events around 20 calls and the
+    host clock around 20 calls read back; bound: the models' and the
+    capacities' bytes read once at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import cache_model as cm
+    n, buckets = np.shape(stacked.log_centers)
+    caps = torch.full((n,), capacity, dtype=torch.float64).cuda()
+    bound_ms = 1e3 * 8 * (2 * n * buckets + 5 * n) / HBM_BYTES_PER_S
+    out = {}
+    for name in ("fleet_origin_egress", "fleet_hit_rate"):
+        fn = getattr(cm, name)
+        out[name] = {"ms": time_ms(lambda: fn(stacked, caps), 20),
+                     "host_ms": _host_ms(lambda: float(fn(stacked, caps)),
+                                         20),
+                     "bound_ms": bound_ms, "bound_by": "bytes"}
+    say("J evaluators at J2 (" + f"{n} caches x {buckets} buckets, torch "
+        "ops): " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (CUDA events around 20 calls), "
+            f"{v['host_ms']:.4f} ms read back (host clock)"
+            for k, v in out.items())
+        + f"; bound {bound_ms:.6f} ms (bytes); J calls fleet_origin_egress "
+        f"once on its own, plan_capacity's evaluations run inside "
+        f"plan_solve", card)
+    return out
 
 
 # Buckets whose flow state exceeds a block's shared memory (the design
@@ -3397,10 +3518,12 @@ def phase_waterfill_links(card: str) -> dict:
 def _fnv1a_entry(kernel: dict, leg: dict, card: str) -> dict:
     """The digest kernel's line: a 24 MiB chunk; its launches on the
     weight leg."""
+    from repro_torch.kernels import fnv1a
     entry = _entry("fnv1a64_chunks", leg["launches"], kernel, "exact",
-                   "one 24 MiB chunk (one thread)", card)
-    entry.update({k: kernel[k] for k in ("object_ms", "ns_per_byte",
-                                         "ops_per_byte", "clock_mhz")})
+                   f"one 24 MiB chunk (split: segments of {fnv1a.SEG} B, "
+                   f"groups of {fnv1a.GROUP})", card)
+    entry.update({k: kernel[k] for k in ("object_ms", "ns_per_byte")})
+    entry["check_designs"] = kernel["designs"]
     entry["weight_leg"] = {k: v for k, v in leg.items()
                            if k not in ("launches", "ssd_launches")}
     return entry

@@ -3,9 +3,9 @@
 parts, and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
-                            [paths] [plan] [mix] [--parent DIR]
+                            [paths] [plan] [mix] [fnv] [--parent DIR]
 
-(all seven when none is named).
+(all eight when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -72,6 +72,20 @@ parts, and two of its paths, on one CUDA card:
   fits and the sweep's models required equal bit for bit.  Then the
   probe build's phase split of a step and the SASS counts.
 
+* ``fnv``: ``fnv1a64_chunks`` on a 24 MiB chunk and on an object of
+  three chunks (the last 24 MiB - 1 B) of seeded random bytes: CUDA
+  events around 20 calls (3 for a version over 50 ms a call); with
+  ``--parent DIR`` that tree's ``ops.fnv1a64_chunks`` in turns, old,
+  new, new, old, its digests required equal.  Then, from probe builds
+  (the same source with ``-DFNV_PROBE=1``, whose ``fnv1a_stage_probe``
+  launches one stage alone), the whole call and each stage of the split
+  alone (a CUDA graph of 20 launches, so the host stays out) on both
+  inputs, the alternative table stage (all
+  256 start values' full 64-bit partials, a thread a start value) on the
+  24 MiB chunk, a whole call at other segment and group sizes, and the
+  table and partial kernels' instructions by mnemonic in their SASS (the
+  whole SASS written to ``chiprun_out/fnv1a.sass``).
+
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
 """
@@ -95,7 +109,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from chip_smoke import card_label, graph_ms, time_ms  # noqa: E402
 from repro_torch.kernels import cache_model as cm  # noqa: E402
-from repro_torch.kernels import maxmin, ops  # noqa: E402
+from repro_torch.kernels import fnv1a, maxmin, ops  # noqa: E402
 from repro_torch.kernels import stack_distance as sd  # noqa: E402
 from repro_torch.kernels._build import CudaLibrary, cuda_tool  # noqa: E402
 
@@ -779,6 +793,172 @@ def probe_mix(card: str, parent: Optional[str] = None) -> None:
           f"[{card}]", flush=True)
 
 
+# The digest's probe builds: the same source with -DFNV_PROBE=1 at the
+# wrapper's sizes and at others (bytes a segment, segments a group)
+_cll = ctypes.c_longlong
+FNV_SIGNATURES = {
+    "fnv1a_chunks_launch": ([_vp, _cll, _cll, _cll, _vp, _vp, _vp], _ci),
+    "fnv1a_work_bytes": ([_cll, _cll, _cll], _cll),
+    "fnv1a_stage_probe": ([_ci, _vp, _cll, _cll, _cll, _vp, _vp, _vp, _vp],
+                          _ci)}
+FNV_SIZES = [(fnv1a.SEG, fnv1a.GROUP), (1024, 32), (4096, 32), (2048, 64),
+             (2048, 128)]
+FNV_STAGES = {1: "tables", 2: "walk", 3: "partials", 4: "combine",
+              5: "alternative tables (64-bit, a thread a start value)"}
+
+
+def _fnv_lib(seg: int, group: int) -> CudaLibrary:
+    return CudaLibrary("fnv1a", FNV_SIGNATURES, defines={
+        "FNV_SEG": seg, "FNV_GROUP": group, "FNV_PROBE": 1})
+
+
+class _FnvCall:
+    """A probe build's whole call on ``buf`` with its own workspace and
+    output, and each of its stages alone on them."""
+
+    def __init__(self, lib: CudaLibrary, buf: torch.Tensor, chunk: int):
+        self.lib, self.buf, self.chunk = lib.load(), buf, chunk
+        self.check = lib.check
+        self.n = buf.numel()
+        self.chunks = fnv1a.num_chunks(self.n, chunk)
+        self.out = torch.empty(self.chunks, dtype=torch.int64,
+                               device=buf.device)
+        self.work = torch.empty(int(self.lib.fnv1a_work_bytes(
+            self.n, chunk, self.chunks)), dtype=torch.uint8,
+            device=buf.device)
+        self.out64 = None
+
+    def __call__(self) -> None:
+        self.check(self.lib.fnv1a_chunks_launch(
+            self.buf.data_ptr(), self.n, self.chunk, self.chunks,
+            self.work.data_ptr(), self.out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "fnv1a probe")
+
+    def stage(self, k: int) -> None:
+        if k == 5 and self.out64 is None:
+            self.out64 = torch.empty(-(-self.n // fnv1a.SEG) * 256,
+                                     dtype=torch.int64,
+                                     device=self.buf.device)
+        self.check(self.lib.fnv1a_stage_probe(
+            k, self.buf.data_ptr(), self.n, self.chunk, self.chunks,
+            self.work.data_ptr(), self.out.data_ptr(),
+            0 if self.out64 is None else self.out64.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "fnv1a stage")
+
+
+def _sass_opcodes(sass: str, kernel: str, loop: str = "") -> Dict[str, int]:
+    """The instructions of ``kernel``'s SASS, counted by mnemonic
+    (modifiers included), most frequent first: all of them, or with
+    ``loop`` those from the first instruction of that mnemonic to the
+    next branch (the unrolled body of the kernel's main loop)."""
+    counts: Dict[str, int] = {}
+    inside = counting = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            # the mangled name holds the kernel's length and name
+            inside = f"{len(kernel)}{kernel}E" in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if not (inside and m):
+            continue
+        op = m.group(1)
+        if loop:
+            if op == loop and not counts:
+                counting = True
+            elif counting and op.startswith("BRA"):
+                break
+        if counting or not loop:
+            counts[op] = counts.get(op, 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def probe_fnv(card: str, parent: Optional[str] = None) -> None:
+    from chip_smoke import HBM_BYTES_PER_S
+    C = 24 * 2 ** 20
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big = torch.randint(0, 256, (3 * C - 1,), generator=gen,
+                        dtype=torch.uint8, device="cuda")
+    inputs = {"a 24 MiB chunk": big[:C], "3 chunks (72 MiB - 1 B)": big}
+    impls = {"new": ops.fnv1a64_chunks}
+    if parent:
+        impls["old"] = _parent_module(parent).fnv1a64_chunks
+    order = ["old", "new", "new", "old"] if parent else ["new"]
+    for label, buf in inputs.items():
+        times = {w: [] for w in impls}
+        digests = {}
+        for who in order:
+            fn = impls[who]
+            digests[who] = fnv1a.unsigned(fn(buf, C))
+            torch.cuda.synchronize()
+            iters = 3 if who == "old" else 20
+            times[who].append(time_ms(lambda: fn(buf, C), iters))
+        if parent and digests["old"] != digests["new"]:
+            raise AssertionError(f"fnv {label}: the two versions differ")
+        new = min(times["new"])
+        bound = 1e3 * buf.numel() / HBM_BYTES_PER_S
+        line = (f"fnv {label}: new {_ms(times['new'])} ms "
+                f"({1e6 * new / buf.numel():.5f} ns a byte; bytes bound "
+                f"{bound:.5f} ms, {bound / new:.4f} of it)")
+        if parent:
+            line += (f"; old {_ms(times['old'])} ms, "
+                     f"{min(times['old']) / new:.1f}x")
+        print(f"{line}  [{card}]", flush=True)
+    # the stages alone, from the probe build at the wrapper's sizes
+    libs = {size: _fnv_lib(*size) for size in FNV_SIZES}
+    from repro_torch.kernels._build import build
+    build(*libs.values())
+    for label, buf in inputs.items():
+        call = _FnvCall(libs[FNV_SIZES[0]], buf, C)
+        call()
+        if fnv1a.unsigned(call.out) != fnv1a.unsigned(ops.fnv1a64_chunks(
+                buf, C)):
+            raise AssertionError(f"fnv probe build {label}: digests differ")
+        whole = graph_ms(call)
+        stages = [1, 2, 3, 4] + ([5] if buf.numel() == C else [])
+        split = {k: graph_ms(lambda k=k: call.stage(k)) for k in stages}
+        print(f"fnv stages, {label} (SEG {FNV_SIZES[0][0]}, GROUP "
+              f"{FNV_SIZES[0][1]}): whole call {whole:.5f} ms; "
+              + "; ".join(f"{FNV_STAGES[k]} {ms:.5f}" for k, ms in
+                          split.items())
+              + f" ms (a CUDA graph of 20 launches each)  [{card}]",
+              flush=True)
+    for size in FNV_SIZES[1:]:
+        for label, buf in inputs.items():
+            call = _FnvCall(libs[size], buf, C)
+            call()
+            if fnv1a.unsigned(call.out) != fnv1a.unsigned(
+                    ops.fnv1a64_chunks(buf, C)):
+                raise AssertionError(f"fnv SEG {size[0]} GROUP {size[1]}: "
+                                     f"digests differ")
+            print(f"fnv SEG {size[0]}, GROUP {size[1]}, {label}: whole call "
+                  f"{graph_ms(call):.5f} ms, tables "
+                  f"{graph_ms(lambda: call.stage(1)):.5f} ms, partials "
+                  f"{graph_ms(lambda: call.stage(3)):.5f} ms (CUDA graphs)"
+                  f"  [{card}]", flush=True)
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(libs[FNV_SIZES[0]].path)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    path = pathlib.Path("chiprun_out") / "fnv1a.sass"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(sass)
+    print(f"fnv SASS of the probe build written to {path}", flush=True)
+    for kernel, loop, what in (
+            ("fnv_tables", "", "all"),
+            ("fnv_tables", "LDS.128", "the main loop's body (16 bytes of "
+             "two segments a warp)"),
+            ("fnv_partials", "", "all")):
+        counts = _sass_opcodes(sass, kernel, loop)
+        print(f"{kernel} SASS, {what}: {sum(counts.values())} "
+              f"instructions: " + ", ".join(
+                  f"{k} {v}" for k, v in list(counts.items())[:14])
+              + f"  [{card}]", flush=True)
+    ptxas = libs[FNV_SIZES[0]].ptxas_report.read_text()
+    for line in ptxas.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            print(f"fnv ptxas: {line.strip()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -795,7 +975,8 @@ def main() -> int:
               "distances": lambda c: probe_distances(c, parent),
               "paths": lambda c: probe_paths(c, parent),
               "plan": lambda c: probe_plan(c, parent),
-              "mix": lambda c: probe_mix(c, parent)}
+              "mix": lambda c: probe_mix(c, parent),
+              "fnv": lambda c: probe_fnv(c, parent)}
     for name in args or probes:
         probes[name](card)
     return 0
