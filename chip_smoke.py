@@ -11,7 +11,8 @@ any phase fails:
 1. build   — compile the seven kernel libraries from ``src/repro_torch``
              (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
-             warnings of both flash designs at every head_dim and both
+             warnings of both flash designs at every head_dim (the
+             ``wgmma`` template at 256, 128, 96 and 64) and both
              ssd_intra designs, ``wgmma`` and ``simt``), each design's
              shared memory (the waterfill's at H's and I's buckets, the
              FIFO replay's two designs, the planner's solve at 2, 28 and
@@ -19,9 +20,12 @@ any phase fails:
              instructions in the
              flash and ssd_scan libraries' SASS, neither of which may be 0;
 2. kernel  — each kernel against its plain PyTorch version:
-             flash attention at gemma2-2b's widths (hd 256, softcap 50) and
-             mixtral-8x22b's (hd 128, no softcap) and every (B, S, window)
-             their engines give it, with a control that must fail the same
+             flash attention at gemma2-2b's widths (hd 256, softcap 50),
+             mixtral-8x22b's and qwen2-7b's (hd 128, no softcap),
+             deepseek-coder-33b's and phi3.5-moe's (hd 128),
+             phi3-mini-3.8b's (hd 96, MHA) and musicgen-medium's (hd 64,
+             MHA) and every (B, S, window) their engines give it, ragged S
+             of 100 at hd 96 and 64, with a control that must fail the same
              check (softcap off; without a softcap, window 0 or no causal
              mask), the design that ran and its TFLOP/s;
              ssd_intra at mamba2-780m's widths and every (B, NC, Q) the
@@ -80,6 +84,16 @@ any phase fails:
              qwen2-7b: a small model card-vs-CPU check, then full width
              (28 layers, 15.4 GB of random bf16 weights) in engine A's
              shape, every flash launch on ``wgmma`` at hd 128;
+             deepseek-coder-33b at full width and depth (62 layers, 68.5
+             GB of bf16 weights, 56 q-heads padded to 64 over 8 KV) in
+             engine A's shape; phi3.5-moe, 24 of 32 layers (62.9 GB; the
+             only cut) in engine E's shape with the MoE layer's shares;
+             phi3-mini-3.8b (hd 96) in engine A's shape and one
+             4,000-token prompt; musicgen-medium (hd 64) over frame ids in
+             engine A's shape and one 1,500-frame prompt: each after a
+             small model card-vs-CPU check (phi3.5-moe's with its
+             routing), every weight bf16 (the routers float32), every
+             flash launch on ``wgmma`` at the config's widths;
              ``launch.serve`` at its defaults on the card, its two lines;
 4. federation — the port's data plane on the simulated engine, its
              max-min solver on the card (the ``maxmin_waterfill`` kernel,
@@ -179,6 +193,10 @@ class Widths(NamedTuple):
 GEMMA2 = Widths(16, 4, 256, 50.0)      # 16 q-heads, 8 of them zero pads
 MIXTRAL = Widths(48, 8, 128, 0.0)
 QWEN2 = Widths(32, 4, 128, 0.0)        # 32 q-heads, 4 of them zero pads
+DEEPSEEK = Widths(64, 8, 128, 0.0)     # 64 q-heads, 8 of them zero pads
+PHI35_MOE = Widths(32, 8, 128, 0.0)
+PHI3_MINI = Widths(32, 32, 96, 0.0)    # MHA at hd 96: three 32-column slabs
+MUSICGEN = Widths(24, 24, 64, 0.0)     # MHA at hd 64
 # q at 4x unit scale gives scores of std 4, where the softcap bends the
 # top scores (50·tanh(16/50) is 15.47); the model's own q and k are larger
 Q_SCALE = 4.0
@@ -193,6 +211,9 @@ ENGINE_C_BATCH = 4
 ENGINE_D_PROMPT = 8000
 ENGINE_F_PROMPT = 4352
 MIXTRAL_LAYERS = 8               # of 56: the bf16 weights, 40.9 GB, fit
+PHI35_LAYERS = 24                # of 32: the bf16 weights, 62.9 GB, fit
+PHI3_MINI_PROMPT = 4000          # inside phi3-mini's 4K context
+MUSICGEN_PROMPT = 1500           # frames: 30 s at 50 Hz
 SSD_MAIN_CASE = "B1 NC32 Q256 H48 P64 N128"    # engine D's long prompt
 # kernel: (its source, the TPU kernel it replaces)
 KERNEL_FILES = {
@@ -241,7 +262,10 @@ def kernel_cases():
     flash kernel in bf16 (gemma2: engine A's two waves, engine B's
     windowed and global layers; mixtral: engine E's two waves, the same
     lengths as A's, and engine F's windowed layers), then edge cases and
-    float32 at both head dims."""
+    float32 at both head dims; then the shapes of the deepseek-coder-33b,
+    phi3.5-moe, phi3-mini-3.8b (hd 96) and musicgen-medium (hd 64) engines
+    (engine A's two waves each, phi3-mini's 4,000-token prompt, musicgen's
+    1,500 frames) and a ragged S of 100 at hd 96 and 64."""
     import numpy as np
     waves = _wave_lengths(engine_a_lengths(np.random.default_rng(0)),
                           ENGINE_A_BATCH)
@@ -259,6 +283,12 @@ def kernel_cases():
         *[(QWEN2, ENGINE_A_BATCH, s, 0, "bfloat16") for s in waves],
         (MIXTRAL, 1, 1024, 0, "float32"),
         (MIXTRAL, 1, 300, 100, "float32"),
+        *[(w, ENGINE_A_BATCH, s, 0, "bfloat16")
+          for w in (DEEPSEEK, PHI35_MOE, PHI3_MINI, MUSICGEN) for s in waves],
+        (PHI3_MINI, 1, PHI3_MINI_PROMPT, 0, "bfloat16"),
+        (PHI3_MINI, 1, 100, 0, "bfloat16"),        # ragged, under 128
+        (MUSICGEN, 1, MUSICGEN_PROMPT, 0, "bfloat16"),
+        (MUSICGEN, 1, 100, 0, "bfloat16"),
     ]
 
 
@@ -288,6 +318,9 @@ def case_name(w: Widths, b: int, s: int, window: int, dtype: str) -> str:
 # engine B's and engine F's windowed layers
 MAIN_CASE = case_name(GEMMA2, 1, 4352, 4096, "bfloat16")
 MAIN_CASE_128 = case_name(MIXTRAL, 1, ENGINE_F_PROMPT, 4096, "bfloat16")
+# phi3-mini-3.8b's long prompt and musicgen-medium's 1,500 frames
+MAIN_CASE_96 = case_name(PHI3_MINI, 1, PHI3_MINI_PROMPT, 0, "bfloat16")
+MAIN_CASE_64 = case_name(MUSICGEN, 1, MUSICGEN_PROMPT, 0, "bfloat16")
 
 
 def ssd_name(b, nc, q, h, p, n) -> str:
@@ -607,12 +640,20 @@ def phase_ssd_kernel(card: str) -> dict:
     return results
 
 
-def _leaves(tree):
+def _leaf_items(tree, path=""):
+    """(dotted name, tensor) of every leaf."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    if isinstance(tree, list):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    return [tree]
+        for k, v in tree.items():
+            yield from _leaf_items(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, f"{path}.{i}")
+    else:
+        yield path, tree
+
+
+def _leaves(tree):
+    return [leaf for _, leaf in _leaf_items(tree)]
 
 
 def _plain_digests(data, block: int = 1024):
@@ -898,10 +939,11 @@ def _ssd_key(x, dt, cum, b_in, c_in):
 
 
 def _drive(name: str, engine, requests, op: str, checked: dict,
-           card: str, timed=()) -> None:
+           card: str, timed=()) -> dict:
     """Serve ``requests`` through ``engine``; ``op`` is the kernel op of
     the path, launched once per layer per prefill wave, at shapes that
-    must all be among ``checked``; ``timed`` as ``_Probe`` takes it."""
+    must all be among ``checked``; ``timed`` as ``_Probe`` takes it.
+    Returns the run's numbers, and the op's shapes."""
     import torch
     kernel = _kernels()[op]
     cfg = engine.cfg
@@ -956,6 +998,11 @@ def _drive(name: str, engine, requests, op: str, checked: dict,
         f"tokens_per_s={tokens / wall:.2f} wall_s={wall:.2f} "
         f"max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
+    return {"shapes": sorted(probe.op_shapes),
+            "ms_per_prefill_wave": 1e3 * probe.prefill_s / waves,
+            "ms_per_decode_step": 1e3 * decode_s / max(st.decode_steps, 1),
+            "tokens_per_s": tokens / wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def _describe(cfg, params, t0: float, card: str) -> None:
@@ -1191,7 +1238,7 @@ def phase_serve_mixtral(card: str, checked: dict):
 
 
 # ---------------------------------------------------------------------------
-# The chunks' digests, the weight leg through the federation, qwen2-7b
+# The chunks' digests and the weight leg through the federation
 # ---------------------------------------------------------------------------
 MiB = 2 ** 20
 
@@ -1544,11 +1591,22 @@ def phase_weight_leg(card: str, checked: dict) -> dict:
                           "restore": restore_ms}}
 
 
-def phase_serve_qwen2(card: str, checked: dict) -> int:
-    """qwen2-7b: a small model card-vs-CPU check, then full width (28
-    layers, random bf16 weights from seed 0) in engine A's shape, every
-    flash launch on ``wgmma`` at hd 128 (28 heads padded to 32 over 4
-    KV)."""
+# ---------------------------------------------------------------------------
+# qwen2-7b and the configs that need no new block: deepseek-coder-33b,
+# phi3.5-moe, phi3-mini-3.8b (hd 96) and musicgen-medium (hd 64)
+# ---------------------------------------------------------------------------
+def _serve_config(card: str, checked: dict, arch: str, widths: Widths,
+                  engines, *, layers: Optional[int] = None,
+                  timed=()) -> int:
+    """One config's serving path: its smoke model card-vs-CPU in float32
+    (``simt`` at hd 16; for an MoE model with its routing compared), then
+    ``arch`` at full width, ``layers`` deep where its weights would not
+    fit the card at full depth (depth is the only cut), random bf16
+    weights from seed 0, through ``engines``: (label, batch, max_seq,
+    prompt lengths, new tokens) each.  Every weight is bf16 on the card
+    (an MoE router float32, as in the reference), and ``init_lm`` holds at
+    most one leaf's float32 draw beside them; every flash launch of the
+    path is ``wgmma`` at ``widths``.  Returns the path's flash launches."""
     import numpy as np
     import torch
 
@@ -1556,40 +1614,139 @@ def phase_serve_qwen2(card: str, checked: dict) -> int:
     from repro_torch.models import init_lm
     from repro_torch.serve import Request, ServeEngine
 
-    _check_small_model(
-        dataclasses.replace(get_config("qwen2-7b", smoke=True),
-                            dtype="float32"),
-        "qwen2-7b smoke, f32", card)
+    _check_small_model(dataclasses.replace(get_config(arch, smoke=True),
+                                           dtype="float32"),
+                       f"{arch} smoke, f32", card)
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("qwen2-7b")
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    # bytes requested by the code, not the allocator's blocks: a block
+    # handed out whole may exceed its request by up to 1 MiB
+    requested = "requested_bytes.all.{}"
+    before = torch.cuda.memory_stats()[requested.format("current")]
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     _describe(cfg, params, t0, card)
-    engine = ServeEngine(cfg, params, batch_size=ENGINE_A_BATCH, max_seq=512)
+    leaves = dict(_leaf_items(params))
+    weight_bytes = sum(t.nbytes for t in leaves.values())
+    wide = {name: str(t.dtype) for name, t in leaves.items()
+            if t.dtype != torch.bfloat16 and not name.endswith("router")}
+    largest = max(t.numel() for t in leaves.values())
+    init_extra = torch.cuda.memory_stats()[requested.format("peak")] - \
+        before - weight_bytes
+    # one leaf's float32 draw, and 1 MiB for the generator's state
+    if wide or init_extra > 4 * largest + 2 ** 20:
+        raise AssertionError(f"{arch}: weights not bf16 {wide}, or init "
+                             f"held {init_extra} B beyond the weights (one "
+                             f"leaf in float32 is {4 * largest} B)")
+    cut = (f"{cfg.num_layers} of {full.num_layers} layers (depth only)"
+           if layers is not None else f"all {cfg.num_layers} layers")
+    pads = f" padded to {cfg.padded_heads}" if cfg.padded_heads else ""
+    experts, routers = "", ""
+    if cfg.num_experts:
+        experts = (f", {cfg.num_experts} experts, top-"
+                   f"{cfg.experts_per_token}")
+        routers = " but the routers (float32)"
+    say(f"{arch}: {cut}; d={cfg.d_model}, {cfg.num_heads} q-heads{pads} "
+        f"over {cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}; weights "
+        f"{weight_bytes} bytes, all bf16{routers}; init held {init_extra} B "
+        f"beyond them at its peak (the largest leaf's float32 draw is "
+        f"{4 * largest} B)", card)
+
     rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n)),
-                    max_new_tokens=32)
-            for i, n in enumerate(engine_a_lengths(rng))]
+    runs = [(label, ServeEngine(cfg, params, batch_size=batch,
+                                max_seq=max_seq),
+             [Request(i, rng.integers(0, cfg.vocab_size, int(n)),
+                      max_new_tokens=new) for i, n in enumerate(lengths)])
+            for label, batch, max_seq, lengths, new in engines]
     ServeEngine(cfg, params, batch_size=4, max_seq=512).generate(
         [Request(-1, rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)])
-    _reset_counts()                          # the qwen2 path starts here
-    _drive("A on qwen2-7b (batch 4, max_seq 512, 8 prompts of 64-256)",
-           engine, reqs, "flash_attention", checked, card)
+
+    _reset_counts()                          # the path starts here
+    shapes = []
+    for label, engine, reqs in runs:
+        shapes += _drive(label, engine, reqs, "flash_attention", checked,
+                         card, timed)["shapes"]
     flash = _kernels()["flash_attention"]    # ... and ends here
     launches, by_design = flash.launches, dict(flash.launches_by_design)
-    decode_bound_ms, _ = _bound(0, 1.0, sum(t.nbytes
-                                            for t in _leaves(params)))
-    say(f"serve qwen2-7b: {cfg.num_heads} heads padded to "
-        f"{cfg.padded_heads} over {cfg.num_kv_heads} KV of hd "
-        f"{cfg.head_dim}; flash launches {launches} by design {by_design}; "
-        f"a decode step reading every weight once {decode_bound_ms:.2f} ms "
-        f"at 3.35 TB/s; max_memory_allocated="
+    decode_bound_ms, _ = _bound(0, 1.0, weight_bytes)
+    say(f"serve {arch}: flash launches {launches} by design {by_design} at "
+        f"{sorted(set(shapes))}; a decode step reading every weight once "
+        f"{decode_bound_ms:.2f} ms at 3.35 TB/s; max_memory_allocated="
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", card)
-    if not launches or by_design["wgmma"] != launches:
-        raise AssertionError(f"the qwen2 path sent flash launches to other "
-                             f"designs than wgmma or none: {by_design}")
+    want = f" H{widths.h} KV{widths.kv} hd{widths.hd}"
+    if not launches or by_design["wgmma"] != launches or \
+            not all(s.endswith(want) for s in shapes):
+        raise AssertionError(f"the {arch} path sent flash launches to other "
+                             f"designs or widths than wgmma at{want}, or "
+                             f"none: {by_design}, {shapes}")
     return launches
+
+
+def _engine_a(label: str):
+    """Engine A's shape: batch 4, max_seq 512, its 8 prompts of 64-256
+    tokens, 32 new tokens each."""
+    import numpy as np
+    return (f"A on {label} (batch 4, max_seq 512, 8 prompts of 64-256)",
+            ENGINE_A_BATCH, 512,
+            engine_a_lengths(np.random.default_rng(0)), 32)
+
+
+def phase_serve_qwen2(card: str, checked: dict) -> int:
+    """qwen2-7b at full width (28 layers, 15.4 GB of random bf16 weights)
+    in engine A's shape; every flash launch on ``wgmma`` at hd 128, its
+    28 q-heads padded to 32 over 4 KV."""
+    return _serve_config(card, checked, "qwen2-7b", QWEN2,
+                         [_engine_a("qwen2-7b")])
+
+
+def phase_serve_deepseek(card: str, checked: dict) -> int:
+    """deepseek-coder-33b at full width and full depth (62 layers, 68.5 GB
+    of random bf16 weights) in engine A's shape; every flash launch on
+    ``wgmma`` at hd 128, its 56 q-heads padded to 64 over 8 KV."""
+    return _serve_config(card, checked, "deepseek-coder-33b", DEEPSEEK,
+                         [_engine_a("deepseek-coder-33b")])
+
+
+def phase_serve_phi35_moe(card: str, checked: dict) -> int:
+    """phi3.5-moe, 24 of its 32 layers (``PHI35_LAYERS``; the whole model's
+    83.7 GB of bf16 weights do not fit the card; 24 layers are 62.9 GB),
+    every width the published one, in engine E's shape (engine A's on the
+    MoE model), with the MoE layer's, its routing's and its expert
+    products' share of each wave and decode step."""
+    from repro_torch.models import moe
+    timed = ((moe, "moe_forward", None), (moe, "route", None),
+             (moe, "expert_ffn", _expert_flops))
+    label, *shape = _engine_a("phi3.5-moe")
+    return _serve_config(card, checked, "phi3.5-moe-42b-a6.6b", PHI35_MOE,
+                         [(label.replace("A on", "E on"), *shape)],
+                         layers=PHI35_LAYERS, timed=timed)
+
+
+def phase_serve_phi3_mini(card: str, checked: dict) -> int:
+    """phi3-mini-3.8b at full width (32 layers, 7.6 GB) in engine A's shape
+    and one 4,000-token prompt with 8 new tokens; every flash launch on
+    ``wgmma`` at hd 96 (32 q-heads over 32 KV)."""
+    return _serve_config(card, checked, "phi3-mini-3.8b", PHI3_MINI, [
+        _engine_a("phi3-mini-3.8b"),
+        (f"long prompt on phi3-mini-3.8b (batch 1, max_seq 4096, one "
+         f"prompt of {PHI3_MINI_PROMPT})", 1, 4096, [PHI3_MINI_PROMPT], 8)])
+
+
+def phase_serve_musicgen(card: str, checked: dict) -> int:
+    """musicgen-medium at full width (48 layers, 3.6 GB) over frame ids of
+    its 2,048-entry codebook (the EnCodec front end is a stub, as in the
+    reference) in engine A's shape and one prompt of 1,500 frames (30 s
+    at 50 Hz) with 8 new tokens; every flash launch on ``wgmma`` at hd 64
+    (24 q-heads over 24 KV)."""
+    return _serve_config(card, checked, "musicgen-medium", MUSICGEN, [
+        _engine_a("musicgen-medium"),
+        (f"long prompt on musicgen-medium (batch 1, max_seq 1536, one "
+         f"prompt of {MUSICGEN_PROMPT} frames)", 1, 1536, [MUSICGEN_PROMPT],
+         8)])
 
 
 def phase_launcher(card: str) -> None:
@@ -3706,6 +3863,13 @@ def main() -> int:
     _free()
     qwen2_flash = phase_serve_qwen2(card, flash)
     _free()
+    new_flash = {}
+    for arch, phase in (("deepseek-coder-33b", phase_serve_deepseek),
+                        ("phi3.5-moe-42b-a6.6b", phase_serve_phi35_moe),
+                        ("phi3-mini-3.8b", phase_serve_phi3_mini),
+                        ("musicgen-medium", phase_serve_musicgen)):
+        new_flash[arch] = phase(card, flash)
+        _free()
     phase_launcher(card)
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
@@ -3717,14 +3881,19 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
     flash_entry = _entry("flash_attention",
-                         gemma_flash + mixtral_flash + qwen2_flash,
+                         gemma_flash + mixtral_flash + qwen2_flash
+                         + sum(new_flash.values()),
                          flash[MAIN_CASE], TOLERANCE["bfloat16"], MAIN_CASE,
                          card)
     flash_entry["launches_by_path"] = {"gemma2-2b": gemma_flash,
                                        "mixtral-8x22b": mixtral_flash,
-                                       "qwen2-7b": qwen2_flash}
+                                       "qwen2-7b": qwen2_flash, **new_flash}
     flash_entry["hd128_case"] = _case(flash[MAIN_CASE_128], MAIN_CASE_128,
                                       launches=mixtral_flash)
+    flash_entry["hd96_case"] = _case(flash[MAIN_CASE_96], MAIN_CASE_96,
+                                     launches=new_flash["phi3-mini-3.8b"])
+    flash_entry["hd64_case"] = _case(flash[MAIN_CASE_64], MAIN_CASE_64,
+                                     launches=new_flash["musicgen-medium"])
     checksum_entry = _entry(
         "chunk_checksum", mamba_sums + mixtral_sums, checksum, "exact",
         f"{checksum['leaves']} leaves of mamba2-780m, "

@@ -216,5 +216,6 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
 def _ensure_loaded() -> None:
     # every config module, each imported once: a registry holding some
     # configs (one module imported directly) is not a loaded one
-    from . import (gemma2_2b, mamba2_780m, mixtral_8x22b,  # noqa: F401
-                   qwen2_7b)
+    from . import (deepseek_coder_33b, gemma2_2b,  # noqa: F401
+                   mamba2_780m, mixtral_8x22b, musicgen_medium,
+                   phi3_5_moe, phi3_mini_3_8b, qwen2_7b)

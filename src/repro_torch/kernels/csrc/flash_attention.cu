@@ -2,9 +2,11 @@
 // with an optional tanh logit softcap, one pass over K/V with an online
 // softmax.  Two designs, chosen explicitly by (dtype, head_dim):
 //
-//   wgmma  bf16 at head_dim 256 (gemma2-2b) and 128 (mixtral-8x22b):
-//          every launch of their serving paths.  Tensor cores, TMA and
-//          warp specialisation; one template over the head dim.
+//   wgmma  bf16 at head_dim 256 (gemma2-2b), 128 (mixtral-8x22b,
+//          qwen2-7b, deepseek-coder-33b, phi3.5-moe), 96 (phi3-mini-3.8b)
+//          and 64 (musicgen-medium): every launch of their serving paths.
+//          Tensor cores, TMA and warp specialisation; one template over
+//          the head dim.
 //   simt   float32 at head_dim 16, 128 and 256, bf16 at head_dim 16 (the
 //          smoke configs).  fp32 FMAs on the CUDA cores.  In float32 it is
 //          level with the library, and TF32 tensor cores would break the
@@ -30,6 +32,11 @@
 // operations per pair, about 0.8 of the function's tensor-core time at hd
 // 256.  At hd 128 with no softcap the exp2 alone is 1 MUFU operation per
 // pair against half the products of hd 256, so it weighs about as much.
+// At hd 96 and 64 the products per pair shrink with hd while the
+// softmax's work per pair (the exp2, the max, the split of P) does not:
+// at hd 64 the exp2 alone takes about 2/3 of the pair's tensor-core time
+// (with P.V run twice), and the fp32 softmax about as much again, so
+// there the softmax, not the tensor cores, is the expected limit.
 //
 // What the wgmma design does about it:
 //   * one block per (128 query rows, q-head, batch): two consumer
@@ -39,17 +46,22 @@
 //     band (the diagonal tile of the lower half, the window's first tile
 //     of the upper half);
 //   * shared memory: Q (128 x hd bf16) loaded once; a ring of K and V
-//     tiles (64 keys x hd); every tile arrives by TMA as hd/64 column
-//     slabs of 64 x 64 with the 128-byte swizzle that wgmma reads without
-//     bank conflicts.  At hd 256: Q 64 KB, 2 stages of 32 KB tiles, 192
-//     KB in all.  At hd 128 a tile is 16 KB, and the same room holds a
-//     ring of 4 stages: Q 32 KB, 160 KB in all.  K and V of a stage have
-//     their own "full" barrier, so Q.K^T starts before V has landed; an
-//     "empty" barrier per stage hands it back;
-//   * S = Q.K^T: hd/16 wgmma m64n64k16 (16 at 256, 8 at 128), both
-//     operands K-major in shared memory.  Products of bf16 values are
-//     exact in fp32, so the scores differ from the plain version only in
-//     the order of sums;
+//     tiles (64 keys x hd); every tile arrives by TMA as column slabs of
+//     64 rows in the swizzle that wgmma reads without bank conflicts:
+//     slabs of 64 columns with the 128-byte swizzle at hd 256, 128 and
+//     64, and of 32 columns with the 64-byte swizzle at hd 96, which is
+//     no multiple of 64 (three such slabs hold it exactly: no padded
+//     columns, no extra products).  The ring holds 128 KB at every width
+//     (see Shape): at hd 256 Q 64 KB and 2 stages of 32 KB tiles, 192 KB
+//     in all; at 128, 4 stages, 160 KB; at 96, 5 stages of 12 KB tiles,
+//     145 KB; at 64, 8 stages of 8 KB tiles, 145 KB.  K and V of a stage
+//     have their own "full" barrier, so Q.K^T starts before V has landed;
+//     an "empty" barrier per stage hands it back;
+//   * S = Q.K^T: hd/16 wgmma m64n64k16 (16 at 256, 8 at 128, 6 at 96, 4
+//     at 64), both operands K-major in shared memory, each k-step inside
+//     one slab's swizzle atom.  Products of bf16 values are exact in
+//     fp32, so the scores differ from the plain version only in the order
+//     of sums;
 //   * softmax on the accumulator fragment in registers: scale, softcap
 //     and log2(e) folded into two constants; tanh(x) = 1 - 2/(2^(2x
 //     log2 e) + 1) with ex2.approx and rcp.approx (2 MUFU operations; the
@@ -60,7 +72,8 @@
 //     threads that share a row;
 //   * O += P.V: P goes to bf16 in registers as the register A operand of
 //     wgmma m64n{hd}k16 (the m64nN fp32 accumulator layout packs straight
-//     into A's fragment); V (keys x hd, hd contiguous) is B, MN-major.
+//     into A's fragment); V (keys x hd, hd contiguous) is B, MN-major,
+//     its slabs one swizzle atom apart along N.
 //     P rounded once to bf16 misses the one-ulp check by 2.5x at hd 256
 //     and 2.7-3.5x at hd 128: a weight of 0.3 off by 2^-9 of itself,
 //     times |v| ~ 1, is ~6e-4 on an output near 0, and a few such keys
@@ -68,8 +81,8 @@
 //     (hi = P rounded, lo = the rest rounded), and P.V runs twice: exact
 //     to ~2^-17, at 1.5x the tensor-core work of the function;
 //   * registers: the 64 x hd fp32 accumulator is hd/2 registers a thread
-//     (128 at hd 256, 64 at 128); setmaxnreg gives the consumers 240 and
-//     the producer 24 at both widths;
+//     (128 at hd 256, 64 at 128, 48 at 96, 32 at 64); setmaxnreg gives the
+//     consumers 240 and the producer 24 at every width;
 //   * epilogue: multiply by 1/l, convert to bf16 and store; rows >= S are
 //     not written.  Rows past S in Q, K, V arrive from TMA as zeros;
 //   * the heaviest (latest) query tiles of all heads are scheduled
@@ -340,21 +353,34 @@ namespace wg {
 
 constexpr int BM = 128;                        // query rows per block
 constexpr int BN = 64;                         // keys per tile
-constexpr int SLAB_COLS = 64;                  // bf16 columns in 128 bytes
-constexpr int SLAB_BYTES = 64 * 128;           // 64 rows x 128 B
 constexpr int THREADS = 384;                   // 2 consumer warpgroups + 1
 constexpr int CONSUMERS = 256;
 
-// What the head dim sets.  A K or V tile of 64 keys is HD/64 column slabs
-// (32 KB at 256, 16 KB at 128); the ring is as deep as the shared memory
-// that two stages take at 256 allows: 2 stages at 256 (192 KB in all), 4
-// at 128 (160 KB).  The accumulator is HD/2 registers a thread.
+// What the head dim sets.  A K or V tile of 64 keys is a row of column
+// slabs, each 64 rows of one swizzle span: 64 columns (128 B, the 128-byte
+// swizzle) where the head dim is a multiple of 64, else 32 columns (64 B,
+// the 64-byte swizzle), so that the slabs cover the head dim exactly: 4
+// slabs at 256 (32 KB a tile), 2 at 128 (16 KB), 3 of 32 columns at 96
+// (12 KB), 1 at 64 (8 KB).  The ring holds 128 KB of K and V at every
+// width, 512/HD stages: a tile's products take time in proportion to the
+// head dim, and a load's latency does not shrink with it, so a narrower
+// tile needs more of them in flight to cover the same latency (2 stages
+// at 256, 4 at 128, 5 at 96, 8 at 64; 145-192 KB of shared memory in
+// all).  The accumulator is HD/2 registers a thread.
 template <int HD>
 struct Shape {
+  static_assert(HD == 64 || HD == 96 || HD == 128 || HD == 256,
+                "the wgmma design serves head dims 64, 96, 128 and 256");
+  static constexpr int SPAN = HD % 64 == 0 ? 128 : 64;  // slab row, bytes
+  static constexpr int SLAB_COLS = SPAN / 2;            // bf16 columns
+  static constexpr int SLAB_BYTES = 64 * SPAN;          // 64 rows
   static constexpr int SLABS = HD / SLAB_COLS;
+  static_assert(SLABS * SLAB_COLS == HD,
+                "the slabs must cover the head dim exactly");
+  static constexpr int KSTEPS = SPAN / 32;      // 16-column k-steps a slab
   static constexpr int TILE_BYTES = SLABS * SLAB_BYTES;  // 64 rows
   static constexpr int Q_BYTES = 2 * TILE_BYTES;         // 128 rows
-  static constexpr int STAGES = HD == 256 ? 2 : 4;       // K/V ring depth
+  static constexpr int STAGES = 512 / HD;                // K/V ring depth
   static constexpr int NBARS = 1 + 3 * STAGES;  // q_full, k/v_full, empty
   static constexpr int ACC = HD / 2;            // accumulator registers
   // 1024 bytes of slack to align the swizzled tiles to 1024 bytes
@@ -411,12 +437,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (in 16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled slab: start address,
+// leading and stride byte offsets (in 16-byte units) and the swizzle in
+// bits 62-63 (1: 128 bytes, 2: 64 bytes), whose atom is SPAN / 2 bf16
+// columns wide on the K-major side (Q.K^T) and the MN-major side (P.V).
+template <int SPAN>
+__device__ __forceinline__ uint64_t slab_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  static_assert(SPAN == 128 || SPAN == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t LAYOUT = SPAN == 128 ? 1 : 2;
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+         (uint64_t(sbo >> 4) << 32) | (LAYOUT << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -503,6 +534,37 @@ __device__ __forceinline__ void mma_pv(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// At head_dim 96: d (64 x 96) += A (64 x 16) . B (16 x 96).
+__device__ __forceinline__ void mma_pv(float (&d)[48], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24), F8(d, 32), F8(d, 40)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// At head_dim 64: d (64 x 64) += A (64 x 16) . B (16 x 64).
+__device__ __forceinline__ void mma_pv(float (&d)[32], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 #undef F8
 
 __device__ __forceinline__ float ex2(float x) {
@@ -543,7 +605,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                        int causal, int window, float pre, float post) {
   using Sh = Shape<HD>;
   constexpr int SLABS = Sh::SLABS, TILE_BYTES = Sh::TILE_BYTES,
-                STAGES = Sh::STAGES, ACC = Sh::ACC;
+                STAGES = Sh::STAGES, ACC = Sh::ACC, SPAN = Sh::SPAN,
+                SLAB_COLS = Sh::SLAB_COLS, SLAB_BYTES = Sh::SLAB_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + Sh::Q_BYTES;              // STAGES K tiles
@@ -628,7 +691,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t parity = (i / STAGES) & 1;
       mbar_wait(k_full(st), parity);
       if (active && t >= w_lo && t < w_hi) {
-        // S = Q . K^T over HD: HD/64 slabs of 4 k-steps of 16 columns
+        // S = Q . K^T over HD: SLABS slabs of KSTEPS k-steps of 16
+        // columns (32 bytes), each inside a swizzle atom
         float s[32];
 #pragma unroll
         for (int e = 0; e < 32; ++e) s[e] = 0.f;
@@ -637,9 +701,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t off = (kk / 4) * SLAB_BYTES + (kk % 4) * 32;
-          mma_qk(s, sw128_desc(sQw + off, 16, 1024),
-                 sw128_desc(kst + off, 16, 1024), kk > 0);
+          const uint32_t off =
+              (kk / Sh::KSTEPS) * SLAB_BYTES + (kk % Sh::KSTEPS) * 32;
+          mma_qk(s, slab_desc<SPAN>(sQw + off, 16, 8 * SPAN),
+                 slab_desc<SPAN>(kst + off, 16, 8 * SPAN), kk > 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -693,8 +758,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int e = 0; e < ACC; ++e) acc[e] *= corr[(e >> 1) & 1];
 
-        // O += P . V: 4 k-steps of 16 keys; V slab stride 8 KB (LBO),
-        // 8-key groups 1 KB apart (SBO)
+        // O += P . V: 4 k-steps of 16 keys; V's slabs SLAB_BYTES apart
+        // along the head dim (LBO), 8-key groups 8 SPAN bytes apart (SBO)
         mbar_wait(v_full(st), parity);
         const uint32_t vst = sV + st * TILE_BYTES;
         fence_regs(acc);
@@ -703,7 +768,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t dv = sw128_desc(vst + kk * 2048, SLAB_BYTES, 1024);
+          const uint64_t dv =
+              slab_desc<SPAN>(vst + kk * 16 * SPAN, SLAB_BYTES, 8 * SPAN);
           mma_pv(acc, ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2],
                  ph[4 * kk + 3], dv);
           mma_pv(acc, pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
@@ -770,10 +836,12 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // A (B, S, heads, HD) bf16 tensor as 4-D (HD, heads, S, B), read in
-// boxes of 64 columns x 64 rows of one head with the 128-byte swizzle;
-// rows past S read as zeros.
+// boxes of one slab (Shape<HD>::SLAB_COLS columns x 64 rows of one head)
+// with the slab's swizzle; rows past S read as zeros.
+template <int HD>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
-                     int heads, int HD) {
+                     int heads) {
+  using Sh = Shape<HD>;
   EncodeTiled encode;
   const cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -782,12 +850,14 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
                               cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t strides[3] = {HD * elem, cuuint64_t(heads) * HD * elem,
                                  cuuint64_t(S) * heads * HD * elem};
-  const cuuint32_t box[4] = {SLAB_COLS, 1, 64, 1};
+  const cuuint32_t box[4] = {Sh::SLAB_COLS, 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      Sh::SPAN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -814,9 +884,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KV, float scale, int causal,
                    int window, float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, B, S, H, HD);
-  if (err == cudaSuccess) err = make_map(&tk, k, B, S, KV, HD);
-  if (err == cudaSuccess) err = make_map(&tv, v, B, S, KV, HD);
+  cudaError_t err = make_map<HD>(&tq, q, B, S, H);
+  if (err == cudaSuccess) err = make_map<HD>(&tk, k, B, S, KV);
+  if (err == cudaSuccess) err = make_map<HD>(&tv, v, B, S, KV);
   if (err != cudaSuccess) return err;
   constexpr float LOG2E = 1.4426950408889634f;
   if (softcap > 0.f)
@@ -833,7 +903,8 @@ enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
 
 // dtype: 0 = float32, 1 = bfloat16.
 Design design_of(int dtype, int HD) {
-  if (dtype == 1 && (HD == 128 || HD == 256)) return WGMMA;
+  if (dtype == 1 && (HD == 64 || HD == 96 || HD == 128 || HD == 256))
+    return WGMMA;
   if ((dtype == 0 && (HD == 16 || HD == 128 || HD == 256)) ||
       (dtype == 1 && HD == 16))
     return SIMT;
@@ -856,11 +927,20 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (design_of(dtype, HD)) {
     case WGMMA:
-      if (HD == 128)
-        return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                               softcap, st);
-      return wg::launch<256>(q, k, v, o, B, S, H, KV, scale, causal, window,
-                             softcap, st);
+      switch (HD) {
+        case 64:
+          return wg::launch<64>(q, k, v, o, B, S, H, KV, scale, causal,
+                                window, softcap, st);
+        case 96:
+          return wg::launch<96>(q, k, v, o, B, S, H, KV, scale, causal,
+                                window, softcap, st);
+        case 128:
+          return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal,
+                                 window, softcap, st);
+        default:
+          return wg::launch<256>(q, k, v, o, B, S, H, KV, scale, causal,
+                                 window, softcap, st);
+      }
     case SIMT:
       if (dtype == 1)
         return simt::launch<__nv_bfloat16, 16>(q, k, v, o, B, S, H, KV, scale,
@@ -881,8 +961,10 @@ int flash_attention_forward(int dtype, const void* q, const void* k,
 // Dynamic shared memory of one block for (dtype, head_dim), or -1.
 int flash_attention_smem_bytes(int dtype, int HD) {
   switch (design_of(dtype, HD)) {
-    case WGMMA: return int(HD == 128 ? wg::Shape<128>::SMEM_BYTES
-                                     : wg::Shape<256>::SMEM_BYTES);
+    case WGMMA: return int(HD == 64    ? wg::Shape<64>::SMEM_BYTES
+                           : HD == 96  ? wg::Shape<96>::SMEM_BYTES
+                           : HD == 128 ? wg::Shape<128>::SMEM_BYTES
+                                       : wg::Shape<256>::SMEM_BYTES);
     case SIMT: return int(HD == 16    ? simt::smem_bytes<16>()
                           : HD == 128 ? simt::smem_bytes<128>()
                                       : simt::smem_bytes<256>());

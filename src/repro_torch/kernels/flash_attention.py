@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 ``csrc/flash_attention.cu``, built and loaded by ``_build`` at first use
 and called on PyTorch's current stream.  The C entry point chooses one of
 two designs by (dtype, head_dim): ``wgmma`` (tensor cores, TMA) for bf16
-at head_dim 256 and 128, ``simt`` (fp32 on the CUDA cores) for float32
-and for bf16 at head_dim 16; it refuses any other pair.
+at head_dim 256, 128, 96 and 64, ``simt`` (fp32 on the CUDA cores) for
+float32 at 256, 128 and 16 and for bf16 at head_dim 16; it refuses any
+other pair.
 """
 from __future__ import annotations
 
@@ -17,9 +18,12 @@ import torch
 from ._build import CudaLibrary
 
 # (dtype, head_dim) → design, as the C entry point routes them:
-# gemma2-2b's bf16 at 256 and mixtral-8x22b's at 128 on the tensor cores;
-# float32, and the smoke configs' head_dim 16, on the CUDA cores
+# gemma2-2b's bf16 at 256, mixtral-8x22b's (and qwen2-7b's,
+# deepseek-coder-33b's, phi3.5-moe's) at 128, phi3-mini-3.8b's at 96 and
+# musicgen-medium's at 64 on the tensor cores; float32, and the smoke
+# configs' head_dim 16, on the CUDA cores
 DESIGNS = {(torch.bfloat16, 256): "wgmma", (torch.bfloat16, 128): "wgmma",
+           (torch.bfloat16, 96): "wgmma", (torch.bfloat16, 64): "wgmma",
            (torch.float32, 256): "simt", (torch.float32, 128): "simt",
            (torch.float32, 16): "simt", (torch.bfloat16, 16): "simt"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,6 +86,17 @@ class FlashAttentionKernel:
         return out
 
 
+def design_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The design ``DESIGNS`` names for (dtype, head_dim); raises for a
+    pair that no design serves."""
+    design = DESIGNS.get((dtype, head_dim))
+    if design is None:
+        raise ValueError(f"flash attention kernel: no design for {dtype} at "
+                         f"head_dim {head_dim}; it takes "
+                         f"{sorted((str(d), n) for d, n in DESIGNS)}")
+    return design
+
+
 def _check_inputs(q, k, v, window, softcap) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -107,10 +122,7 @@ def _check_inputs(q, k, v, window, softcap) -> None:
     if s == 0 or b == 0 or k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"flash attention kernel: {h} q-heads over "
                          f"{k.shape[2]} KV heads, S={s}, B={b}")
-    if (q.dtype, hd) not in DESIGNS:
-        raise ValueError(f"flash attention kernel: no design for "
-                         f"{q.dtype} at head_dim {hd}; it takes "
-                         f"{sorted((str(d), n) for d, n in DESIGNS)}")
+    design_for(q.dtype, hd)
     if window < 0 or softcap < 0:
         raise ValueError("flash attention kernel: window and softcap must "
                          "be >= 0")

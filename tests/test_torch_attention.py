@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import DESIGNS, KERNEL
+from repro_torch.kernels.flash_attention import (DESIGNS, KERNEL,
+                                                  design_for)
 from repro_torch.models import attention as attn
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -71,6 +72,8 @@ def _check_against_jax(jx, arrays, dtype, tol, **kw):
     (1, 256, 8, 2, 16),      # GQA 4:1
     (1, 96, 2, 1, 32),       # ragged seq
     (1, 128, 8, 2, 256),     # gemma2's head_dim, GQA 4:1
+    (1, 128, 4, 4, 96),      # phi3-mini-3.8b's head_dim, MHA
+    (2, 128, 4, 2, 64),      # musicgen-medium's head_dim, GQA 2:1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_causal_matches_jax(jx, b, s, h, kv, hd, dtype):
@@ -236,6 +239,40 @@ def test_single_rounding_of_p_or_approx_tanh_misses_one_ulp(s, window):
     assert ref.err_over_tolerance(approx, want) > 1.0
 
 
+# phi3-mini-3.8b's widths (32 q-heads over 32 KV heads, hd 96) and
+# musicgen-medium's (24 over 24, hd 64), no softcap, no window: engine A's
+# two waves, ragged S (S % 64 != 0, S < 128), musicgen's 1,500 frames
+@pytest.mark.parametrize("h,hd,b,s", [
+    (32, 96, 4, 228), (32, 96, 4, 123), (32, 96, 1, 100), (32, 96, 1, 577),
+    (24, 64, 4, 228), (24, 64, 4, 123), (24, 64, 1, 100), (24, 64, 1, 1500)])
+def test_wgmma_arithmetic_hd96_hd64_within_one_bf16_ulp(h, hd, b, s):
+    """The same rounding points stay within one bf16 ulp at head_dim 96
+    and 64, whose larger 1/sqrt(hd) scale sharpens the softmax; P rounded
+    once to bf16 still misses, so the split into two parts stays; the
+    control drops the causal mask."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(b, s, h, h, hd, q_scale=4.0))
+    want = ref.attention_ref(q, k, v, causal=True)
+    got = _wgmma_arithmetic(q, k, v, window=0, softcap=0.0)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert ref.err_over_tolerance(got, want) <= 1.0
+    once = _wgmma_arithmetic(q, k, v, window=0, softcap=0.0, p_parts=1)
+    assert ref.err_over_tolerance(once, want) > 1.0
+    control = _wgmma_arithmetic(q, k, v, window=0, softcap=0.0, causal=False)
+    assert ref.err_over_tolerance(control, want) > 1.0
+
+
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 80), (torch.bfloat16, 32), (torch.bfloat16, 192),
+    (torch.float32, 96), (torch.float32, 64)])
+def test_unserved_head_dims_have_no_design(dtype, hd):
+    """bf16 at a head dim no config uses, and float32 at 96 and 64, which
+    no path needs, stay refused: the wrapper raises before any launch."""
+    assert (dtype, hd) not in DESIGNS
+    with pytest.raises(ValueError, match="no design"):
+        design_for(dtype, hd)
+
+
 # ---------------------------------------------------------------------------
 # attention layer: full-sequence, prefill with cache, decode
 # ---------------------------------------------------------------------------
@@ -313,6 +350,8 @@ def test_cross_attention_not_ported():
 # ---------------------------------------------------------------------------
 GEMMA2 = (16, 4, 256, 50.0)      # q-heads, KV heads, head_dim, softcap
 MIXTRAL = (48, 8, 128, 0.0)
+PHI3_MINI = (32, 32, 96, 0.0)
+MUSICGEN = (24, 24, 64, 0.0)
 
 
 def _check_on_card(b, s, window, dtype, zero_heads=False, widths=GEMMA2):
@@ -385,3 +424,53 @@ def test_kernel_hd128_matches_plain_on_card(b, s, window, dtype):
 def test_kernel_zero_q_heads_on_card():
     """Half the q-heads all zero, as gemma2-2b's 8 pad heads are."""
     _check_on_card(2, 200, 0, "bfloat16", zero_heads=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,window", [
+    # phi3-mini-3.8b's engines: engine A's two waves, one 4,000-token prompt
+    (4, 228, 0), (4, 123, 0), (1, 4000, 0),
+    # tile and ring edges at hd 96 (64 keys, 128 rows, 5 stages: 320 keys;
+    # three 32-column slabs), ragged S under 128
+    (1, 1, 0), (1, 63, 0), (1, 64, 0), (1, 65, 0), (1, 100, 0),
+    (1, 127, 0), (1, 128, 0), (1, 129, 0), (1, 320, 0), (1, 321, 0),
+    (1, 385, 0), (2, 1000, 0),
+    # windows, which the kernel takes at every head dim
+    (1, 700, 100), (1, 300, 37)])
+def test_kernel_hd96_matches_plain_on_card(b, s, window):
+    _check_on_card(b, s, window, "bfloat16", widths=PHI3_MINI)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,window", [
+    # musicgen-medium's engines: engine A's two waves, 1,500 frames
+    (4, 228, 0), (4, 123, 0), (1, 1500, 0),
+    # tile and ring edges at hd 64 (64 keys, 128 rows, 8 stages: 512 keys)
+    (1, 1, 0), (1, 63, 0), (1, 64, 0), (1, 65, 0), (1, 100, 0),
+    (1, 127, 0), (1, 129, 0), (1, 511, 0), (1, 512, 0), (1, 513, 0),
+    (1, 577, 0), (2, 1000, 0),
+    (1, 700, 100), (1, 300, 37)])
+def test_kernel_hd64_matches_plain_on_card(b, s, window):
+    _check_on_card(b, s, window, "bfloat16", widths=MUSICGEN)
+
+
+@pytest.mark.gpu
+def test_library_routes_as_designs_on_card():
+    """The C entry point routes every pair as ``DESIGNS`` names it (bf16 at
+    96 and 64 to ``wgmma``), and refuses the pairs that ``DESIGNS`` lacks;
+    the wrapper raises on them before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for (dtype, hd), design in DESIGNS.items():
+        assert KERNEL.design(dtype, hd) == design
+    assert KERNEL.design(torch.bfloat16, 96) == "wgmma"
+    assert KERNEL.design(torch.bfloat16, 64) == "wgmma"
+    before = KERNEL.launches
+    for dtype, hd in ((torch.bfloat16, 80), (torch.float32, 96),
+                      (torch.float32, 64)):
+        assert KERNEL.design(dtype, hd) is None
+        assert KERNEL.smem_bytes(dtype, hd) == -1
+        q = torch.zeros(1, 8, 2, hd, dtype=dtype, device="cuda")
+        with pytest.raises(ValueError, match="no design"):
+            KERNEL(q, q, q)
+    assert KERNEL.launches == before

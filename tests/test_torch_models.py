@@ -151,19 +151,20 @@ def test_forward_prefill_decode_match_jax(padded_heads):
     _check_caches(cache, jcache, pattern_len)
 
 
+def _layout(tree):
+    """(shape, dtype) of every leaf, in the tree's structure."""
+    if isinstance(tree, dict):
+        return {k: _layout(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_layout(v) for v in tree]
+    return (tuple(tree.shape), tree.dtype)
+
+
 def test_init_lm_layout_matches_converted():
     jcfg, cfg = _configs(8)
     _, converted = _weights(jcfg, cfg)
     fresh = init_lm(cfg, seed=0, device="cpu")
-
-    def shapes(tree):
-        if isinstance(tree, dict):
-            return {k: shapes(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [shapes(v) for v in tree]
-        return (tuple(tree.shape), tree.dtype)
-
-    assert shapes(fresh) == shapes(converted)
+    assert _layout(fresh) == _layout(converted)
     for bp in fresh["blocks"]:        # pad heads are zero at init
         assert not bp["mixer"]["wq"][:, cfg.num_heads:].any()
         assert not bp["mixer"]["wo"][cfg.num_heads:].any()
@@ -194,3 +195,175 @@ def test_unported_blocks_raise():
             layer_specs(cfg)
         with pytest.raises(NotImplementedError):
             init_lm(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the configs that need no new block: deepseek-coder-33b (56 q-heads
+# padded to 64 over 8 KV), phi3.5-moe (16 experts, top-2), phi3-mini-3.8b
+# (MHA) and musicgen-medium (the audio family, which runs the dense
+# decoder over frame ids); their smoke models at head_dim 16
+# ---------------------------------------------------------------------------
+NEW_ARCHS = ("deepseek-coder-33b", "phi3.5-moe-42b-a6.6b", "phi3-mini-3.8b",
+             "musicgen-medium")
+ARCHS = NEW_ARCHS + ("gemma2-2b", "mamba2-780m", "mixtral-8x22b",
+                     "qwen2-7b")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_equals_reference(arch, smoke):
+    """Every registered config is the reference's, field for field."""
+    assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+        dataclasses.asdict(jax_config(arch, smoke=smoke))
+
+
+def _smoke_model(arch, dtype):
+    jcfg = dataclasses.replace(jax_config(arch, smoke=True), dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    jp, _ = jax_init_lm(jax.random.PRNGKey(0), jcfg)
+    return jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                          device="cpu")
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}")
+    else:
+        yield path, tree
+
+
+# tokens whose dispatch differs from the reference's, per layer: float32
+# routes every token equally; in bfloat16 the layers' inputs differ by the
+# attention's roundings (the reference rounds its scores to bf16, see
+# ``test_torch_moe.py``), and 2 of the first layer's 80 tokens change
+# dispatch.  The count is asserted, not hidden
+MOE_FLIPS = {"float32": [0, 0], "bfloat16": [2, 0]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_smoke_models_match_jax(arch, dtype, monkeypatch):
+    """``forward``, ``forward_with_cache`` (logits and every cache leaf)
+    and 6 ``decode_step``s against the reference: in float32 within 1e-4,
+    in bfloat16 held to the reference's own bfloat16 accuracy against its
+    float32 run (``test_torch_moe._as_close``).  For phi3.5-moe the first
+    30 of row 0's tokens are token 0, as the engine left-pads a wave: they
+    route alike and overflow an expert's C = 25 slots; each layer's
+    routing is compared to the slot through the reference's dispatch
+    tensors, read by the stand-in for ``rules.constrain``."""
+    from test_torch_moe import _as_close, _dispatch_of, _Dispatches
+
+    from repro_torch.models import moe
+    jcfg, cfg, jp, p = _smoke_model(arch, dtype)
+    jcfg32 = dataclasses.replace(jcfg, dtype="float32")
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tokens = np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 40))
+    if cfg.num_experts:
+        tokens[0, :30] = 0
+    jtokens = jnp.asarray(tokens)
+    routings = []
+    route = moe.route
+    monkeypatch.setattr(moe, "route",
+                        lambda *a: routings.append(route(*a)) or routings[-1])
+    rec = _Dispatches()
+    with jax.disable_jit(cfg.num_experts > 0):
+        want, want_aux = jax_forward(jp, jtokens, jcfg, remat=False,
+                                     rules=rec if cfg.num_experts else None)
+    want32, _ = jax_forward(jp32, jtokens, jcfg32, remat=False)
+    got, aux = forward(p, torch.from_numpy(tokens), cfg)
+    assert got.dtype == torch.float32
+    _as_close(got, want, want32, dtype)
+    if cfg.num_experts:
+        assert len(routings) == len(rec.tensors) == cfg.num_layers
+        flips = [int((_dispatch_of(r) != d).any(axis=(2, 3)).sum())
+                 for r, d in zip(routings, rec.tensors)]
+        assert flips == MOE_FLIPS[dtype]
+        assert all(r.capacity == 25 and not r.kept[0].all()
+                   for r in routings)
+        if dtype == "float32":
+            _close(aux, want_aux, 1e-5)
+        else:
+            # the aux loss counts dispatches: a token that moves from
+            # expert a to b moves it by E (P_b - P_a) / (N k), up to 1/40
+            # here, so the 2 changed dispatches above are held to 1e-2,
+            # not to the reference's own bf16 error (2.3e-4)
+            assert abs(float(aux) - float(want_aux)) <= 1e-2
+    else:
+        assert not routings and float(aux) == 0.0
+
+    max_seq = 64
+    want, jcache, _ = jax_forward_with_cache(jp, jtokens, jcfg,
+                                             max_seq=max_seq)
+    want32, jcache32, _ = jax_forward_with_cache(jp32, jtokens, jcfg32,
+                                                 max_seq=max_seq)
+    got, cache, _ = forward_with_cache(p, torch.from_numpy(tokens), cfg,
+                                       max_seq=max_seq)
+    _as_close(got, want, want32, dtype)
+
+    def kv(port, ref, ref32):
+        for layer, c in enumerate(port):
+            for n in "kv":
+                assert c[n].shape == (2, max_seq, cfg.num_kv_heads,
+                                      cfg.head_dim)
+                _as_close(c[n].float(), ref[0][n][layer],
+                          ref32[0][n][layer], dtype)
+    kv(cache, jcache, jcache32)
+
+    # 6 decode steps of the float32 reference's greedy tokens, compared
+    # together: in bfloat16 one step's error ratio to the reference's
+    # ranges over 0.5-1.6 at these smoke models (an MoE token that changes
+    # dispatch in one step), so a step alone says little about accuracy
+    tok = np.array(jnp.argmax(want32[:, -1], axis=-1))
+    steps = []
+    for step in range(6):
+        pos = tokens.shape[1] + step
+        jtok = jnp.asarray(tok, jnp.int32)
+        want, jcache = jax_decode_step(jp, jcache, jtok, jnp.int32(pos), jcfg)
+        want32, jcache32 = jax_decode_step(jp32, jcache32, jtok,
+                                           jnp.int32(pos), jcfg32)
+        got, cache = decode_step(p, cache, torch.from_numpy(tok), pos, cfg)
+        steps.append((got.numpy(), np.asarray(want, np.float32),
+                      np.asarray(want32, np.float32)))
+        tok = np.array(jnp.argmax(want32, axis=-1))
+    got, want, want32 = (np.stack(s) for s in zip(*steps))
+    if dtype == "float32":
+        _close(got, want, 1e-4)
+    else:
+        _as_close(got, want, want32, dtype)
+    kv(cache, jcache, jcache32)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_params_from_jax_bit_exact_and_init_layout(arch):
+    """``params_from_jax`` of the reference's bfloat16 ``init_lm``: every
+    leaf of every layer with the reference's dtype (an MoE router stays
+    float32) and bytes; the port's own ``init_lm`` gives the same layout,
+    with deepseek's 8 pad q-heads zero."""
+    jcfg, cfg, jp, p = _smoke_model(arch, "bfloat16")
+    tree = jax.tree.map(np.asarray, jp)
+
+    def same(t, w):                  # dtype and bytes
+        bits, view = (np.int16, torch.int16) if w.dtype == ml_dtypes.bfloat16 \
+            else (np.int32, torch.int32)
+        return str(t.dtype) == f"torch.{w.dtype}" and \
+            np.array_equal(t.view(view).numpy(), w.view(bits))
+    assert len(p["blocks"]) == cfg.num_layers
+    for layer, bp in enumerate(p["blocks"]):
+        got = dict(_leaves(bp))
+        want = dict(_leaves(tree["blocks"][0]))      # stacked over layers
+        assert got.keys() == want.keys()
+        assert all(same(got[n], w[layer]) for n, w in want.items())
+    got = dict(_leaves({"embed": p["embed"], "final_norm": p["final_norm"]}))
+    want = _leaves({"embed": tree["embed"], "final_norm": tree["final_norm"]})
+    assert all(same(got[n], w) for n, w in want)
+
+    assert _layout(init_lm(cfg, seed=0, device="cpu")) == _layout(p)
+    full = get_config(arch)
+    if full.padded_heads:          # deepseek: 56 heads padded to 64
+        assert full.resolved_num_heads == 64 and full.num_kv_heads == 8
+        padded = dataclasses.replace(cfg, padded_heads=8)
+        fresh = init_lm(padded, seed=0, device="cpu")
+        for bp in fresh["blocks"]:
+            assert not bp["mixer"]["wq"][:, cfg.num_heads:].any()
+            assert not bp["mixer"]["wo"][cfg.num_heads:].any()

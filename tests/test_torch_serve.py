@@ -1,5 +1,6 @@
 """The port's serving engine against ``repro.serve`` on the CPU: gemma2
-(attention), mamba2 (SSM) and mixtral (MoE) smoke models."""
+(attention), mamba2 (SSM) and mixtral (MoE) smoke models, and those of
+deepseek-coder-33b, phi3.5-moe, phi3-mini-3.8b and musicgen-medium."""
 import dataclasses
 
 import jax
@@ -119,6 +120,47 @@ def test_mixtral_generate_matches_jax(mixtral_weights, monkeypatch):
     assert all(r.capacity == 13 and not r.kept.all() for r in first_wave)
     decode = [r for r in routings if r.probs.shape[1] == 1]
     assert decode and all(r.capacity == 4 and r.kept.all() for r in decode)
+    assert KERNEL.launches == before             # the CPU path is plain
+
+
+NEW_ARCHS = ("deepseek-coder-33b", "phi3.5-moe-42b-a6.6b", "phi3-mini-3.8b",
+             "musicgen-medium")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_generate_matches_jax(arch, monkeypatch):
+    """The four configs that need no new block, through the engine: greedy
+    tokens and EngineStats equal to the reference engine's, one request
+    stopped at its eos_id.  phi3.5-moe's first wave left-pads prompt 0
+    from 3 to 20 tokens, so its pads overflow an expert's C = 13 slots as
+    mixtral's do; decode routes with C = 4 and drops nothing."""
+    jcfg, cfg, jp, p = _weights(arch)
+    lengths = (3, 20, 9) if cfg.num_experts else (5, 11, 8)
+    _, free_run, _, _ = _serve(jcfg, cfg, jp, p, (-1, -1, -1), lengths)
+    # stop request 2 at the first token it produced, past its first, that
+    # it had not produced before
+    out = free_run[2].output
+    stop = next(j for j in range(1, len(out)) if out[j] not in out[:j])
+    eos = out[stop]
+    routings = []
+    route = moe.route
+    monkeypatch.setattr(moe, "route",
+                        lambda *a: routings.append(route(*a)) or routings[-1])
+    before = KERNEL.launches
+    ref, ref_out, port, port_out = _serve(jcfg, cfg, jp, p, (-1, -1, eos),
+                                          lengths)
+    assert [r.output for r in port_out] == [r.output for r in ref_out]
+    assert [r.done for r in port_out] == [r.done for r in ref_out]
+    assert len(port_out[2].output) == stop + 1   # stopped at its eos_id
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    if cfg.num_experts:
+        first_wave = routings[:cfg.num_layers]
+        assert all(r.capacity == 13 and not r.kept.all() for r in first_wave)
+        decode = [r for r in routings if r.probs.shape[1] == 1]
+        assert decode and all(r.capacity == 4 and r.kept.all()
+                              for r in decode)
+    else:
+        assert not routings
     assert KERNEL.launches == before             # the CPU path is plain
 
 
