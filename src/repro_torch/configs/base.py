@@ -191,6 +191,29 @@ def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
 
 
+@dataclasses.dataclass(frozen=True)
+class DepthCut(ArchConfig):
+    """A harness's cut of a model to its first ``num_layers`` layers, for a
+    model whose pattern group alone does not fit one card
+    (jamba-1.5-large: one 8-layer group is 90.3 GB of bf16).  Its pattern
+    is those layers, one group of them, so ``num_groups`` is 1; every
+    width and every other field is the model's.  It adds no field.  Build
+    it with ``depth_cut``; a plain ``ArchConfig`` whose layers are not
+    whole groups still raises in ``num_groups``."""
+
+    def pattern(self) -> List[BlockSpec_]:
+        full = ArchConfig.pattern(self)
+        return (full * -(-self.num_layers // len(full)))[:self.num_layers]
+
+
+def depth_cut(cfg: ArchConfig, layers: int) -> DepthCut:
+    """``cfg`` cut to the first ``layers`` layers of its stack."""
+    if not 0 < layers <= cfg.num_layers:
+        raise ValueError(f"{cfg.name}: cannot cut {cfg.num_layers} layers "
+                         f"to {layers}")
+    return DepthCut(**{**dataclasses.asdict(cfg), "num_layers": layers})
+
+
 @dataclasses.dataclass
 class ArchEntry:
     full: ArchConfig
@@ -217,5 +240,6 @@ def _ensure_loaded() -> None:
     # every config module, each imported once: a registry holding some
     # configs (one module imported directly) is not a loaded one
     from . import (deepseek_coder_33b, gemma2_2b,  # noqa: F401
-                   mamba2_780m, mixtral_8x22b, musicgen_medium,
-                   phi3_5_moe, phi3_mini_3_8b, qwen2_7b)
+                   jamba_1_5_large, llama_3_2_vision_90b, mamba2_780m,
+                   mixtral_8x22b, musicgen_medium, phi3_5_moe,
+                   phi3_mini_3_8b, qwen2_7b)

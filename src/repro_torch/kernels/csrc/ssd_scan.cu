@@ -3,15 +3,19 @@
 //   Y[i] = sum_{j <= i} (C_i . B_j) * exp(cum_i - cum_j) * dt_j * x_j
 //
 // within each chunk of Q rows, per head, with B and C shared by all heads
-// (ngroups 1).  Two designs, chosen explicitly by (P, N):
+// (ngroups 1).  Three designs, chosen explicitly by (P, N):
 //
-//   wgmma  (P, N) = (64, 128), mamba2-780m's widths: every launch of its
-//          serving path.  Both products on the tensor cores in TF32 at
-//          3xTF32 precision.
-//   simt   (P, N) = (16, 16), the smoke config's widths.  fp32 FMAs on
-//          the CUDA cores.
+//   wgmma       (P, N) = (64, 128), mamba2-780m's widths: every launch of
+//               its serving path.  Both products on the tensor cores in
+//               TF32 at 3xTF32 precision.
+//   wgmma_p128  (P, N) = (128, 128), jamba-1.5-large's widths: every
+//               launch of its serving path.  The same kernel, a template
+//               over P, walking each head's P in two 64-column passes
+//               (see the last note below).
+//   simt        (P, N) = (16, 16), the smoke config's widths.  fp32 FMAs
+//               on the CUDA cores.
 //
-// Any other (P, N) is refused.  Neither design falls back to the other.
+// Any other (P, N) is refused.  No design falls back to another.
 //
 // Replaces: the Pallas TPU kernel `_ssd_kernel` / `ssd_intra` in
 // src/repro/kernels/ssd_scan.py, which holds a whole Q x Q tile of one
@@ -77,6 +81,36 @@
 //   * the heaviest (latest) query tiles of every (batch, chunk, head
 //     group) are scheduled first; the head group shrinks (16, 8, 4) when
 //     the grid would not give each SM two blocks.
+//
+// The wgmma_p128 design (P 128): what doubles at P = 128 is each head's
+// accumulator (64 registers a thread), each 32-key step's X_h^T staging
+// (32 KB of hi + lo a warpgroup) and the bytes.  Two ways were open: one
+// m64n128k8 product a k-step, or two passes over the head's P of 64
+// columns each.  The first holds 64 accumulator registers beside M's 32
+// (hi and lo) and the 16 of the next step's X loads: past the 128
+// registers that two blocks an SM allow, so one block of 8 warps an SM,
+// the occupancy that left loads, barriers and product chains exposed
+// above, and 64 KB of staging beside the scores.  The passes keep the P 64
+// design's registers (128 a thread), its 97.5 KB of shared memory at Q 256
+// and its two blocks an SM; a pass is a unit of phase 2 as a head was
+// (the two warpgroups take alternate passes, so each takes one half of
+// every head).  The scores are still formed once per (query tile, head
+// group, batch x chunk) and read by both passes; what the second pass
+// repeats is M (the exp and the split, on the CUDA cores) and the reads
+// of the scores from shared memory.  X is read once and Y written once.
+// It is not the P 64 design over 2H heads: that would form the scores of
+// every head group twice.  ptxas (-Xptxas -v, sm_90a) gives it 128
+// registers a thread with 36 B of spill stores and 48 B of spill loads
+// (the P 64 instance: 24 and 40 B); its dynamic shared memory is the P 64
+// design's, 99,840 B a block at Q 256 (1 KB of alignment, 32 KB of
+// staging, 16 KB a key tile of scores, 512 B of cum and dt), so two
+// blocks an SM.
+//
+// Its bound at jamba-1.5-large's 8,000-token prompt (B 1, NC 32, Q 256,
+// H 128, P 128, N 128): x in and y out are 1.07 GB, 0.32 ms at 3.35
+// TB/s; the operations, Q(Q+1)/2 (2N + 2HP) a chunk, are 3.48e10, or
+// 1.04e11 in 3xTF32, 0.21 ms at 495 TFLOP/s.  So bytes bound it, as at
+// P 64.
 //
 // The simt design: one block per (64 query rows, 4 heads, batch x chunk)
 // and 256 threads each owning 4 x 4 scores and 4 x (P/16) outputs per
@@ -286,11 +320,11 @@ cudaError_t launch(const void* x, const void* dt, const void* cum,
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// wgmma design (P 64, N 128)
+// wgmma designs (P 64 and P 128, N 128)
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int P = 64;
+constexpr int PH = 64;                  // P columns a pass: the product's N
 constexpr int N = 128;
 constexpr int BQ = 64;                  // query rows per block: wgmma's M
 constexpr int BK = 64;                  // keys per tile
@@ -439,20 +473,22 @@ __device__ __forceinline__ void stage_rows(uint32_t hi, uint32_t lo,
   }
 }
 
-// A step of phase 2 is 32 keys [k0, k0 + 32) of one head.  This thread
-// (of its warpgroup's 128) loads X keys k0 + 8 g8 + 2 m + par (m < 4) at
-// P columns 4 pq .. 4 pq + 3, and (threads < 64) cum or dt of key
-// k0 + tid % 32.  Keys at or beyond Q are zero.
+// A step of phase 2 is 32 keys [k0, k0 + 32) of one head's pass, the 64
+// P columns from c0 of rows XP long.  This thread (of its warpgroup's 128)
+// loads X keys k0 + 8 g8 + 2 m + par (m < 4) at P columns c0 + 4 pq ..
+// c0 + 4 pq + 3, and (threads < 64) cum or dt of key k0 + tid % 32.  Keys
+// at or beyond Q are zero.
+template <int XP>
 __device__ __forceinline__ void load_step(float4 (&v)[4], float& side,
                                           const float* xb, const float* cumb,
-                                          const float* dtb, int h, int k0,
-                                          int H, int Q, int g8, int par,
-                                          int pq, int tid) {
+                                          const float* dtb, int h, int c0,
+                                          int k0, int H, int Q, int g8,
+                                          int par, int pq, int tid) {
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     const int key = k0 + 8 * g8 + 2 * m + par;
     v[m] = key < Q ? *reinterpret_cast<const float4*>(
-                         xb + (size_t(key) * H + h) * P + 4 * pq)
+                         xb + (size_t(key) * H + h) * XP + c0 + 4 * pq)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const int key = k0 + tid % 32;
@@ -485,10 +521,13 @@ __device__ __forceinline__ void store_step(uint32_t stage, float* small,
   if (tid < 64) small[tid] = side;
 }
 
-// x, y: (B, NC, Q, H, 64); dt, cum: (B, NC, Q, H); b, c: (B, NC, Q, 128);
+// x, y: (B, NC, Q, H, XP); dt, cum: (B, NC, Q, H); b, c: (B, NC, Q, 128);
 // all contiguous float32.  grid: ceil(Q / BQ) * n_groups * B * NC blocks,
-// the latest query tiles first; head group g holds heads [g hg, g hg + hg),
-// warpgroup w of the block every other one of them from g hg + w.
+// the latest query tiles first; head group g holds heads [g hg, g hg + hg).
+// Phase 2 walks the group's passes, a pass being one head's 64 P columns
+// (XP / 64 passes a head), and warpgroup w takes every other pass from
+// the group's first plus w.
+template <int XP>
 __global__ void __launch_bounds__(NT, 2)
     ssd_wgmma_kernel(const float* __restrict__ x,
                      const float* __restrict__ dt,
@@ -513,10 +552,10 @@ __global__ void __launch_bounds__(NT, 2)
   const int h1 = min(H, h0 + hg);
   const float* cb = cm + bc * Q * N;
   const float* bb = bm + bc * Q * N;
-  const float* xb = x + bc * Q * H * P;
+  const float* xb = x + bc * Q * H * XP;
   const float* dtb = dt + bc * Q * H;
   const float* cumb = cum + bc * Q * H;
-  float* yb = y + bc * Q * H * P;
+  float* yb = y + bc * Q * H * XP;
 
   const int wgi = threadIdx.x / 128;             // warpgroup
   const int tid = threadIdx.x % 128;             // thread in it
@@ -578,15 +617,17 @@ __global__ void __launch_bounds__(NT, 2)
   }
   __syncthreads();  // every score stored; the slabs are free
 
-  // ---- phase 2: per head, Y_h = M_h . X_h, 32 keys a step ----
-  // Each warpgroup runs its own heads through its own stage (16 KB of the
+  // ---- phase 2: per pass, Y_h = M_h . X_h, 32 keys a step ----
+  // Each warpgroup runs its own passes through its own stage (16 KB of the
   // slabs) and its own barrier; the next step's X loads are issued before
   // this step's M and products, so they arrive meanwhile.
+  constexpr int NPASS = XP / PH;  // passes a head
   const uint32_t stage = ops + wgi * 2 * SLAB;
   float* small = sSmall + wgi * 64;
   const int g8 = (lane % 8) / 2, par = lane % 2, pq = lane / 8 + 4 * warp;
-  const int sph = 2 * n_tiles;  // steps per head
-  for (int h = h0 + wgi; h < h1; h += 2) {
+  const int sph = 2 * n_tiles;  // steps per pass
+  for (int u = h0 * NPASS + wgi; u < h1 * NPASS; u += 2) {
+    const int h = u / NPASS, c0 = (u % NPASS) * PH;
     float acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
@@ -598,7 +639,8 @@ __global__ void __launch_bounds__(NT, 2)
     }
     float4 v[4];
     float side;
-    load_step(v, side, xb, cumb, dtb, h, 0, H, Q, g8, par, pq, tid);
+    load_step<XP>(v, side, xb, cumb, dtb, h, c0, 0, H, Q, g8, par, pq,
+                  tid);
     for (int st = 0; st < sph; ++st) {
       const int t = st / 2, half = st % 2;
       wg_sync(wgi);  // the last products are done with the stage
@@ -606,8 +648,8 @@ __global__ void __launch_bounds__(NT, 2)
       fence_async_smem();
       wg_sync(wgi);
       if (st + 1 < sph)
-        load_step(v, side, xb, cumb, dtb, h, (st + 1) * 32, H, Q, g8, par,
-                  pq, tid);
+        load_step<XP>(v, side, xb, cumb, dtb, h, c0, (st + 1) * 32, H, Q, g8,
+                      par, pq, tid);
       // M in the accumulator layout of the step's 32 keys, masked before
       // exp is formed, as hi + lo
       uint32_t mh[16], ml[16];
@@ -649,9 +691,9 @@ __global__ void __launch_bounds__(NT, 2)
     for (int r = 0; r < 2; ++r) {
       const int row = row_a + 8 * r;
       if (row >= Q) continue;
-      float* out = yb + (size_t(row) * H + h) * P + 2 * tq;
+      float* out = yb + (size_t(row) * H + h) * XP + c0 + 2 * tq;
 #pragma unroll
-      for (int j = 0; j < P / 8; ++j)
+      for (int j = 0; j < PH / 8; ++j)
         *reinterpret_cast<float2*>(out + 8 * j) =
             make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
@@ -675,21 +717,22 @@ int head_group(int blocks_per_group, int H) {
   return 4;
 }
 
+template <int XP>
 cudaError_t launch(const void* x, const void* dt, const void* cum,
                    const void* b, const void* c, void* y, int B, int NC,
                    int Q, int H, cudaStream_t stream) {
   if (Q > MAX_TILES * BK) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(Q);
+  auto kernel = ssd_wgmma_kernel<XP>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int n_qt = (Q + BQ - 1) / BQ;
   const int hg = head_group(n_qt * B * NC, H);
   const long long blocks =
       (long long)n_qt * ((H + hg - 1) / hg) * B * NC;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-  ssd_wgmma_kernel<<<unsigned(blocks), NT, smem, stream>>>(
+  kernel<<<unsigned(blocks), NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(cum), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<float*>(y), Q, H, hg,
@@ -699,10 +742,11 @@ cudaError_t launch(const void* x, const void* dt, const void* cum,
 
 }  // namespace wg
 
-enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
+enum Design { NONE = -1, SIMT = 0, WGMMA = 1, WGMMA_P128 = 2 };
 
 Design design_of(int P, int N) {
   if (P == 64 && N == 128) return WGMMA;
+  if (P == 128 && N == 128) return WGMMA_P128;
   if (P == 16 && N == 16) return SIMT;
   return NONE;
 }
@@ -711,7 +755,8 @@ Design design_of(int P, int N) {
 
 extern "C" {
 
-// The design that serves (P, N): 1 = wgmma, 0 = simt, -1 = none.
+// The design that serves (P, N): 2 = wgmma_p128, 1 = wgmma, 0 = simt,
+// -1 = none.
 int ssd_scan_design(int P, int N) { return design_of(P, N); }
 
 // Returns a cudaError_t (0 = success).
@@ -721,7 +766,9 @@ int ssd_scan_intra(const void* x, const void* dt, const void* cum,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (design_of(P, N)) {
     case WGMMA:
-      return wg::launch(x, dt, cum, b, c, y, B, NC, Q, H, st);
+      return wg::launch<64>(x, dt, cum, b, c, y, B, NC, Q, H, st);
+    case WGMMA_P128:
+      return wg::launch<128>(x, dt, cum, b, c, y, B, NC, Q, H, st);
     case SIMT:
       return simt::launch<16, 16>(x, dt, cum, b, c, y, B, NC, Q, H, st);
     default:
@@ -732,7 +779,8 @@ int ssd_scan_intra(const void* x, const void* dt, const void* cum,
 // Dynamic shared memory of one block at (P, N) and chunk length Q, or -1.
 int ssd_scan_smem_bytes(int P, int N, int Q) {
   switch (design_of(P, N)) {
-    case WGMMA: return int(wg::smem_bytes(Q));
+    case WGMMA:
+    case WGMMA_P128: return int(wg::smem_bytes(Q));
     case SIMT: return int(simt::smem_bytes<16, 16>());
     default: return -1;
   }

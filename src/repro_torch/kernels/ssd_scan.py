@@ -15,12 +15,14 @@ import torch
 from ._build import CudaLibrary
 
 # (P, N) → design, as the C entry point routes them: mamba2-780m's
-# (64, 128) on the tensor cores, its smoke config's (16, 16) on the CUDA
-# cores.  The chunk length Q is a runtime value, at most WGMMA_MAX_Q on
-# wgmma (12 key tiles of scores in shared memory).
-DESIGNS = {(64, 128): "wgmma", (16, 16): "simt"}
+# (64, 128) and jamba-1.5-large's (128, 128) on the tensor cores (the
+# latter in two 64-column passes a head), the smoke configs' (16, 16) on
+# the CUDA cores.  The chunk length Q is a runtime value, at most
+# WGMMA_MAX_Q on both wgmma designs (12 key tiles of scores in shared
+# memory).
+DESIGNS = {(64, 128): "wgmma", (128, 128): "wgmma_p128", (16, 16): "simt"}
 WGMMA_MAX_Q = 768
-_DESIGN_CODES = {0: "simt", 1: "wgmma"}
+_DESIGN_CODES = {0: "simt", 1: "wgmma", 2: "wgmma_p128"}
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("ssd_scan", {
     "ssd_scan_intra": ([_vp] * 6 + [_ci] * 6 + [_vp], _ci),
@@ -74,21 +76,18 @@ class SSDIntraKernel:
 
 
 def _check_inputs(x, dt, cum, b_in, c_in) -> None:
+    """Raises on anything the kernel does not take: ranks, dtypes and
+    shapes first, then the (P, N) and Q the designs serve, then the device
+    and alignment, so the first two are checked on any device."""
     named = (("x", x, 5), ("dt", dt, 4), ("cum", cum, 4), ("b_in", b_in, 4),
              ("c_in", c_in, 4))
     for name, t, dim in named:
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"ssd_intra kernel: {name} is on {t.device}, "
-                             f"not the CUDA device of x")
         if t.dtype != torch.float32:
             raise ValueError(f"ssd_intra kernel: {name} is {t.dtype}; "
                              f"needs float32")
         if t.dim() != dim or not t.is_contiguous():
             raise ValueError(f"ssd_intra kernel: {name} must be a "
                              f"contiguous {dim}-D tensor")
-        if t.data_ptr() % 16:
-            raise ValueError(f"ssd_intra kernel: {name} is not 16-byte "
-                             f"aligned")
     bsz, nc, q, h, p = x.shape
     n = b_in.shape[-1]
     if dt.shape != (bsz, nc, q, h) or cum.shape != dt.shape or \
@@ -99,12 +98,19 @@ def _check_inputs(x, dt, cum, b_in, c_in) -> None:
     if (p, n) not in DESIGNS:
         raise ValueError(f"ssd_intra kernel: (P, N) = ({p}, {n}) not in "
                          f"{tuple(DESIGNS)}")
-    if DESIGNS[(p, n)] == "wgmma" and q > WGMMA_MAX_Q:
-        raise ValueError(f"ssd_intra kernel: Q={q} above the wgmma "
-                         f"design's {WGMMA_MAX_Q}")
+    if DESIGNS[(p, n)] != "simt" and q > WGMMA_MAX_Q:
+        raise ValueError(f"ssd_intra kernel: Q={q} above the "
+                         f"{DESIGNS[(p, n)]} design's {WGMMA_MAX_Q}")
     if min(bsz, nc, q, h) == 0 or bsz * nc > 65535:
         raise ValueError(f"ssd_intra kernel: B={bsz}, NC={nc}, Q={q}, "
                          f"H={h}; needs each >= 1 and B*NC <= 65535")
+    for name, t, _ in named:
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"ssd_intra kernel: {name} is on {t.device}, "
+                             f"not the CUDA device of x")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_intra kernel: {name} is not 16-byte "
+                             f"aligned")
 
 
 KERNEL = SSDIntraKernel()

@@ -1,5 +1,5 @@
-"""Decoder LMs: the dense (attention), MoE and SSM families, with decode
-caches."""
+"""Decoder LMs: the dense (attention), MoE, SSM, hybrid (SSM and
+attention) and VLM (cross-attention) families, with decode caches."""
 from .convert import jax_layout, param_checksums, params_from_jax
 from .model import (decode_step, forward, forward_with_cache,
                     init_decode_cache, init_lm)

@@ -1,15 +1,23 @@
-"""Attention: GQA self-attention, full-sequence (prefill) and decode paths.
+"""Attention: GQA self-attention and gated cross-attention, full-sequence
+(prefill) and decode paths.
 
-* The full-sequence path goes through ``kernels.ops.flash_attention``: on
-  the card the hand-written kernel (causal, sliding window, softcap, KV
-  read per group, never repeated), on the CPU its plain version.
+* The self-attention full-sequence path goes through
+  ``kernels.ops.flash_attention``: on the card the hand-written kernel
+  (causal, sliding window, softcap, KV read per group, never repeated),
+  on the CPU its plain version.
 * Decode keeps the reference's caches: a ring buffer of ``window`` slots
   for sliding-window layers and a dense cache for global layers, both
   unrepeated over KV heads.  Decode is plain PyTorch, as the reference
   computes it outside any kernel.  Unlike the reference, it writes the new
   token's K/V into the cache in place instead of copying the cache.
-
-Cross-attention is not ported yet.
+* Cross-attention (llama-3.2-vision's image layers, ``init_attention(...,
+  cross=True)``): q from the text, k and v from the image states, no RoPE
+  and no mask, an f32 softmax, the output scaled by ``tanh(gate)``.  It is
+  plain PyTorch, as the reference computes it with einsums outside any
+  kernel; it keeps no cache.  Given no image states, a cross-attention
+  layer runs as the reference runs it then: ungated causal self-attention
+  with RoPE (prefill through the flash kernel; decode over the current
+  token alone, ``decode_cross_attention``).
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ NEG_INF = -2.0 ** 30
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig,
-                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                   dtype=torch.float32, cross: bool = False
+                   ) -> Dict[str, torch.Tensor]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.resolved_num_heads, cfg.num_kv_heads
     p = {"wq": dense_init(gen, (d, h, hd), dtype=dtype),
@@ -41,6 +50,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig,
         p["bq"] = torch.zeros((h, hd), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=dev)
+    if cross:
+        # the gate of llama-3.2-vision's cross-attention, zero at init
+        p["gate"] = torch.zeros((), dtype=dtype, device=gen.device)
     return p
 
 
@@ -79,15 +91,31 @@ def _self_attention(p, x: torch.Tensor, cfg: ArchConfig,
     return _out_proj(out, p["wo"]), k, v
 
 
+def _cross_attention(p, x: torch.Tensor, cross_states: torch.Tensor,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """Every query over every image state: x (B, S, D), cross_states
+    (B, T, D) → (B, S, D), scaled by tanh(gate) where the layer has one."""
+    q, k, v = _project_qkv(p, x, cross_states.to(x.dtype), cfg, None, None,
+                           rope=False)
+    g = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    scores = softcap(torch.einsum("bshd,bthd->bhst", q, k)
+                     / cfg.resolved_head_dim ** 0.5, cfg.attn_logit_softcap)
+    probs = torch.softmax(scores.float(), dim=-1)
+    out = _out_proj(torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v),
+                    p["wo"])
+    return torch.tanh(p["gate"]) * out if "gate" in p else out
+
+
 def attention_forward(p, x: torch.Tensor, cfg: ArchConfig,
                       positions: torch.Tensor, window: int = 0,
                       cross_states: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Causal (optionally sliding-window) self-attention over the full
-    sequence.  x: (B, S, D); positions broadcastable to (B, S)."""
+    sequence, or cross-attention to ``cross_states`` (B, T, D) when they
+    are given.  x: (B, S, D); positions broadcastable to (B, S)."""
     if cross_states is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (see ROADMAP.md)")
+        return _cross_attention(p, x, cross_states, cfg)
     return _self_attention(p, x, cfg, positions, window)[0]
 
 
@@ -163,3 +191,19 @@ def decode_attention(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     probs = torch.softmax(scores.float(), dim=-1)
     out = _gqa_out(probs.to(v.dtype), v)
     return _out_proj(out, p["wo"]), cache
+
+
+def decode_cross_attention(p, x: torch.Tensor, pos: int, cfg: ArchConfig,
+                           cross_states: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """A cross-attention layer's one-token decode, x (B, 1, D): over
+    ``cross_states`` when given; else, as the reference's decode runs such
+    a layer without them, causal self-attention over the current token
+    alone (RoPE at ``pos``, no gate, no cache)."""
+    if cross_states is not None:
+        return _cross_attention(p, x, cross_states, cfg)
+    positions = torch.full((1, 1), pos, device=x.device)
+    q, k, v = _project_qkv(p, x, x, cfg, positions, positions, rope=True)
+    scores = _gqa_scores(q, k, cfg.attn_logit_softcap)      # (B,KV,G,1,1)
+    probs = torch.softmax(scores.float(), dim=-1)
+    return _out_proj(_gqa_out(probs.to(v.dtype), v), p["wo"])

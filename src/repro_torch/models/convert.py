@@ -3,7 +3,9 @@
 The reference keeps per-pattern-position parameters stacked over groups
 (``params["blocks"][pos]`` leaves have a leading ``num_groups`` axis); the
 port keeps one dictionary per layer in execution order, layer
-``g * len(pattern) + pos``.  ``params_from_jax`` reads the reference's
+``g * len(pattern) + pos``.  Every block kind carries across: a hybrid
+block's SSM mixer beside its ``norm2`` and ``ffn``, a cross-attention
+block's scalar ``gate``.  ``params_from_jax`` reads the reference's
 layout (numpy or tensor leaves), ``jax_layout`` writes it (tensor
 leaves): what a checkpoint of the reference's holds.
 """
@@ -86,6 +88,9 @@ def jax_layout(params: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
     if len(blocks) % pattern_len:
         raise ValueError(f"{len(blocks)} layers, not whole groups of "
                          f"{pattern_len}")
+    if len(blocks) != len(layer_specs(cfg)):
+        raise ValueError(f"{len(blocks)} layers; {cfg.name} has "
+                         f"{cfg.num_layers}")
 
     def stack(trees):
         if isinstance(trees[0], dict):

@@ -6,12 +6,18 @@ order is the reference's: group-major over ``cfg.pattern()``, so layer
 ``g * len(pattern) + i`` is pattern position ``i`` of group ``g``.  The
 layers run as a Python loop.  Caches are a list in the same order.
 
-Ported blocks: attention mixers (global and sliding-window) with the
-dense or the MoE FFN, and Mamba-2 SSM mixers with no FFN (the SSM
-family).  Each layer dispatches on its mixer and its FFN as the
-reference does; the full-sequence passes return the sum of the MoE
-layers' aux losses.  Cross-attention and hybrid stacks (SSM mixers with
-an FFN) raise ``NotImplementedError``.
+Every block kind of the reference runs: attention mixers (global and
+sliding-window), Mamba-2 SSM mixers and cross-attention mixers, each
+with no FFN, the dense FFN or the MoE FFN, as the pattern gives them
+(the SSM family's SSM blocks with none; jamba's hybrid stack of SSM and
+attention mixers with dense and MoE FFNs; llama-3.2-vision's
+cross-attention layers with dense FFNs).  Each layer dispatches on its
+mixer and its FFN as the reference does; the full-sequence passes return
+the sum of the MoE layers' aux losses.  ``image_embeds`` (B, T, D) go to
+the cross-attention layers; without them those layers run as the
+reference runs them then (ungated causal self-attention), which is what
+serving gives them.  A cross-attention layer keeps no decode cache: its
+entry in the cache list is an empty dictionary.
 """
 from __future__ import annotations
 
@@ -19,9 +25,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..configs.base import (FFN_MOE, FFN_NONE, MIXER_ATTN,
-                            MIXER_ATTN_LOCAL, MIXER_SSM, ArchConfig,
-                            BlockSpec_)
+from ..configs.base import (FFN_MOE, FFN_NONE, MIXER_ATTN_LOCAL, MIXER_SSM,
+                            MIXER_XATTN, ArchConfig, BlockSpec_)
 from ..device import resolve_device
 from . import attention as attn
 from . import moe, ssm
@@ -36,17 +41,23 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def layer_specs(cfg: ArchConfig) -> List[BlockSpec_]:
-    """The block kind of every layer, in execution order.  Raises for the
-    kinds the port does not run yet."""
-    specs = cfg.pattern() * cfg.num_groups()
-    for spec in specs:
-        attention = spec.mixer in (MIXER_ATTN, MIXER_ATTN_LOCAL)
-        ssm_only = (spec.mixer, spec.ffn) == (MIXER_SSM, FFN_NONE)
-        if not (attention or ssm_only):
-            raise NotImplementedError(
-                f"{cfg.name}: block ({spec.mixer}, {spec.ffn}) is not ported "
-                f"yet; the port runs attention mixers with dense or MoE "
-                f"FFNs and SSM mixers with no FFN")
+    """The block kind of every layer, in execution order: the pattern over
+    its groups.  ``num_groups`` raises where the layers are not whole
+    groups, as in the reference."""
+    return cfg.pattern() * cfg.num_groups()
+
+
+def _specs(cfg: ArchConfig, params: Params,
+           cache: Optional[List[Dict]] = None) -> List[BlockSpec_]:
+    """``layer_specs``, checked against the blocks (and the caches): one
+    length, so that no loop over them stops early."""
+    specs = layer_specs(cfg)
+    lengths = {"block kinds": len(specs), "blocks": len(params["blocks"])}
+    if cache is not None:
+        lengths["caches"] = len(cache)
+    if len(set(lengths.values())) != 1:
+        raise ValueError(f"{cfg.name}: {lengths} differ; the parameters and "
+                         f"caches must be of this config's layers")
     return specs
 
 
@@ -62,11 +73,14 @@ def init_lm(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
     gen = torch.Generator(device=dev).manual_seed(seed)
     blocks = []
     for spec in layer_specs(cfg):
-        init_mixer = ssm.init_ssm if spec.mixer == MIXER_SSM else \
-            attn.init_attention
+        if spec.mixer == MIXER_SSM:
+            mixer = ssm.init_ssm(gen, cfg, dtype=dt)
+        else:
+            mixer = attn.init_attention(gen, cfg, dtype=dt,
+                                        cross=spec.mixer == MIXER_XATTN)
         bp: Params = {
             "norm1": torch.zeros(cfg.d_model, dtype=dt, device=dev),
-            "mixer": init_mixer(gen, cfg, dtype=dt)}
+            "mixer": mixer}
         if spec.ffn != FFN_NONE:
             bp["norm2"] = torch.zeros(cfg.d_model, dtype=dt, device=dev)
             bp["ffn"] = moe.init_moe(gen, cfg, dtype=dt) \
@@ -93,17 +107,22 @@ def _ffn(bp: Params, x: torch.Tensor, cfg: ArchConfig, spec
 
 
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-         max_seq: Optional[int]):
+         max_seq: Optional[int], image_embeds: Optional[torch.Tensor]):
     """Full-sequence pass: (logits, caches, the sum of the layers' aux
     losses); collects the decode cache when ``max_seq`` is given."""
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for bp, spec in zip(params["blocks"], layer_specs(cfg)):
+    for bp, spec in zip(params["blocks"], _specs(cfg, params), strict=True):
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
         window = _window_for(cfg, spec.mixer)
-        if spec.mixer == MIXER_SSM and max_seq is None:
+        if spec.mixer == MIXER_XATTN:
+            mix = attn.attention_forward(bp["mixer"], h, cfg, positions,
+                                         cross_states=image_embeds)
+            if max_seq is not None:
+                caches.append({})
+        elif spec.mixer == MIXER_SSM and max_seq is None:
             mix = ssm.ssm_forward(bp["mixer"], h, cfg)
         elif spec.mixer == MIXER_SSM:
             mix, cache = ssm.prefill_ssm(bp["mixer"], h, cfg)
@@ -123,44 +142,52 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     return logits, caches, aux
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+            image_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V) fp32, aux loss)."""
-    logits, _, aux = _run(params, tokens, cfg, None)
+    logits, _, aux = _run(params, tokens, cfg, None, image_embeds)
     return logits, aux
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor,
-                       cfg: ArchConfig, max_seq: int):
+                       cfg: ArchConfig, max_seq: int,
+                       image_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward that also returns the populated decode cache:
     (logits (B, S, V) fp32, cache, aux loss)."""
-    return _run(params, tokens, cfg, max_seq)
+    return _run(params, tokens, cfg, max_seq, image_embeds)
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device=None) -> List[Dict]:
     """One cache per layer, in execution order: ``{"k", "v"}`` for
-    attention, ``{"h", "conv_x", "conv_b", "conv_c"}`` for SSM layers.  As
-    in the reference, an SSM layer's fresh cache is float32 whatever
-    ``dtype`` says."""
+    attention, ``{"h", "conv_x", "conv_b", "conv_c"}`` for SSM layers,
+    ``{}`` for cross-attention.  As in the reference, an SSM layer's fresh
+    cache is float32 whatever ``dtype`` says."""
     dev = resolve_device(device)
     return [ssm.init_ssm_cache(cfg, batch, device=dev)
-            if spec.mixer == MIXER_SSM else
+            if spec.mixer == MIXER_SSM else {}
+            if spec.mixer == MIXER_XATTN else
             attn.init_kv_cache(cfg, batch, max_seq,
                                _window_for(cfg, spec.mixer), dtype, dev)
             for spec in layer_specs(cfg)]
 
 
 def decode_step(params: Params, cache: List[Dict], token: torch.Tensor,
-                pos: int, cfg: ArchConfig):
+                pos: int, cfg: ArchConfig,
+                image_embeds: Optional[torch.Tensor] = None):
     """token (B,) at absolute position ``pos`` → (logits (B, V) fp32,
     cache).  The cache is updated in place.  An MoE layer routes the
     step's B tokens with S = 1 (capacity 4), and its aux loss is dropped,
     as in the reference."""
     x = embed_tokens(params["embed"], token[:, None])
-    for bp, spec, c in zip(params["blocks"], layer_specs(cfg), cache):
+    specs = _specs(cfg, params, cache)
+    for bp, spec, c in zip(params["blocks"], specs, cache, strict=True):
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-        if spec.mixer == MIXER_SSM:
+        if spec.mixer == MIXER_XATTN:
+            mix = attn.decode_cross_attention(bp["mixer"], h, pos, cfg,
+                                              image_embeds)
+        elif spec.mixer == MIXER_SSM:
             mix, new = ssm.ssm_decode(bp["mixer"], h, c, cfg)
             c.update(new)
         else:

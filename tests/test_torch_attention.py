@@ -337,14 +337,35 @@ def test_prefill_then_decode_matches_jax(jx, s, window, max_seq):
         _close(cache[n].numpy(), jcache[n], 1e-5)
 
 
-def test_cross_attention_not_ported():
-    cfg = get_config("gemma2-2b", smoke=True)
-    gen = torch.Generator().manual_seed(0)
-    p = attn.init_attention(gen, cfg)
-    x = torch.from_numpy(_x(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        attn.attention_forward(p, x, cfg, torch.arange(4)[None],
-                               cross_states=x)
+def test_cross_attention_not_ported(jx):
+    """Cross-attention, which raised here while it was not ported, against
+    the reference's branch (q from the text, k and v from the image
+    states, no RoPE, an f32 softmax, ``tanh(gate)``): with the gate at
+    0.5 within 1e-5, in decode too; at its init of 0 the output is 0."""
+    jcfg = dataclasses.replace(jx.config("llama-3.2-vision-90b", smoke=True),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b", smoke=True),
+                              dtype="float32")
+    jp, _ = jx.attn.init_attention(jx.jax.random.PRNGKey(1), jcfg,
+                                   cross=True)
+    fresh = attn.init_attention(torch.Generator().manual_seed(0), cfg,
+                                cross=True)
+    assert fresh.keys() == jp.keys() and float(fresh["gate"]) == 0.0
+    x, image = _x(2, 6, cfg.d_model), _x(2, 8, cfg.d_model, seed=3)
+    pos = torch.arange(6)[None]
+    for gate in (0.5, 0.0):
+        jp = {**jp, "gate": jx.jnp.float32(gate)}
+        p = {n: torch.from_numpy(np.array(a)) for n, a in jp.items()}
+        want = jx.attn.attention_forward(
+            jp, jx.jnp.asarray(x), jcfg, jx.jnp.asarray(pos.numpy()),
+            cross_states=jx.jnp.asarray(image))
+        got = attn.attention_forward(p, torch.from_numpy(x), cfg, pos,
+                                     cross_states=torch.from_numpy(image))
+        _close(got.numpy(), want, 1e-5)
+        step = attn.decode_cross_attention(p, torch.from_numpy(x[:, :1]), 6,
+                                           cfg, torch.from_numpy(image))
+        _close(step.numpy(), want[:, :1], 1e-5)
+        assert bool(got.any()) == (gate != 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,9 @@ from repro.models import forward as jax_forward
 from repro.models import forward_with_cache as jax_forward_with_cache
 from repro.models import init_lm as jax_init_lm
 from repro.models import layers as jax_layers
-from repro_torch.configs import ArchConfig, get_config
+from repro_torch.configs import depth_cut, get_config
 from repro_torch.models import (decode_step, forward, forward_with_cache,
-                                init_lm, layers, params_from_jax)
+                                init_lm, jax_layout, layers, params_from_jax)
 from repro_torch.models.model import layer_specs
 
 
@@ -184,17 +184,44 @@ def test_params_from_jax_bfloat16_bit_exact():
     assert np.array_equal(got.view(torch.int16).numpy(), wq.view(np.int16))
 
 
-def test_unported_blocks_raise():
-    """Blocks the port does not run yet: jamba's hybrid stack (SSM mixers
-    with dense and MoE FFNs) and llama-3.2-vision's cross-attention.  The
-    port registers neither, so their smoke configs come from the
-    reference, field by field."""
-    for arch in ("jamba-1.5-large-398b", "llama-3.2-vision-90b"):
-        cfg = ArchConfig(**dataclasses.asdict(jax_config(arch, smoke=True)))
-        with pytest.raises(NotImplementedError):
-            layer_specs(cfg)
-        with pytest.raises(NotImplementedError):
-            init_lm(cfg, device="cpu")
+def test_partial_groups_and_unequal_lengths_raise():
+    """A plain config whose layers are not whole groups still raises, in
+    ``num_groups`` and so in ``layer_specs`` and ``init_lm``, as in the
+    reference; ``jax_layout`` refuses blocks that are not whole groups or
+    not the config's layers.  jamba's depth cut (its first 5 layers, one
+    group) runs; its blocks, caches and block kinds must have one length
+    everywhere, so that no loop over them stops early."""
+    smoke = get_config("jamba-1.5-large-398b", smoke=True)
+    partial = dataclasses.replace(smoke, num_layers=5)
+    with pytest.raises(ValueError, match="not divisible"):
+        dataclasses.replace(jax_config("jamba-1.5-large-398b", smoke=True),
+                            num_layers=5).num_groups()
+    for fn in (partial.num_groups, lambda: layer_specs(partial),
+               lambda: init_lm(partial, device="cpu")):
+        with pytest.raises(ValueError, match="not divisible"):
+            fn()
+    cut = depth_cut(smoke, 5)
+    params = init_lm(cut, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="not whole groups"):
+        jax_layout(params, smoke)
+    with pytest.raises(ValueError, match="has 8"):
+        jax_layout({**params, "blocks": (params["blocks"] * 4)[:16]}, smoke)
+    tokens = torch.zeros((1, 6), dtype=torch.long)
+    short = {**params, "blocks": params["blocks"][:4]}
+    for fn in (lambda: forward(params, tokens, smoke),
+               lambda: forward(short, tokens, cut),
+               lambda: forward_with_cache(short, tokens, cut, 16)):
+        with pytest.raises(ValueError, match="differ"):
+            fn()
+    _, cache, _ = forward_with_cache(params, tokens, cut, 16)
+    assert len(cache) == 5
+    step = torch.zeros((1,), dtype=torch.long)
+    for p_, c_ in ((params, cache[:4]), (short, cache),
+                   (params, cache + [cache[0]])):
+        with pytest.raises(ValueError, match="differ"):
+            decode_step(p_, c_, step, 6, cut)
+    logits, _ = decode_step(params, cache, step, 6, cut)
+    assert logits.shape == (1, cut.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +233,8 @@ def test_unported_blocks_raise():
 NEW_ARCHS = ("deepseek-coder-33b", "phi3.5-moe-42b-a6.6b", "phi3-mini-3.8b",
              "musicgen-medium")
 ARCHS = NEW_ARCHS + ("gemma2-2b", "mamba2-780m", "mixtral-8x22b",
-                     "qwen2-7b")
+                     "qwen2-7b", "jamba-1.5-large-398b",
+                     "llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -1,6 +1,9 @@
 """The port's serving engine against ``repro.serve`` on the CPU: gemma2
-(attention), mamba2 (SSM) and mixtral (MoE) smoke models, and those of
-deepseek-coder-33b, phi3.5-moe, phi3-mini-3.8b and musicgen-medium."""
+(attention), mamba2 (SSM) and mixtral (MoE) smoke models, those of
+deepseek-coder-33b, phi3.5-moe, phi3-mini-3.8b and musicgen-medium, and
+of jamba-1.5-large (the hybrid stack) and llama-3.2-vision-90b
+(cross-attention layers, served with no image as the reference's engine
+serves them)."""
 import dataclasses
 
 import jax
@@ -162,6 +165,39 @@ def test_new_configs_generate_matches_jax(arch, monkeypatch):
     else:
         assert not routings
     assert KERNEL.launches == before             # the CPU path is plain
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "llama-3.2-vision-90b"])
+def test_hybrid_and_cross_attention_generate_matches_jax(arch, monkeypatch):
+    """jamba's hybrid stack and llama's cross-attention layers through the
+    engine: greedy tokens and EngineStats equal to the reference engine's,
+    one request stopped at its eos_id.  Neither engine passes image
+    embeddings, so llama's cross-attention layers run as causal
+    self-attention at prefill and over the current token in decode.
+    jamba routes its 4 MoE layers once each a prefill wave and a decode
+    step; its first wave left-pads prompt 0 from 3 to 20 tokens."""
+    jcfg, cfg, jp, p = _weights(arch)
+    lengths = (3, 20, 9) if cfg.num_experts else (5, 11, 8)
+    _, free_run, _, _ = _serve(jcfg, cfg, jp, p, (-1, -1, -1), lengths)
+    out = free_run[2].output
+    stop = next(j for j in range(1, len(out)) if out[j] not in out[:j])
+    routings = []
+    route = moe.route
+    monkeypatch.setattr(moe, "route",
+                        lambda *a: routings.append(route(*a)) or routings[-1])
+    before = KERNEL.launches, SSD_KERNEL.launches
+    ref, ref_out, port, port_out = _serve(jcfg, cfg, jp, p,
+                                          (-1, -1, out[stop]), lengths)
+    assert [r.output for r in port_out] == [r.output for r in ref_out]
+    assert [r.done for r in port_out] == [r.done for r in ref_out]
+    assert len(port_out[2].output) == stop + 1   # stopped at its eos_id
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    moe_layers = sum(s.ffn == "moe" for s in cfg.pattern()) * \
+        cfg.num_groups()
+    passes = 2 + port.stats.decode_steps         # two prefill waves
+    assert len(routings) == moe_layers * passes
+    assert (KERNEL.launches, SSD_KERNEL.launches) == before   # plain on CPU
 
 
 def test_sampling_is_seeded(weights):

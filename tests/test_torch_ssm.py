@@ -96,6 +96,44 @@ def test_ssd_intra_masks_before_the_product(jx):
     _close(got, jx.ref.ssd_intra_ref(*(jx.jnp.asarray(a) for a in arrays)))
 
 
+def test_designs_agree_with_the_c_router():
+    """``DESIGNS`` and the C entry point's ``design_of`` route every (P, N)
+    alike: jamba-1.5-large's (128, 128) to ``wgmma_p128``, a design of its
+    own, counted under its own name.  Read from the source, as the library
+    cannot be built here."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels import ssd_scan
+    src = (pathlib.Path(ssd_scan.__file__).parent / "csrc" /
+           "ssd_scan.cu").read_text()
+    codes = {name: int(code) for name, code in
+             re.findall(r"(\w+) = (-?\d+)", re.search(
+                 r"enum Design \{([^}]*)\}", src).group(1))}
+    routed = {(int(p), int(n)): codes[d] for p, n, d in re.findall(
+        r"if \(P == (\d+) && N == (\d+)\) return (\w+);", src)}
+    assert {pn: ssd_scan._DESIGN_CODES[c] for pn, c in routed.items()} == \
+        DESIGNS
+    assert DESIGNS[(128, 128)] == "wgmma_p128"
+    assert set(KERNEL.launches_by_design) == {"simt", "wgmma", "wgmma_p128"}
+
+
+@pytest.mark.parametrize("p,n,q,match", [
+    (128, 64, 256, r"\(P, N\) = \(128, 64\) not in"),
+    (64, 128, 769, "Q=769 above the wgmma design's 768"),
+    (128, 128, 769, "Q=769 above the wgmma_p128 design's 768"),
+    (128, 128, 768, "not the CUDA device"),     # taken; then the device
+])
+def test_kernel_refuses_widths_and_q_it_has_no_design_for(p, n, q, match):
+    tensors = [torch.zeros(s) for s in ((1, 1, q, 2, p), (1, 1, q, 2),
+                                        (1, 1, q, 2), (1, 1, q, n),
+                                        (1, 1, q, n))]
+    before = dict(KERNEL.launches_by_design)
+    with pytest.raises(ValueError, match=match):
+        KERNEL(*tensors)
+    assert KERNEL.launches_by_design == before
+
+
 def test_cpu_dispatch_is_plain_and_kernel_refuses_cpu():
     tensors = [torch.from_numpy(a) for a in _intra_inputs(1, 2, 8, 8, 16, 16)]
     before = KERNEL.launches
@@ -207,6 +245,27 @@ def test_wgmma_arithmetic_within_tolerance(b, nc, q, h):
     assert ref.err_over_tolerance(got, want, rtol=1e-4) <= 1.0
     control = _wgmma_ssd_arithmetic(x, dt, torch.zeros_like(cum), b_in, c_in)
     assert ref.err_over_tolerance(control, want, rtol=1e-4) > 1.0
+
+
+@pytest.mark.parametrize("b,nc,q,h", [(1, 1, 256, 2), (1, 2, 123, 2)])
+def test_wgmma_p128_arithmetic_within_tolerance(b, nc, q, h):
+    """jamba-1.5-large's widths (P 128, N 128): the wgmma_p128 design runs
+    each head's P in two 64-column passes over the same scores, each pass
+    the P 64 design's arithmetic; within the card check's tolerance, and
+    the check sees the decay."""
+    x, dt, cum, b_in, c_in = (torch.from_numpy(a) for a in
+                              _intra_inputs(b, nc, q, h, 128, 128, decay=1.0))
+    want = ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
+
+    def passes(cum):
+        return torch.cat([_wgmma_ssd_arithmetic(x[..., c0:c0 + 64], dt, cum,
+                                                b_in, c_in)
+                          for c0 in (0, 64)], dim=-1)
+    got = passes(cum)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert ref.err_over_tolerance(got, want, rtol=1e-4) <= 1.0
+    assert ref.err_over_tolerance(passes(torch.zeros_like(cum)), want,
+                                  rtol=1e-4) > 1.0
 
 
 def test_single_tf32_misses_the_check():
@@ -486,18 +545,22 @@ def test_init_lm_layout_matches_converted(jx):
     (4, 4, 256, 48, 64, 128),     # engine C's first wave
     (4, 2, 256, 48, 64, 128),     # engine C's second wave
     (1, 32, 256, 48, 64, 128),    # engine D's prompt
+    (1, 32, 256, 128, 128, 128),  # jamba-1.5-large's 8,000-token prompt
+    (4, 1, 123, 128, 128, 128),   # jamba's engine A wave: a short Q
 ])
 def test_kernel_matches_plain_on_card(b, nc, q, h, p, n):
     """At the model's decay (~0.7 a row) exp(cum_i − cum_j) overflows
     above the diagonal; the kernel with cum set to 0 (no decay) must fail
     the same check.  The launch is counted under the design that (P, N)
-    routes to: wgmma at mamba2-780m's widths."""
+    routes to: wgmma at mamba2-780m's widths, wgmma_p128 at
+    jamba-1.5-large's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     x, dt, cum, b_in, c_in = (torch.from_numpy(a).cuda() for a in
                               _intra_inputs(b, nc, q, h, p, n, decay=1.0))
     design = DESIGNS[(p, n)]
-    assert design == ("wgmma" if (p, n) == (64, 128) else "simt")
+    assert design == {(64, 128): "wgmma", (128, 128): "wgmma_p128",
+                      (16, 16): "simt"}[(p, n)]
     assert KERNEL.design(p, n) == design
     before = KERNEL.launches
     by_design = KERNEL.launches_by_design[design]
