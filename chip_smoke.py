@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving paths, federation, sweeps and
-capacity planner on one CUDA card.
+"""Smoke run of the PyTorch port's serving paths, training, federation,
+sweeps and capacity planner on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -115,6 +115,25 @@ any phase fails:
              image states and 8 decode steps, the logits bit-equal to a
              blank image's at gates 0 and different at gates 0.5;
              ``launch.serve`` at its defaults on the card, its two lines;
+   train   — flash attention's backward kernel against its plain version
+             at qwen2-7b's training shape (B4 S1024 H32 KV4 hd128 bf16,
+             causal) and at float32 hd 16 with a window and with a
+             softcap, each with a control (dO moved by 1e-2 of its scale)
+             that must fail, its lse against the plain version's; kernel,
+             plain and library (autograd through SDPA) times and the
+             bound (10·hd FLOPs a visible pair); qwen2-7b's smoke model
+             trained 10 steps on the card and on the CPU from the same
+             init; qwen2-7b at full width, its first 8 of 28 layers
+             (``depth_cut``; random bf16 weights, float32 moments),
+             ``Trainer.run`` over a ``FederatedDataLoader`` on
+             ``fleet(2, 8)`` for 6 steps of 4 x 1,024 tokens after one
+             step's loss and gradient norm through the kernels against
+             ``attention_ref`` on the card: every loss finite, every
+             flash launch ``wgmma`` (forward and remat) and every backward
+             ``simt``, ms a step and its split, tokens/s, peak memory;
+             ``launch.train`` at the reference's defaults and with
+             ``--grad-compression int8_ef --fail-at 20``, its line, the
+             restart replaying the uninterrupted run;
 4. federation — the port's data plane on the simulated engine, its
              max-min solver on the card (the ``maxmin_waterfill`` kernel,
              one launch a solve):
@@ -182,8 +201,8 @@ any phase fails:
              equal to the plain version bit for bit, with controls;
 7. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path, the weight leg, storm H, sweep I and the planner's
-path J runs with
+Each serving path, the weight leg, qwen2-7b's training, storm H, sweep I
+and the planner's path J runs with
 every launch count set to 0 just before it and read just after.  Every line with a measured
 number names the card and its power limit.
 """
@@ -251,6 +270,11 @@ SSD_P128_CASE = "B1 NC32 Q256 H128 P128 N128"  # jamba's 8,000 tokens
 KERNEL_FILES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:27"),
+    # the gradient of that kernel's function: the reference trains by
+    # jax.grad of its plain attention and has no backward kernel
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:27"),
     "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan.py:24"),
     "chunk_checksum": ("src/repro_torch/kernels/csrc/chunk_checksum.cu",
@@ -429,6 +453,7 @@ def _kernels():
     from repro_torch.kernels import flash_attention, maxmin, ssd_scan
     from repro_torch.kernels import stack_distance as sd
     return {"flash_attention": flash_attention.KERNEL,
+            "flash_attention_backward": flash_attention.BACKWARD,
             "fnv1a64_chunks": fnv1a.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
             "chunk_checksum": chunk_checksum.KERNEL,
@@ -460,7 +485,8 @@ def phase_build(card: str) -> None:
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", card)
-    entries = {"flash_wgmma": "wgmma design: ",
+    entries = {"flash_bwd": "backward simt design: ",
+               "flash_wgmma": "wgmma design: ",
                "flash_attention_kernel": "simt design: ",
                "ssd_wgmma_kernelILi128E": "wgmma_p128 design: ",
                "ssd_wgmma_kernelILi64E": "wgmma design: ",
@@ -479,6 +505,11 @@ def phase_build(card: str) -> None:
     say("dynamic shared memory per block: " + ", ".join(
         f"flash {fa.KERNEL.design(dtype, hd)} ({str(dtype)[6:]}, hd {hd}): "
         f"{fa.KERNEL.smem_bytes(dtype, hd)} B" for dtype, hd in fa.DESIGNS)
+        + ", " + ", ".join(
+            f"flash backward {fa.BACKWARD.design(dtype, hd)} "
+            f"({str(dtype)[6:]}, hd {hd}): dK/dV and dQ blocks "
+            f"{fa.BACKWARD.smem_bytes(dtype, hd)} B"
+            for dtype, hd in fa.BACKWARD_DESIGNS)
         + ", " + ", ".join(f"ssd_intra {ssd_scan.KERNEL.design(p, n)} "
                            f"(P {p}, N {n}, Q 256): "
                            f"{ssd_scan.KERNEL.smem_bytes(p, n, 256)} B"
@@ -2025,6 +2056,488 @@ def phase_launcher(card: str) -> None:
         raise AssertionError(f"launcher: exit {rc}, lines {lines}")
     for line in lines:
         say(f"launch.serve (gemma2-2b smoke, f32, on the card): {line}", card)
+
+
+# ---------------------------------------------------------------------------
+# Training: flash attention's backward, qwen2-7b's train steps, the
+# launcher with a restart
+# ---------------------------------------------------------------------------
+# (B, S, widths, window, dtype): the training path's shape (qwen2-7b at
+# global batch 4, seq 1024), then the smoke configs' float32 at hd 16 with
+# a window and with a softcap
+BWD_CASES = [(4, 1024, QWEN2, 0, "bfloat16"),
+             (4, 256, Widths(4, 2, 16, 0.0), 48, "float32"),
+             (4, 256, Widths(4, 2, 16, 30.0), 0, "float32")]
+BWD_MAIN_CASE = case_name(QWEN2, 4, 1024, 0, "bfloat16")
+BWD_NUDGE = 1e-2          # the control: dO moved by 1e-2 of its scale
+TRAIN_LAYERS = 8          # of 28: 2.99 B parameters, ~36 GB of state
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+# one step's loss and gradient norm through the kernels against the same
+# step with attention_ref on the card.  At qwen2-7b's random init (the
+# reference's fan-in of a 3-D weight is its head count) the scores have a
+# std of ~300: rows put their weight on one key, near-ties decide, and the
+# gradient moves with the order of any float32 sum (PR 30: the plain
+# version with its dot products summed in reverse moved the loss by
+# 5.8e-4 and the grad norm by 42%; autograd through SDPA by 7.3e-4 and
+# 28%).  So the loss is held to 2e-3, and the grad norm to 2e-2 or twice
+# the reversed plain step's distance from the plain step, measured in the
+# same run, whichever is larger
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
+# the smoke model's 10 float32 steps, card against CPU (TF32 off): the
+# first 3 losses within 1e-5 (float32 sums in other orders); all 10 within
+# 1e-3, since the run itself is that sensitive through Adam's normalised
+# steps: the card's reordered sums moved step 10's loss by 2.3e-4–3.4e-4
+# (PR 30), and the phase reports what one leaf moved by 1e-7 of itself
+# does to it on a CPU alone
+SMALL_TRAIN_TOL = (1e-5, 1e-3)
+REPLAY_RTOL, REPLAY_ATOL = 1e-5, 1e-6     # the reference's own test
+LAUNCH_LINE = (r"arch=qwen2-7b-smoke steps=30 loss (\d+\.\d{3})→"
+               r"(\d+\.\d{3}) restarts=%d hit_rate=(\d\.\d\d)")
+
+
+def _visible_pairs(s: int, window: int) -> int:
+    return sum(r - (max(0, r - window + 1) if window else 0) + 1
+               for r in range(s))
+
+
+def phase_flash_backward(card: str) -> dict:
+    """The backward kernel against ``attention_bwd_ref`` on the card, dq,
+    dk and dv within ``ref.err_over_tolerance`` (one bf16 ulp + 1e-3 in
+    bf16, 1e-4 in float32), with a control (dO moved by 1e-2 of its
+    scale) that must fall outside it; the forward's lse against the plain
+    version's.  Kernel ms (CUDA events), the plain version's, the library
+    yardstick (autograd backward through SDPA on the same inputs, where
+    one call computes the same function) and the bound: 10·hd FLOPs a
+    visible pair at the type's peak, or the bytes of q, k, v, o, dO, lse
+    in and dq, dk, dv out."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import BACKWARD, KERNEL
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, s, w, window, dtype_name in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen, device="cuda")
+                    ).to(dtype)
+        q, k, v = rand(b, s, w.h, w.hd, scale=2.0), rand(b, s, w.kv, w.hd), \
+            rand(b, s, w.kv, w.hd)
+        dout = rand(b, s, w.h, w.hd)
+        kw = dict(causal=True, window=window, softcap=w.softcap)
+        o, lse = KERNEL.with_lse(q, k, v, **kw)
+        _, lse_want = ref.attention_lse_ref(q, k, v, **kw)
+        got = BACKWARD(q, k, v, dout, lse, **kw)
+        want = ref.attention_bwd_ref(q, k, v, dout, lse, **kw)
+        nudge = dout.float() + BWD_NUDGE * dout.float().std() * torch.randn(
+            dout.shape, generator=gen, device="cuda")
+        control = BACKWARD(q, k, v, nudge.to(dtype), lse, **kw)
+        torch.cuda.synchronize()
+        name = case_name(w, b, s, window, dtype_name) + \
+            (f" softcap{w.softcap:g}" if w.softcap else "")
+        lse_err = (lse - lse_want).abs().max().item()
+        ratio = max(ref.err_over_tolerance(g, x) for g, x in zip(got, want))
+        control_ratio = max(ref.err_over_tolerance(c, x)
+                            for c, x in zip(control, want))
+        err = max((g.float() - x.float()).abs().max().item()
+                  for g, x in zip(got, want))
+        if not (ratio <= 1.0 and lse_err <= 2e-4):
+            raise AssertionError(f"backward {name}: error {ratio} times the "
+                                 f"tolerance {TOLERANCE[dtype_name]}, lse "
+                                 f"{lse_err}")
+        if not control_ratio > 1.0:
+            raise AssertionError(f"backward {name}: the nudged-dO control is "
+                                 f"within tolerance ({control_ratio})")
+        iters = 10 if s >= 1024 else 50
+        kernel_ms = time_ms(lambda: BACKWARD(q, k, v, dout, lse, **kw),
+                            iters)
+        plain_ms = time_ms(lambda: ref.attention_bwd_ref(
+            q, k, v, dout, lse, **kw), 3)
+        library_ms = None
+        if not w.softcap:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = None
+            if window:
+                i = torch.arange(s, device="cuda")
+                mask = (i[None, :] <= i[:, None]) & \
+                    (i[None, :] > i[:, None] - window)
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            grad_out = dout.transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), grad_out, retain_graph=True), iters)
+        pairs = b * w.h * _visible_pairs(s, window)
+        flops = 10 * w.hd * pairs
+        nbytes = 2 * (q.nbytes + k.nbytes) + 2 * k.nbytes + dout.nbytes + \
+            lse.nbytes                       # q, k, v, dO, lse in; dq, dk, dv out
+        bound_ms, bound_by = _bound(flops, PEAK_FLOPS[dtype_name], nbytes)
+        design = BACKWARD.design(dtype, w.hd)
+        results[name] = dict(max_abs_err=err, err_over_tol=ratio,
+                             control_err_over_tol=control_ratio,
+                             lse_max_abs_err=lse_err, ms=kernel_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             tflops=flops / kernel_ms / 1e9, design=design)
+        lib = "n/a (no library call takes the softcap)" if library_ms is \
+            None else f"{library_ms:.4f} (autograd through sdpa)"
+        say(f"kernel flash backward {name} ({design} design): "
+            f"max_abs_err={err:.3e} err/tol={ratio:.3f} nudged-dO control "
+            f"err/tol={control_ratio:.3f} (tol {TOLERANCE[dtype_name]}) "
+            f"lse_err={lse_err:.2e} kernel_ms={kernel_ms:.4f} "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s at 10 hd a pair) "
+            f"plain_ms={plain_ms:.4f} library_ms={lib} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})", card)
+        del q, k, v, o, lse, dout, got, want, control, nudge
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_loader(vocab: int, batch: int, seq: int, device: str):
+    """The launcher's data path: a two-pod fleet of 8 hosts each
+    (``fleet(2, 8)``), 16 synthetic shards of 65,536 tokens at the origin,
+    a ``FederatedDataLoader`` on pod0 through the analytic plane."""
+    from repro_torch.core import AnalyticPlane, build_fleet_federation
+    from repro_torch.data import (DatasetSpec, FederatedDataLoader,
+                                  SyntheticTokens)
+    fed = build_fleet_federation(num_pods=2, hosts_per_pod=8, device=device)
+    spec = DatasetSpec("launch", vocab_size=vocab, tokens_per_shard=1 << 16,
+                       num_shards=16)
+    SyntheticTokens(spec).publish(fed.origins[0])
+    return FederatedDataLoader(AnalyticPlane(fed), spec, global_batch=batch,
+                               seq_len=seq, site="pod0", worker=0)
+
+
+class _PlainAttention:
+    """Routes the model's attention to ``ref.attention_ref`` on the card
+    while the context is open (its gradient PyTorch's autograd), as
+    ``_Routes`` reroutes the MoE layer's routing; with ``reverse``, each
+    score's dot product is summed in reverse order (q and k flipped along
+    the head dim): the same function, float32 sums in another order."""
+
+    def __init__(self, reverse: bool = False) -> None:
+        self.reverse = reverse
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self._ops, self._flash = ops, ops.flash_attention
+
+        def reversed_sums(q, k, v, **kw):
+            return ref.attention_ref(q.flip(-1), k.flip(-1), v, **kw)
+        ops.flash_attention = reversed_sums if self.reverse else \
+            ref.attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention = self._flash
+
+
+def _loss_and_grad_norm(trainer, batch) -> tuple:
+    """The trainer's loss and global gradient norm on ``batch``, without
+    a step."""
+    import torch
+
+    from repro_torch.models import lm_loss
+    from repro_torch.train.optimizer import global_norm, walk
+    leaves = [t.requires_grad_(True) for _, t in walk(trainer.state["params"])]
+    loss, _ = lm_loss(trainer.state["params"],
+                      torch.as_tensor(batch["tokens"], device="cuda"),
+                      torch.as_tensor(batch["labels"], device="cuda"),
+                      trainer.cfg, aux_weight=trainer.aux_weight)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), global_norm(grads).item()
+
+
+class _TrainTimes:
+    """Times, while open, each train step on the host clock around
+    synchronised work, and with CUDA events every flash forward launch,
+    every backward launch and every ``adamw_update``."""
+
+    def __init__(self, trainer) -> None:
+        self.trainer = trainer
+        self.step_s, self.events = [], {"forward": [], "backward": [],
+                                        "optimizer": []}
+
+    def _timed(self, fn, key):
+        def call(*args, **kw):
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[key].append((start, end))
+            return out
+        return call
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.train import trainer as trainer_mod
+        self._fa, self._tm = fa, trainer_mod
+        self._backward, self._adamw = fa.BACKWARD, trainer_mod.adamw_update
+        fa.KERNEL._launch = self._timed(fa.KERNEL._launch, "forward")
+        fa.BACKWARD = self._timed(self._backward, "backward")
+        trainer_mod.adamw_update = self._timed(self._adamw, "optimizer")
+        step = self.trainer.train_step
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+            return out
+        self.trainer.train_step = timed_step
+        return self
+
+    def __exit__(self, *exc):
+        del self._fa.KERNEL._launch
+        self._fa.BACKWARD = self._backward
+        self._tm.adamw_update = self._adamw
+        del self.trainer.train_step
+
+    def ms(self, key: str, steps: int) -> float:
+        """Milliseconds a step of the events under ``key``."""
+        return sum(a.elapsed_time(b) for a, b in self.events[key]) / steps
+
+
+def phase_train_qwen2(card: str) -> dict:
+    """qwen2-7b at full width, its first ``TRAIN_LAYERS`` layers
+    (``depth_cut``; depth is the only cut), random bf16 weights from seed 0
+    and float32 moments, trained by ``Trainer.run`` on a
+    ``FederatedDataLoader`` over ``fleet(2, 8)``: global batch 4 of 1,024
+    tokens, ``TRAIN_STEPS`` steps, no checkpointer.  First one step's loss
+    and gradient norm through the kernels against the same step with
+    ``attention_ref`` on the card; then the run, every loss finite, every
+    flash launch ``wgmma`` (two a layer a step: forward and remat) and
+    every backward ``simt`` (one a layer a step)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import depth_cut, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.optimizer import walk
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = depth_cut(get_config("qwen2-7b"), TRAIN_LAYERS)
+    loader = _train_loader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, loader, AdamWConfig(warmup_steps=2,
+                                               total_steps=100),
+                      device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in walk(trainer.state["params"]))
+    state_gb = sum(t.nbytes for _, t in walk(trainer.state)) / 1e9
+    say(f"train qwen2-7b: {cfg.num_layers} of 28 layers (depth only), "
+        f"d={cfg.d_model}, 28 q-heads padded to {cfg.padded_heads} over "
+        f"{cfg.num_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; {n_params} parameters in {cfg.dtype}, float32 "
+        f"moments: {state_gb:.2f} GB of state; init {init_s:.1f} s", card)
+
+    batch = loader.batch(0)
+    loss_k, gnorm_k = _loss_and_grad_norm(trainer, batch)
+    with _PlainAttention():
+        loss_p, gnorm_p = _loss_and_grad_norm(trainer, batch)
+    with _PlainAttention(reverse=True):
+        loss_r, gnorm_r = _loss_and_grad_norm(trainer, batch)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    gnorm_rel = abs(gnorm_k - gnorm_p) / gnorm_p
+    spread = abs(gnorm_r - gnorm_p) / gnorm_p
+    gnorm_tol = max(TRAIN_GNORM_RTOL, 2 * spread)
+    say(f"train qwen2-7b, one step through the kernels vs attention_ref on "
+        f"the card: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, "
+        f"tol {TRAIN_LOSS_RTOL:g}), grad norm {gnorm_k:.1f} vs {gnorm_p:.1f} "
+        f"(rel {gnorm_rel:.2e}, tol {gnorm_tol:.2e}); attention_ref with "
+        f"its dot products summed in reverse: loss {loss_r:.6f} (rel "
+        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}), grad norm "
+        f"{gnorm_r:.1f} (rel {spread:.2e})", card)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= gnorm_tol):
+        raise AssertionError("train qwen2-7b: the kernels' step is off the "
+                             "plain attention's")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _reset_counts()                          # the path starts here
+    with _TrainTimes(trainer) as times:
+        report = trainer.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+    kernels = _kernels()                     # ... and ends here
+    fwd, bwd = kernels["flash_attention"], kernels["flash_attention_backward"]
+    launches = {"forward": fwd.launches,
+                "forward_by_design": dict(fwd.launches_by_design),
+                "backward": bwd.launches,
+                "backward_by_design": dict(bwd.launches_by_design)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in report.losses) or \
+            report.steps_run != TRAIN_STEPS:
+        raise AssertionError(f"train qwen2-7b: losses {report.losses}")
+    want_fwd = 2 * TRAIN_LAYERS * TRAIN_STEPS
+    want_bwd = TRAIN_LAYERS * TRAIN_STEPS
+    if launches["forward"] != want_fwd or \
+            launches["forward_by_design"]["wgmma"] != want_fwd or \
+            launches["backward"] != want_bwd or \
+            launches["backward_by_design"]["simt"] != want_bwd:
+        raise AssertionError(f"train qwen2-7b: launches {launches}; want "
+                             f"{want_fwd} forward on wgmma and {want_bwd} "
+                             f"backward on simt")
+    steady = times.step_s[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    split = {key: times.ms(key, TRAIN_STEPS) for key in times.events}
+    out = dict(losses=report.losses, step_ms=step_ms,
+               first_step_ms=1e3 * times.step_s[0],
+               tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb,
+               launches=launches, flash_forward_ms=split["forward"],
+               flash_backward_ms=split["backward"],
+               optimizer_ms=split["optimizer"], loss_rel=loss_rel,
+               gnorm_rel=gnorm_rel, gnorm_reversed_rel=spread,
+               hit_rate=report.cache_hit_rate)
+    say(f"train qwen2-7b: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, losses {[round(x, 4) for x in report.losses]} "
+        f"(ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}); "
+        f"{step_ms:.2f} ms a step after the first ({1e3 * times.step_s[0]:.1f}"
+        f" ms), {out['tokens_per_s']:.0f} tokens/s; a step's flash forward "
+        f"{split['forward']:.2f} ms ({want_fwd // TRAIN_STEPS} launches, "
+        f"wgmma: forward and remat), backward {split['backward']:.2f} ms "
+        f"({want_bwd // TRAIN_STEPS} launches, simt), adamw_update "
+        f"{split['optimizer']:.2f} ms; loader hit rate "
+        f"{report.cache_hit_rate:.2f}; max_memory_allocated {peak_gb:.2f} GB",
+        card)
+    del trainer, loader, times
+    return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.detach().to(device).clone()
+
+
+def phase_train_small(card: str) -> dict:
+    """qwen2-7b's smoke model (its block kind, 2 layers, d 64, hd 16) in
+    float32, 10 ``Trainer`` steps on the card (flash ``simt`` at hd 16 and
+    its backward) and on the CPU (the plain path) from the same init and
+    the same batches: the losses within ``SMALL_TRAIN_TOL``; beside them
+    the CPU run's own drift when one leaf is moved by 1e-7 of itself."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, Trainer
+    from repro_torch.train.optimizer import walk
+
+    cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                              dtype="float32")
+    trainers = {device: Trainer(cfg, _train_loader(cfg.vocab_size, 4, 64,
+                                                   device),
+                                AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=100), device=device)
+                for device in ("cuda", "cpu")}
+    init = _to_device(trainers["cuda"].state, "cpu")
+    trainers["cpu"].state = _to_device(init, "cpu")
+    # the yardstick of the run's own sensitivity: the CPU run again with
+    # one leaf moved by 1e-7 of itself
+    nudged = Trainer(cfg, _train_loader(cfg.vocab_size, 4, 64, "cpu"),
+                     AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                     device="cpu")
+    nudged.state = _to_device(init, "cpu")
+    nudged.state["params"]["blocks"][0]["mixer"]["wq"].mul_(1 + 1e-7)
+    bwd = _kernels()["flash_attention_backward"]
+    before = bwd.launches_by_design["simt"]
+    losses = {d: t.run(10).losses for d, t in trainers.items()}
+    drift = abs(nudged.run(10).losses[-1] - losses["cpu"][-1])
+    errs = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    early, err = max(errs[:3]), max(errs)
+    params = {d: dict(walk(t.state["params"])) for d, t in trainers.items()}
+    param_err = max((params["cuda"][p].detach().cpu() -
+                     params["cpu"][p].detach()).abs().max().item()
+                    for p in params["cpu"])
+    launched = bwd.launches_by_design["simt"] - before
+    say(f"train small (qwen2-7b smoke, f32, 10 steps): card vs CPU losses "
+        f"max_abs_err {early:.3e} over the first 3 steps (tol "
+        f"{SMALL_TRAIN_TOL[0]:g}), {err:.3e} over all 10 (tol "
+        f"{SMALL_TRAIN_TOL[1]:g}), per step {[f'{e:.1e}' for e in errs]}; "
+        f"parameters {param_err:.3e}; on the CPU alone, wq of layer 0 moved "
+        f"by 1e-7 of itself moves step 10's loss by {drift:.3e}; "
+        f"{launched} backward launches on simt at hd 16", card)
+    if not (early <= SMALL_TRAIN_TOL[0] and err <= SMALL_TRAIN_TOL[1]) or \
+            launched != 2 * 10:
+        raise AssertionError(f"train small: card vs CPU losses {losses}, "
+                             f"{launched} backward launches")
+    return {"loss_err_first3": early, "loss_err": err,
+            "param_err": param_err, "cpu_nudge_drift": drift}
+
+
+def phase_launcher_train(card: str) -> dict:
+    """``repro_torch.launch.train.main`` on the card: at the reference's
+    defaults, then with ``--grad-compression int8_ef --fail-at 20`` (a
+    restart from the step-20 checkpoint), then the same without the
+    failure.  Each prints the reference's line; the restarted run's final
+    parameters, moments and residuals equal the uninterrupted one's within
+    the reference test's rtol 1e-5, atol 1e-6; bit-equality is
+    reported."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import walk
+    made, original = [], launch_train.Trainer
+
+    class Recording(original):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+    launch_train.Trainer = Recording
+    lines, seconds = [], []
+    try:
+        for argv, restarts in (([], 0),
+                               (["--grad-compression", "int8_ef",
+                                 "--fail-at", "20"], 1),
+                               (["--grad-compression", "int8_ef"], 0)):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = launch_train.main(argv)
+            seconds.append(time.perf_counter() - t0)
+            line = out.getvalue().strip()
+            if rc != 0 or not re.fullmatch(LAUNCH_LINE % restarts, line):
+                raise AssertionError(f"launch.train {argv}: exit {rc}, "
+                                     f"{line!r}")
+            lines.append(line)
+    finally:
+        launch_train.Trainer = original
+    got = dict(walk(made[1].checkpoint_state()))
+    want = dict(walk(made[2].checkpoint_state()))
+    worst, equal = 0.0, True
+    for path, a in got.items():
+        a, b = a.detach().float(), want[path].detach().float()
+        equal &= torch.equal(a, b)
+        excess = ((a - b).abs() - REPLAY_ATOL - REPLAY_RTOL * b.abs()).max()
+        worst = max(worst, excess.item())
+    for argv, line, sec in zip(("defaults", "int8_ef --fail-at 20",
+                                "int8_ef"), lines, seconds):
+        say(f"launch.train ({argv}, qwen2-7b smoke, f32, on the card, "
+            f"{sec:.1f} s): {line}", card)
+    say(f"launch.train: the restarted run's {len(got)} state leaves against "
+        f"the uninterrupted run's: within rtol {REPLAY_RTOL:g}, atol "
+        f"{REPLAY_ATOL:g}: {worst <= 0}; bit-equal: {equal}", card)
+    if worst > 0:
+        raise AssertionError("launch.train: the restart does not replay the "
+                             "uninterrupted run")
+    return {"bit_equal": equal, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4137,6 +4650,12 @@ def main() -> int:
         "llama-3.2-vision-90b": llama["flash"],
         "llama-3.2-vision-90b cross-attention": llama["then"]["launches"]})
     phase_launcher(card)
+    backward = phase_flash_backward(card)
+    small_train = phase_train_small(card)
+    _free()
+    train = phase_train_qwen2(card)
+    _free()
+    launcher_train = phase_launcher_train(card)
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
     sweep = phase_sweep(card)
@@ -4146,14 +4665,36 @@ def main() -> int:
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s", card)
     # launches: the sum over the paths that run the kernel
+    train_flash = train["launches"]["forward"]
     flash_entry = _entry("flash_attention",
                          gemma_flash + mixtral_flash + qwen2_flash
-                         + sum(new_flash.values()),
+                         + sum(new_flash.values()) + train_flash,
                          flash[MAIN_CASE], TOLERANCE["bfloat16"], MAIN_CASE,
                          card)
     flash_entry["launches_by_path"] = {"gemma2-2b": gemma_flash,
                                        "mixtral-8x22b": mixtral_flash,
-                                       "qwen2-7b": qwen2_flash, **new_flash}
+                                       "qwen2-7b": qwen2_flash, **new_flash,
+                                       "qwen2-7b training": train_flash}
+    backward_entry = _entry("flash_attention_backward",
+                            train["launches"]["backward"],
+                            backward[BWD_MAIN_CASE], TOLERANCE["bfloat16"],
+                            BWD_MAIN_CASE, card)
+    backward_entry["launches_by_path"] = {
+        "qwen2-7b training": train["launches"]["backward"]}
+    backward_entry["cases"] = [_case(case, name)
+                               for name, case in backward.items()
+                               if name != BWD_MAIN_CASE]
+    backward_entry["training"] = {
+        k: train[k] for k in ("step_ms", "first_step_ms", "tokens_per_s",
+                              "peak_gb", "flash_forward_ms",
+                              "flash_backward_ms", "optimizer_ms",
+                              "loss_rel", "gnorm_rel", "gnorm_reversed_rel",
+                              "losses")}
+    backward_entry["small_train"] = small_train
+    backward_entry["launcher_replay_bit_equal"] = launcher_train["bit_equal"]
+    flash_entry["backward_case"] = _case(
+        backward[BWD_MAIN_CASE], BWD_MAIN_CASE,
+        launches=train["launches"]["backward"])
     flash_entry["hd128_case"] = _case(flash[MAIN_CASE_128], MAIN_CASE_128,
                                       launches=mixtral_flash)
     flash_entry["hd96_case"] = _case(flash[MAIN_CASE_96], MAIN_CASE_96,
@@ -4183,6 +4724,7 @@ def main() -> int:
                                    launches=jamba["ssd_intra"])
     print(json.dumps({"kernels": [
         flash_entry,
+        backward_entry,
         ssd_entry,
         checksum_entry,
         _maxmin_entry(storm, card),

@@ -3,9 +3,10 @@
 parts, and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
-                            [paths] [plan] [mix] [fnv] [--parent DIR]
+                            [paths] [plan] [mix] [fnv] [train]
+                            [--parent DIR]
 
-(all eight when none is named).
+(all nine when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -85,6 +86,21 @@ parts, and two of its paths, on one CUDA card:
   24 MiB chunk, a whole call at other segment and group sizes, and the
   table and partial kernels' instructions by mnemonic in their SASS (the
   whole SASS written to ``chiprun_out/fnv1a.sass``).
+
+* ``train``: the conditioning of ``chip_smoke.py``'s qwen2-7b training
+  step (its first 8 of 28 layers at full width, random bf16 weights from
+  seed 0, the loader's first batch of 4 x 1,024).  The step's loss and
+  gradient norm with the attention through the kernels, through
+  ``attention_ref`` (the plain version), through it with each dot
+  product summed in reverse, through it in float64, and through autograd
+  of ``scaled_dot_product_attention``; each gradient's elements whose
+  sign agrees with the plain version's, in all and in the leaf where
+  fewest agree.  Then the first two layers' own q, k, v: the scores'
+  spread, the forward kernel's output and lse against the plain
+  version's (and the plain version's in float32 against float64, SDPA's
+  against the plain version's) by ``ref.err_over_tolerance`` and the
+  count of elements past one bf16 ulp, and the backward kernel's dq, dk,
+  dv against ``attention_bwd_ref`` on a random dO.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
@@ -959,6 +975,115 @@ def probe_fnv(card: str, parent: Optional[str] = None) -> None:
             print(f"fnv ptxas: {line.strip()}", flush=True)
 
 
+def _attention_variants():
+    """name → attention function for ``probe_train``: the kernels (the
+    port's own ``ops.flash_attention``) and four computations of the same
+    function outside them."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    def reverse(q, k, v, **kw):
+        return ref.attention_ref(q.flip(-1), k.flip(-1), v, **kw)
+
+    def float64(q, k, v, **kw):
+        return ref.attention_ref(q.double(), k.double(), v.double(),
+                                 **kw).to(q.dtype)
+
+    def sdpa(q, k, v, causal=True, window=0, softcap=0.0):
+        if window or softcap or not causal:
+            raise ValueError("sdpa stands in for causal attention only")
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2).contiguous()
+    return {"kernels": ops.flash_attention, "plain": ref.attention_ref,
+            "plain, sums reversed": reverse, "plain, float64": float64,
+            "sdpa": sdpa}
+
+
+def probe_train(card: str) -> None:
+    from chip_smoke import _train_loader
+    from repro_torch.configs import depth_cut, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import BACKWARD, KERNEL
+    from repro_torch.models import forward, init_lm, lm_loss
+    from repro_torch.train.optimizer import global_norm, walk
+
+    cfg = depth_cut(get_config("qwen2-7b"), 8)
+    params = init_lm(cfg, seed=0, device="cuda")
+    batch = _train_loader(cfg.vocab_size, 4, 1024, "cuda").batch(0)
+    tokens = torch.as_tensor(batch["tokens"], device="cuda")
+    labels = torch.as_tensor(batch["labels"], device="cuda")
+    paths = [p for p, _ in walk(params)]
+    leaves = [t.requires_grad_(True) for _, t in walk(params)]
+    variants, flash = _attention_variants(), ops.flash_attention
+    plain = None
+    try:
+        for name in ("plain", "kernels", "plain, sums reversed",
+                     "plain, float64", "sdpa"):
+            ops.flash_attention = variants[name]
+            loss, _ = lm_loss(params, tokens, labels, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            norm = global_norm(grads).item()
+            if plain is None:
+                plain = (loss.item(), norm, [torch.sign(g) for g in grads])
+            agree = [(torch.sign(g) == s).float().mean().item()
+                     for g, s in zip(grads, plain[2])]
+            n = [g.numel() for g in grads]
+            worst = min(range(len(agree)), key=agree.__getitem__)
+            print(f"train step, attention through {name}: loss "
+                  f"{loss.item():.6f} (rel {abs(loss.item() / plain[0] - 1):.2e}"
+                  f"), grad norm {norm:.6e} (rel {abs(norm / plain[1] - 1):.2e}"
+                  f"); gradient signs equal to the plain version's on "
+                  f"{sum(a * m for a, m in zip(agree, n)) / sum(n):.4f} of "
+                  f"the elements, fewest in {paths[worst]} "
+                  f"({agree[worst]:.4f})  [{card}]", flush=True)
+            del grads, loss
+    finally:
+        ops.flash_attention = flash
+    seen = []
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v, kw))
+        return flash(q, k, v, **kw)
+    ops.flash_attention = record
+    try:
+        with torch.no_grad():
+            forward({**params, "blocks": params["blocks"][:2]}, tokens,
+                    depth_cut(get_config("qwen2-7b"), 2))
+    finally:
+        ops.flash_attention = flash
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for layer, (q, k, v, kw) in enumerate(seen):
+        q, k, v = q.detach(), k.detach(), v.detach()
+        g = q.shape[2] // k.shape[2]
+        scores = torch.einsum("bshd,bshd->bsh", q[:, :256].float(),
+                              k[:, :256].repeat_interleave(g, 2).float())
+        o_k, lse_k = KERNEL.with_lse(q, k, v, **kw)
+        o_p, lse_p = ref.attention_lse_ref(q, k, v, **kw)
+        off = lambda got, want: int(  # noqa: E731
+            ((got.float() - want.float()).abs() >
+             2.0 ** -7 * want.float().abs() + 1e-3).sum())
+        rows = {"kernel": o_k, "plain, float64": variants["plain, float64"](
+            q, k, v, **kw), "sdpa": variants["sdpa"](q, k, v, **kw)}
+        parts = [f"{name} err/tol {ref.err_over_tolerance(o, o_p):.3f}, "
+                 f"{off(o, o_p)} elements past one ulp"
+                 for name, o in rows.items()]
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        got = BACKWARD(q, k, v, dout, lse_k, **kw)
+        want = ref.attention_bwd_ref(q, k, v, dout, lse_p, **kw)
+        bwd = ", ".join(f"{n} {ref.err_over_tolerance(a, b):.3f}"
+                        for n, a, b in zip(("dq", "dk", "dv"), got, want))
+        print(f"train layer {layer} attention at the model's own q, k, v "
+              f"(|q| up to {q.abs().max().item():.1f}, |k| up to "
+              f"{k.abs().max().item():.1f}; q.k/sqrt(hd) on the diagonal of "
+              f"the first 256 rows: std {scores.std().item() / 128 ** 0.5:.1f}"
+              f"): against the plain version, {'; '.join(parts)} of "
+              f"{o_p.numel()}; lse {(lse_k - lse_p).abs().max().item():.2e} "
+              f"at |lse| up to {lse_p.abs().max().item():.1f}; backward "
+              f"err/tol on a random dO: {bwd}  [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -976,7 +1101,8 @@ def main() -> int:
               "paths": lambda c: probe_paths(c, parent),
               "plan": lambda c: probe_plan(c, parent),
               "mix": lambda c: probe_mix(c, parent),
-              "fnv": lambda c: probe_fnv(c, parent)}
+              "fnv": lambda c: probe_fnv(c, parent),
+              "train": probe_train}
     for name in args or probes:
         probes[name](card)
     return 0

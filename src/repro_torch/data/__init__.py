@@ -1,4 +1,7 @@
-"""Data: token datasets as federation objects (numpy only)."""
+"""Data: token datasets as federation objects and the federated loader
+(numpy only)."""
 from .dataset import DatasetSpec, SyntheticTokens, decode_tokens
+from .loader import FederatedDataLoader, LoaderStats
 
-__all__ = ["DatasetSpec", "SyntheticTokens", "decode_tokens"]
+__all__ = ["DatasetSpec", "SyntheticTokens", "decode_tokens",
+           "FederatedDataLoader", "LoaderStats"]

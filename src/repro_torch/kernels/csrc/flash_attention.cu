@@ -201,8 +201,9 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int KV, float scale, int causal, int window,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int S, int H, int KV,
+                           float scale, int causal, int window,
                            float softcap) {
   constexpr int RS = HD + 1;  // odd row stride: conflict-free K row reads
   constexpr int PS = BK + 1;
@@ -324,13 +325,17 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       ob[size_t(r) * q_stride + tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t(b) * H + h) * S + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, float scale, int causal,
-                   int window, float softcap, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KV, float scale,
+                   int causal, int window, float softcap,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kernel = flash_attention_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -339,8 +344,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, scale, causal,
-      window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, KV, scale,
+      causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -601,7 +606,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int S, int H, int KV,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int S, int H, int KV,
                        int causal, int window, float pre, float post) {
   using Sh = Shape<HD>;
   constexpr int SLABS = Sh::SLABS, TILE_BYTES = Sh::TILE_BYTES,
@@ -797,6 +803,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       const int row = row_a + 8 * r;
       if (row >= S) continue;
+      // m is in the log2 domain: lse = (m + log2 l) ln 2
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(size_t(b) * H + h) * S + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                       : -INFINITY;
       __nv_bfloat16* orow = o + ((size_t(b) * S + row) * H + h) * HD + col_t;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -864,9 +875,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S,
 
 template <int HD, bool SOFTCAP>
 cudaError_t launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
-                           const CUtensorMap& tv, void* o, int B, int S,
-                           int H, int KV, int causal, int window, float pre,
-                           float post, cudaStream_t stream) {
+                           const CUtensorMap& tv, void* o, float* lse, int B,
+                           int S, int H, int KV, int causal, int window,
+                           float pre, float post, cudaStream_t stream) {
   constexpr size_t smem = Shape<HD>::SMEM_BYTES;
   auto kernel = flash_wgmma_kernel<HD, SOFTCAP>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -874,15 +885,16 @@ cudaError_t launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BM - 1) / BM * H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KV, causal, window,
-      pre, post);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, KV, causal,
+      window, pre, post);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, float scale, int causal,
-                   int window, float softcap, cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int KV, float scale,
+                   int causal, int window, float softcap,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map<HD>(&tq, q, B, S, H);
   if (err == cudaSuccess) err = make_map<HD>(&tk, k, B, S, KV);
@@ -890,14 +902,445 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   constexpr float LOG2E = 1.4426950408889634f;
   if (softcap > 0.f)
-    return launch_softcap<HD, true>(tq, tk, tv, o, B, S, H, KV, causal,
+    return launch_softcap<HD, true>(tq, tk, tv, o, lse, B, S, H, KV, causal,
                                     window, 2.f * LOG2E * scale / softcap,
                                     softcap * LOG2E, stream);
-  return launch_softcap<HD, false>(tq, tk, tv, o, B, S, H, KV, causal, window,
-                                   scale * LOG2E, 0.f, stream);
+  return launch_softcap<HD, false>(tq, tk, tv, o, lse, B, S, H, KV, causal,
+                                   window, scale * LOG2E, 0.f, stream);
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// Backward (FlashAttention-2's algorithm), design `simt`: bf16 at head_dim
+// 128 (qwen2-7b's training path) and float32 at head_dim 16 (the smoke
+// configs').  The reference has no backward kernel: it differentiates its
+// plain attention (`jax.value_and_grad` through models/attention.py).
+//
+// Given q, k, v, dO and the forward's lse (float32 (B, H, S), m + log l of
+// the scaled, softcapped scores) it writes dQ, dK and dV in q's dtype,
+// every sum in fp32:
+//   P   = exp(s - lse') on the valid (row, key) pairs, else 0
+//   dP  = dO . V^T,  D = rowsum(P * dP)
+//   dS  = P * (dP - D) * (1 - tanh^2(raw / cap) if softcap)
+//   dV += P^T . dO,  dK += dS^T . Q * scale,  dQ += dS . K * scale
+// with raw = q.k * scale and s = cap tanh(raw / cap) (or raw), the masks the
+// forward's (key c valid for row r iff c < S, c <= r when causal, c > r -
+// window when windowed).  A row with no valid key contributes nothing.
+//
+// D is not FlashAttention-2's rowsum(dO * O) over the stored output: O is
+// bf16, and where the softmax is saturated (qwen2-7b's random init gives
+// scores of std ~300) the winning key's true dS is ~0 while dO . (O_bf16 -
+// O) is 2^-9 of |dO| |O|, which then is the whole gradient (its signs
+// agreed with autograd's on half the elements).  The row pass forms D from
+// the same P and dP as dS, and renormalises P over the backward's own
+// scores: l' = sum exp(s - lse), lse' = lse + log l', D = sum P dP / l'.
+// A saturated row then gets dS ~ 0 for its winner, as autograd's softmax
+// gives it.
+//
+// Three launches, no atomics, so two runs give the same bits:
+//   rows  a block a (q tile of 64 rows, q-head, batch): lse' and D;
+//   dkdv  a block a (KV tile of 64 keys, KV head, batch), heavy tiles
+//         first; it loops over the q-heads of its GQA group and the q tiles
+//         of 64 rows that see its keys, recomputing P and dS tile by tile;
+//         dK and dV stay in registers (a thread 4 keys x hd/16 columns);
+//   dq    a block a (q tile, q-head, batch), latest rows first; it loops
+//         over the key tiles its rows see.
+// Tiles are fp32 in shared memory with odd row strides, as the forward's
+// simt design keeps them: at hd 128, 165,888 B (dkdv) and 149,248 B (rows,
+// dq), one block an SM, 8 warps.
+//
+// What bounds it: the products, 18 hd operations a valid pair (S and dP
+// formed in each of the three passes, dV, dK, dQ once), on the CUDA cores'
+// fp32 FMAs (67 TFLOP/s), where the function's own work is 10 hd a pair at
+// the tensor cores' 989 TFLOP/s in bf16.  A first design that is right;
+// the tensor cores (mma/wgmma, with P and dS split hi + lo as the forward
+// splits P) are the next step.
+namespace bwd {
+
+using simt::BK;
+using simt::BQ;
+using simt::NT;
+using simt::from_float;
+using simt::half_warp_sum;
+using simt::load_tile;
+
+template <int HD>
+constexpr size_t dkdv_smem_bytes() {
+  return sizeof(float) * (4 * size_t(64) * (HD + 1) + 2 * size_t(64) * 65 +
+                          2 * 64);
+}
+
+template <int HD>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (4 * size_t(64) * (HD + 1) + size_t(64) * 65 +
+                          2 * 64);
+}
+
+// One (row tile, key tile) pair: p = exp(s - lse) on the valid pairs (0
+// elsewhere), dp = dO . v and the softcap's chain factor dt, for rows
+// row0 + ty + 16 a and keys key0 + tx + 16 c: sQ/sdO hold the rows, sK/sV
+// the keys, sL the rows' lse.
+template <int HD>
+__device__ __forceinline__ void tile_p_dp(
+    const float* sQ, const float* sdO, const float* sK, const float* sV,
+    const float* sL, int row0, int key0, int S, float scale, int causal,
+    int window, float softcap, int ty, int tx, float (&p)[4][4],
+    float (&dp)[4][4], float (&dt)[4][4]) {
+  constexpr int RS = HD + 1;
+  float s[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qa[4], oa[4], kc[4], vc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = sQ[(ty + 16 * a) * RS + d];
+      oa[a] = sdO[(ty + 16 * a) * RS + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kc[c] = sK[(tx + 16 * c) * RS + d];
+      vc[c] = sV[(tx + 16 * c) * RS + d];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
+        dp[a][c] = fmaf(oa[a], vc[c], dp[a][c]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = row0 + ty + 16 * a;
+    const float lse = sL[ty + 16 * a];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = key0 + tx + 16 * c;
+      const bool valid = r < S && col < S && (!causal || col <= r) &&
+                         (!window || col > r - window);
+      float x = s[a][c] * scale;
+      dt[a][c] = 1.f;
+      if (softcap > 0.f) {
+        const float t = tanhf(x / softcap);
+        x = softcap * t;
+        dt[a][c] = 1.f - t * t;
+      }
+      p[a][c] = valid ? expf(x - lse) : 0.f;
+    }
+  }
+}
+
+// Rows [row0, row0 + 64) of one head: `a` into sL and `b` into sD (0
+// past S).
+__device__ __forceinline__ void load_rows(float* sL, float* sD,
+                                          const float* a, const float* b,
+                                          size_t head_off, int row0, int S) {
+  for (int i = threadIdx.x; i < 64; i += NT) {
+    const int r = row0 + i;
+    sL[i] = r < S ? a[head_off + r] : 0.f;
+    if (sD != nullptr) sD[i] = r < S ? b[head_off + r] : 0.f;
+  }
+}
+
+// The key tiles of the band of rows [row0, row0 + BQ), as the forward's.
+__device__ __forceinline__ void key_band(int row0, int S, int causal,
+                                         int window, int& t_lo, int& t_hi) {
+  const int row_last = min(row0 + BQ, S) - 1;
+  t_lo = (window ? max(0, row0 - window + 1) : 0) / BK;
+  t_hi = ((causal ? row_last + 1 : S) + BK - 1) / BK;
+}
+
+// lse' = lse + log l' and D = sum P dP / l' for each row, l' = sum exp(s -
+// lse) over the row's valid keys.  grid: (ceil(S / BQ), H, B); NT
+// threads; dq_smem_bytes<HD>() dynamic.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          float* __restrict__ lse_out,
+                          float* __restrict__ dsum, int S, int H, int KV,
+                          float scale, int causal, int window,
+                          float softcap) {
+  constexpr int RS = HD + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQ * RS;
+  float* sK = sdO + BQ * RS;
+  float* sV = sK + BK * RS;
+  float* sL = sV + BK * RS;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // latest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const size_t q_stride = size_t(H) * HD, kv_stride = size_t(KV) * HD;
+  const size_t q_off = (size_t(b) * S * H + h) * HD;
+  const size_t kv_off = (size_t(b) * S * KV + kvh) * HD;
+  const size_t head_off = (size_t(b) * H + h) * S;
+  load_tile<T, HD, BQ>(sQ, RS, q + q_off, q_stride, row0, S);
+  load_tile<T, HD, BQ>(sdO, RS, dout + q_off, q_stride, row0, S);
+  load_rows(sL, nullptr, lse, nullptr, head_off, row0, S);
+  int t_lo, t_hi;
+  key_band(row0, S, causal, window, t_lo, t_hi);
+
+  float l[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = t_lo; t < t_hi; ++t) {
+    __syncthreads();  // the last tile's products are done with sK, sV
+    load_tile<T, HD, BK>(sK, RS, k + kv_off, kv_stride, t * BK, S);
+    load_tile<T, HD, BK>(sV, RS, v + kv_off, kv_stride, t * BK, S);
+    __syncthreads();
+    float p[4][4], dp[4][4], dt[4][4];
+    tile_p_dp<HD>(sQ, sdO, sK, sV, sL, row0, t * BK, S, scale, causal,
+                  window, softcap, ty, tx, p, dp, dt);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        l[a] += p[a][c];
+        d[a] = fmaf(p[a][c], dp[a][c], d[a]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    l[a] = half_warp_sum(l[a]);
+    d[a] = half_warp_sum(d[a]);
+    const int r = row0 + ty + 16 * a;
+    if (tx == 0 && r < S) {
+      const bool empty = !(l[a] > 0.f);
+      lse_out[head_off + r] = empty ? sL[ty + 16 * a]
+                                    : sL[ty + 16 * a] + logf(l[a]);
+      dsum[head_off + r] = empty ? 0.f : d[a] / l[a];
+    }
+  }
+}
+
+// grid: (ceil(S / BK), KV, B); NT threads; dkdv_smem_bytes<HD>() dynamic.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum, T* __restrict__ dk,
+                          T* __restrict__ dv, int S, int H, int KV,
+                          float scale, int causal, int window,
+                          float softcap) {
+  constexpr int RS = HD + 1, PS = BK + 1, NJ = HD / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BK * RS;
+  float* sQ = sV + BK * RS;
+  float* sdO = sQ + BQ * RS;
+  float* sP = sdO + BQ * RS;
+  float* sdS = sP + BQ * PS;
+  float* sL = sdS + BQ * PS;
+  float* sD = sL + BQ;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int key0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KV;
+  const size_t q_stride = size_t(H) * HD, kv_stride = size_t(KV) * HD;
+  const size_t kv_off = (size_t(b) * S * KV + kvh) * HD;
+  load_tile<T, HD, BK>(sK, RS, k + kv_off, kv_stride, key0, S);
+  load_tile<T, HD, BK>(sV, RS, v + kv_off, kv_stride, key0, S);
+
+  // the rows that see a key of this tile
+  const int key_last = min(key0 + BK, S) - 1;
+  const int row_lo = causal ? key0 : 0;
+  const int row_hi = window ? min(S, key_last + window) : S;  // exclusive
+  const int qt_lo = row_lo / BQ, qt_hi = (row_hi + BQ - 1) / BQ;
+
+  float acc_k[4][NJ], acc_v[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc_k[a][j] = acc_v[a][j] = 0.f;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = kvh * group + hh;
+    const size_t q_off = (size_t(b) * S * H + h) * HD;
+    const size_t head_off = (size_t(b) * H + h) * S;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int row0 = qt * BQ;
+      __syncthreads();  // the last tile's products are done with sQ .. sD
+      load_tile<T, HD, BQ>(sQ, RS, q + q_off, q_stride, row0, S);
+      load_tile<T, HD, BQ>(sdO, RS, dout + q_off, q_stride, row0, S);
+      load_rows(sL, sD, lse, dsum, head_off, row0, S);
+      __syncthreads();
+      float p[4][4], dp[4][4], dt[4][4];
+      tile_p_dp<HD>(sQ, sdO, sK, sV, sL, row0, key0, S, scale, causal,
+                    window, softcap, ty, tx, p, dp, dt);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sP[(ty + 16 * a) * PS + tx + 16 * c] = p[a][c];
+          sdS[(ty + 16 * a) * PS + tx + 16 * c] =
+              p[a][c] * (dp[a][c] - sD[ty + 16 * a]) * dt[a][c];
+        }
+      __syncthreads();
+      // dV[key][d] += P[i][key] dO[i][d]; dK[key][d] += dS[i][key] Q[i][d]
+#pragma unroll 2
+      for (int i = 0; i < BQ; ++i) {
+        float pa[4], da[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pa[a] = sP[i * PS + ty + 16 * a];
+          da[a] = sdS[i * PS + ty + 16 * a];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float o_ = sdO[i * RS + tx + 16 * j];
+          const float q_ = sQ[i * RS + tx + 16 * j];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            acc_v[a][j] = fmaf(pa[a], o_, acc_v[a][j]);
+            acc_k[a][j] = fmaf(da[a], q_, acc_k[a][j]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int key = key0 + ty + 16 * a;
+    if (key >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const size_t at = kv_off + size_t(key) * kv_stride + tx + 16 * j;
+      dk[at] = from_float<T>(acc_k[a][j] * scale);
+      dv[at] = from_float<T>(acc_v[a][j]);
+    }
+  }
+}
+
+// grid: (ceil(S / BQ), H, B); NT threads; dq_smem_bytes<HD>() dynamic.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum, T* __restrict__ dq,
+                        int S, int H, int KV, float scale, int causal,
+                        int window, float softcap) {
+  constexpr int RS = HD + 1, PS = BK + 1, NJ = HD / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BQ * RS;
+  float* sK = sdO + BQ * RS;
+  float* sV = sK + BK * RS;
+  float* sdS = sV + BK * RS;
+  float* sL = sdS + BQ * PS;
+  float* sD = sL + BQ;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // latest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const size_t q_stride = size_t(H) * HD, kv_stride = size_t(KV) * HD;
+  const size_t q_off = (size_t(b) * S * H + h) * HD;
+  const size_t kv_off = (size_t(b) * S * KV + kvh) * HD;
+  load_tile<T, HD, BQ>(sQ, RS, q + q_off, q_stride, row0, S);
+  load_tile<T, HD, BQ>(sdO, RS, dout + q_off, q_stride, row0, S);
+  load_rows(sL, sD, lse, dsum, (size_t(b) * H + h) * S, row0, S);
+  int t_lo, t_hi;
+  key_band(row0, S, causal, window, t_lo, t_hi);
+
+  float acc[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int key0 = t * BK;
+    __syncthreads();  // the last tile's products are done with sK, sV, sdS
+    load_tile<T, HD, BK>(sK, RS, k + kv_off, kv_stride, key0, S);
+    load_tile<T, HD, BK>(sV, RS, v + kv_off, kv_stride, key0, S);
+    __syncthreads();
+    float p[4][4], dp[4][4], dt[4][4];
+    tile_p_dp<HD>(sQ, sdO, sK, sV, sL, row0, key0, S, scale, causal,
+                  window, softcap, ty, tx, p, dp, dt);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        sdS[(ty + 16 * a) * PS + tx + 16 * c] =
+            p[a][c] * (dp[a][c] - sD[ty + 16 * a]) * dt[a][c];
+    __syncthreads();
+    // dQ[row][d] += dS[row][c] K[c][d]
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float da[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) da[a] = sdS[(ty + 16 * a) * PS + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float k_ = sK[c * RS + tx + 16 * j];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[a][j] = fmaf(da[a], k_, acc[a][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = row0 + ty + 16 * a;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      dq[q_off + size_t(r) * q_stride + tx + 16 * j] =
+          from_float<T>(acc[a][j] * scale);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, float* lse_rows,
+                   float* dsum, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int KV, float scale, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  const T *q_ = static_cast<const T*>(q), *k_ = static_cast<const T*>(k),
+          *v_ = static_cast<const T*>(v), *do_ = static_cast<const T*>(dout);
+  constexpr size_t smem_q = dq_smem_bytes<HD>();
+  const dim3 row_grid((S + BQ - 1) / BQ, H, B);
+  auto rows_kernel = flash_bwd_rows_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q));
+  if (err != cudaSuccess) return err;
+  rows_kernel<<<row_grid, NT, smem_q, stream>>>(
+      q_, k_, v_, do_, lse, lse_rows, dsum, S, H, KV, scale, causal, window,
+      softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem_kv = dkdv_smem_bytes<HD>();
+  auto kv_kernel = flash_bwd_dkdv_kernel<T, HD>;
+  err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_kv));
+  if (err != cudaSuccess) return err;
+  kv_kernel<<<dim3((S + BK - 1) / BK, KV, B), NT, smem_kv, stream>>>(
+      q_, k_, v_, do_, lse_rows, dsum, static_cast<T*>(dk),
+      static_cast<T*>(dv), S, H, KV, scale, causal, window, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto q_kernel = flash_bwd_dq_kernel<T, HD>;
+  err = cudaFuncSetAttribute(
+      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q));
+  if (err != cudaSuccess) return err;
+  q_kernel<<<row_grid, NT, smem_q, stream>>>(
+      q_, k_, v_, do_, lse_rows, dsum, static_cast<T*>(dq), S, H, KV, scale,
+      causal, window, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
 
 enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
 
@@ -911,6 +1354,12 @@ Design design_of(int dtype, int HD) {
   return NONE;
 }
 
+// The backward's designs: bf16 at 128 and float32 at 16, both simt.
+Design backward_design_of(int dtype, int HD) {
+  if ((dtype == 1 && HD == 128) || (dtype == 0 && HD == 16)) return SIMT;
+  return NONE;
+}
+
 }  // namespace
 
 extern "C" {
@@ -919,40 +1368,46 @@ extern "C" {
 // none.  dtype: 0 = float32, 1 = bfloat16.
 int flash_attention_design(int dtype, int HD) { return design_of(dtype, HD); }
 
-// Returns a cudaError_t (0 = success).
+// Returns a cudaError_t (0 = success).  `lse`, float32 (B, H, S), takes
+// each row's log-sum-exp of its scaled (softcapped) scores, m + log l,
+// where it is given (the training path's forward, for the backward); a
+// null `lse` writes none (serving).
 int flash_attention_forward(int dtype, const void* q, const void* k,
                             const void* v, void* o, int B, int S, int H,
                             int KV, int HD, float scale, int causal,
-                            int window, float softcap, void* stream) {
+                            int window, float softcap, void* lse_,
+                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_);
   switch (design_of(dtype, HD)) {
     case WGMMA:
       switch (HD) {
         case 64:
-          return wg::launch<64>(q, k, v, o, B, S, H, KV, scale, causal,
+          return wg::launch<64>(q, k, v, o, lse, B, S, H, KV, scale, causal,
                                 window, softcap, st);
         case 96:
-          return wg::launch<96>(q, k, v, o, B, S, H, KV, scale, causal,
+          return wg::launch<96>(q, k, v, o, lse, B, S, H, KV, scale, causal,
                                 window, softcap, st);
         case 128:
-          return wg::launch<128>(q, k, v, o, B, S, H, KV, scale, causal,
+          return wg::launch<128>(q, k, v, o, lse, B, S, H, KV, scale, causal,
                                  window, softcap, st);
         default:
-          return wg::launch<256>(q, k, v, o, B, S, H, KV, scale, causal,
+          return wg::launch<256>(q, k, v, o, lse, B, S, H, KV, scale, causal,
                                  window, softcap, st);
       }
     case SIMT:
       if (dtype == 1)
-        return simt::launch<__nv_bfloat16, 16>(q, k, v, o, B, S, H, KV, scale,
-                                               causal, window, softcap, st);
+        return simt::launch<__nv_bfloat16, 16>(q, k, v, o, lse, B, S, H, KV,
+                                               scale, causal, window, softcap,
+                                               st);
       if (HD == 16)
-        return simt::launch<float, 16>(q, k, v, o, B, S, H, KV, scale, causal,
-                                       window, softcap, st);
+        return simt::launch<float, 16>(q, k, v, o, lse, B, S, H, KV, scale,
+                                       causal, window, softcap, st);
       if (HD == 128)
-        return simt::launch<float, 128>(q, k, v, o, B, S, H, KV, scale,
+        return simt::launch<float, 128>(q, k, v, o, lse, B, S, H, KV, scale,
                                         causal, window, softcap, st);
-      return simt::launch<float, 256>(q, k, v, o, B, S, H, KV, scale, causal,
-                                      window, softcap, st);
+      return simt::launch<float, 256>(q, k, v, o, lse, B, S, H, KV, scale,
+                                      causal, window, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -970,6 +1425,44 @@ int flash_attention_smem_bytes(int dtype, int HD) {
                                       : simt::smem_bytes<256>());
     default: return -1;
   }
+}
+
+// The backward's design for (dtype, head_dim): 0 = simt, -1 = none.
+int flash_attention_backward_design(int dtype, int HD) {
+  return backward_design_of(dtype, HD);
+}
+
+// Dynamic shared memory of the dK/dV kernel's block (`which` 0) or the
+// row pass's and the dQ kernel's (1) for (dtype, head_dim), or -1.
+int flash_attention_backward_smem_bytes(int dtype, int HD, int which) {
+  if (backward_design_of(dtype, HD) == NONE) return -1;
+  if (HD == 128)
+    return int(which ? bwd::dq_smem_bytes<128>() : bwd::dkdv_smem_bytes<128>());
+  return int(which ? bwd::dq_smem_bytes<16>() : bwd::dkdv_smem_bytes<16>());
+}
+
+// dQ, dK, dV (q's dtype, q's and k's shapes) of the attention the forward
+// computed, from q, k, v, dO and the forward's lse (float32 (B, H, S));
+// `lse_rows` and `dsum` are float32 (B, H, S) scratch for the row pass's
+// lse' and D.  Three launches on `stream`; returns a cudaError_t (0 =
+// success).
+int flash_attention_backward(int dtype, const void* q, const void* k,
+                             const void* v, const void* dout, const void* lse,
+                             void* lse_rows, void* dsum, void* dq, void* dk,
+                             void* dv, int B, int S, int H, int KV, int HD,
+                             float scale, int causal, int window,
+                             float softcap, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* lr = static_cast<float*>(lse_rows);
+  float* d = static_cast<float*>(dsum);
+  if (backward_design_of(dtype, HD) == NONE) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return bwd::launch<__nv_bfloat16, 128>(q, k, v, dout, l, lr, d, dq, dk,
+                                           dv, B, S, H, KV, scale, causal,
+                                           window, softcap, st);
+  return bwd::launch<float, 16>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S, H,
+                                KV, scale, causal, window, softcap, st);
 }
 
 const char* flash_attention_error_string(int err) {

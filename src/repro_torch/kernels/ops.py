@@ -9,6 +9,12 @@ so do the planner's two loops (``plan_solve``, ``mixture_fit``): the
 kernels ``cache_model.PLAN_SOLVE`` and ``cache_model.MIXTURE_FIT``; and
 the chunks' FNV-1a digests (``fnv1a64_chunks``): ``fnv1a.KERNEL``, whose
 plain version is the reference's host loop.
+
+Under a gradient (``torch.is_grad_enabled()`` and an input that requires
+grad) a CUDA tensor goes to the kernel with its hand-written backward
+(``flash_attention.FlashAttentionFunction``); a CPU tensor to the plain
+version, whose gradient is PyTorch's autograd.  ``ssd_intra`` has no
+backward kernel yet and raises on CUDA tensors under a gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from .chunk_checksum import chunk_checksum as _checksum_kernel
 from .chunk_checksum import chunk_checksums as _checksums_kernel
 from .fnv1a import KERNEL as _fnv1a_kernel
 from .flash_attention import KERNEL as _flash_kernel
+from .flash_attention import FlashAttentionFunction as _FlashFunction
 from .ssd_scan import KERNEL as _ssd_kernel
 
 
@@ -32,8 +39,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
+    if _wants_grad(q, k, v):
+        return _FlashFunction.apply(q, k, v, causal, window, softcap)
     return _flash_kernel(q, k, v, causal=causal, window=window,
                          softcap=softcap)
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def ssd_intra(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -42,6 +55,11 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     (B, NC, Q, N) → the intra-chunk SSD output (B, NC, Q, H, P)."""
     if x.device.type == "cpu":
         return ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
+    if _wants_grad(x, dt, cum, b_in, c_in):
+        raise NotImplementedError(
+            "ssd_intra on the card has no backward kernel yet (ROADMAP "
+            "queue 2, ssd_intra's backward): an SSM config cannot train on "
+            "the card until it is written")
     return _ssd_kernel(x, dt, cum, b_in, c_in)
 
 

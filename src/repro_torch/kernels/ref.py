@@ -41,6 +41,69 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def _scores(q, k, causal, window, softcap):
+    """The attention's scaled (softcapped) float32 scores (B, H, S, S) over
+    KV repeated to the q-heads, tanh(raw / cap) (None without a softcap)
+    and the valid pairs (S, S)."""
+    s, hd = q.shape[1], q.shape[3]
+    k = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    raw = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / hd ** 0.5
+    t = torch.tanh(raw / softcap) if softcap else None
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    return (softcap * t if softcap else raw), t, mask
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0):
+    """``attention_ref``'s output and each row's log-sum-exp of its valid
+    scaled (softcapped) scores, float32 (B, H, S): what the forward
+    kernel writes for the backward."""
+    scores, _, mask = _scores(q, k, causal, window, softcap)
+    lse = torch.logsumexp(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         softcap=softcap), lse
+
+
+def attention_bwd_ref(q, k, v, dout, lse, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0):
+    """The backward kernel's formulas written out: (dq, dk, dv) in q's
+    dtype, all in float32 from the forward's ``lse``: P = exp(s − lse) on
+    the valid pairs, renormalised over these scores (lse' = lse + log ΣP),
+    dP = dO·Vᵀ, D = Σ P ∘ dP, dS = P ∘ (dP − D) (∘ (1 − tanh²(raw / cap))
+    with a softcap), dV = Pᵀ·dO, dK = dSᵀ·Q·scale, dQ = dS·K·scale, dK and
+    dV summed over each KV head's group of q-heads.  D is formed from P
+    and dP, not from the stored output: see the kernel's notes."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = 1.0 / hd ** 0.5
+    scores, t, mask = _scores(q, k, causal, window, softcap)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    total = p.sum(-1, keepdim=True)
+    p = torch.where(total > 0, p / torch.where(total > 0, total, 1.0), p)
+    dof = dout.float()
+    vr = v.float().repeat_interleave(g, dim=2)
+    kr = k.float().repeat_interleave(g, dim=2)
+    dp = torch.einsum("bshd,bthd->bhst", dof, vr)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if softcap:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bhst,bthd->bshd", ds, kr) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dk = dk.view(b, s, kv, g, hd).sum(3)
+    dv = dv.view(b, s, kv, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_intra_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                   b_in: torch.Tensor, c_in: torch.Tensor) -> torch.Tensor:
     """Intra-chunk SSD: Y[i] = Σ_{j≤i} (C_i·B_j) exp(cum_i − cum_j) Δ_j x_j.

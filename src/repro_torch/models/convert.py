@@ -7,7 +7,11 @@ port keeps one dictionary per layer in execution order, layer
 block's SSM mixer beside its ``norm2`` and ``ffn``, a cross-attention
 block's scalar ``gate``.  ``params_from_jax`` reads the reference's
 layout (numpy or tensor leaves), ``jax_layout`` writes it (tensor
-leaves): what a checkpoint of the reference's holds.
+leaves): what a checkpoint of the reference's holds.  ``state_from_jax``
+turns the reference trainer's whole state into the port's: the
+parameters through ``params_from_jax``, the optimizer's moments and the
+error-feedback residual kept in the reference's layout (as the port's
+optimizer keeps them).
 """
 from __future__ import annotations
 
@@ -123,3 +127,42 @@ def param_checksums(params: Dict[str, Any], block: int = 1024
     walk(params, "")
     sums = ops.chunk_checksums(leaves, block, as_bytes=True)
     return dict(zip(paths, sums.unbind(0)))
+
+
+def _moments_from_jax(tree, device: torch.device):
+    """A tree of the reference's moments (float32, bfloat16 or int8
+    ``{"q", "scale"}`` leaves; ``blocks`` a tuple) as tensors of the same
+    dtypes and layout, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: _moments_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_moments_from_jax(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16, by name
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    if arr.dtype not in (np.float32, np.int8, np.int32):
+        raise TypeError(f"optimizer state leaf of {arr.dtype}")
+    return torch.from_numpy(arr).to(device)
+
+
+def state_from_jax(state: Dict[str, Any], cfg: ArchConfig,
+                   device=None) -> Dict[str, Any]:
+    """The reference ``Trainer.state`` (numpy or tensor leaves) as the
+    port's: ``params`` per layer (``params_from_jax``); ``opt`` with
+    ``mu`` and ``nu`` in their moment dtype (float32, bfloat16 or int8
+    ``{"q", "scale"}``, the reference's blocks) and ``step`` (int32);
+    ``ef_residual`` (float32) where the state has one.  Moments and the
+    residual keep the reference's stacked layout."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {"params": params_from_jax(state["params"], cfg, dev),
+           "opt": {"mu": _moments_from_jax(opt["mu"], dev),
+                   "nu": _moments_from_jax(opt["nu"], dev),
+                   "step": torch.as_tensor(np.array(opt["step"]),
+                                           dtype=torch.int32, device=dev)}}
+    if "ef_residual" in state:
+        out["ef_residual"] = _moments_from_jax(state["ef_residual"], dev)
+    return out

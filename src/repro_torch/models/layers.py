@@ -92,10 +92,13 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(p: Params, x: torch.Tensor, cap: float = 0.0) -> torch.Tensor:
-    """Logits in float32, softcapped.  The cap is applied in place on the
-    fresh float32 tensor: at a 256k vocabulary a copy would cost GBs."""
+    """Logits in float32, softcapped.  Without a gradient to record the
+    cap is applied in place on the fresh float32 tensor: at a 256k
+    vocabulary a copy would cost GBs; autograd needs the copies."""
     head = p["head"] if "head" in p else p["embedding"].T
     logits = (x @ head).float()
+    if cap and logits.requires_grad:
+        return cap * torch.tanh(logits / cap)
     if cap:
         logits.div_(cap).tanh_().mul_(cap)
     return logits

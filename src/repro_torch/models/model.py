@@ -18,12 +18,19 @@ the cross-attention layers; without them those layers run as the
 reference runs them then (ungated causal self-attention), which is what
 serving gives them.  A cross-attention layer keeps no decode cache: its
 entry in the cache list is an empty dictionary.
+
+Training: ``lm_loss`` is the reference's masked cross-entropy plus the
+weighted aux loss.  ``forward(remat=True)`` (the reference's default)
+runs each layer under ``torch.utils.checkpoint`` when autograd records,
+so the backward recomputes a layer's forward instead of keeping its
+activations; the reference remats each group with ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import (FFN_MOE, FFN_NONE, MIXER_ATTN_LOCAL, MIXER_SSM,
                             MIXER_XATTN, ArchConfig, BlockSpec_)
@@ -106,30 +113,51 @@ def _ffn(bp: Params, x: torch.Tensor, cfg: ArchConfig, spec
     return x + mlp_forward(bp["ffn"], h), None
 
 
+def _block(bp: Params, x: torch.Tensor, spec, cfg: ArchConfig,
+           positions: torch.Tensor, image_embeds: Optional[torch.Tensor]):
+    """One layer of the full-sequence pass without a cache: (x, its aux
+    loss or None)."""
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    if spec.mixer == MIXER_XATTN:
+        mix = attn.attention_forward(bp["mixer"], h, cfg, positions,
+                                     cross_states=image_embeds)
+    elif spec.mixer == MIXER_SSM:
+        mix = ssm.ssm_forward(bp["mixer"], h, cfg)
+    else:
+        mix = attn.attention_forward(bp["mixer"], h, cfg, positions,
+                                     window=_window_for(cfg, spec.mixer))
+    return _ffn(bp, x + mix, cfg, spec)
+
+
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-         max_seq: Optional[int], image_embeds: Optional[torch.Tensor]):
+         max_seq: Optional[int], image_embeds: Optional[torch.Tensor],
+         remat: bool = False):
     """Full-sequence pass: (logits, caches, the sum of the layers' aux
-    losses); collects the decode cache when ``max_seq`` is given."""
+    losses); collects the decode cache when ``max_seq`` is given.  With
+    ``remat`` and autograd recording, each layer is checkpointed."""
     x = embed_tokens(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = remat and max_seq is None and torch.is_grad_enabled()
     for bp, spec in zip(params["blocks"], _specs(cfg, params), strict=True):
+        if max_seq is None:
+            args = (bp, x, spec, cfg, positions, image_embeds)
+            x, layer_aux = checkpoint(_block, *args, use_reentrant=False,
+                                      preserve_rng_state=False) \
+                if remat else _block(*args)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+            continue
         h = rms_norm(x, bp["norm1"], cfg.norm_eps)
         window = _window_for(cfg, spec.mixer)
         if spec.mixer == MIXER_XATTN:
             mix = attn.attention_forward(bp["mixer"], h, cfg, positions,
                                          cross_states=image_embeds)
-            if max_seq is not None:
-                caches.append({})
-        elif spec.mixer == MIXER_SSM and max_seq is None:
-            mix = ssm.ssm_forward(bp["mixer"], h, cfg)
+            caches.append({})
         elif spec.mixer == MIXER_SSM:
             mix, cache = ssm.prefill_ssm(bp["mixer"], h, cfg)
             caches.append(cache)
-        elif max_seq is None:
-            mix = attn.attention_forward(bp["mixer"], h, cfg, positions,
-                                         window=window)
         else:
             mix, cache = attn.prefill_attention(bp["mixer"], h, cfg,
                                                 positions, window, max_seq)
@@ -143,11 +171,29 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
-            image_embeds: Optional[torch.Tensor] = None
+            image_embeds: Optional[torch.Tensor] = None, remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, V) fp32, aux loss)."""
-    logits, _, aux = _run(params, tokens, cfg, None, image_embeds)
+    """tokens (B, S) → (logits (B, S, V) fp32, aux loss).  ``remat``
+    checkpoints each layer when autograd records (and does nothing
+    otherwise)."""
+    logits, _, aux = _run(params, tokens, cfg, None, image_embeds, remat)
     return logits, aux
+
+
+def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ArchConfig, image_embeds: Optional[torch.Tensor] = None,
+            aux_weight: float = 0.01, remat: bool = True):
+    """(ce + aux_weight·aux, (ce, aux)): the mean cross-entropy over the
+    positions with ``labels >= 0``.  The gold logit is gathered: the
+    reference's one-hot contraction adds exact zeros to it, so the two
+    agree exactly."""
+    logits, aux = forward(params, tokens, cfg, image_embeds, remat)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux_weight * aux, (ce, aux)
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor,

@@ -94,13 +94,19 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
-            return np.ascontiguousarray(t.float().cpu().numpy()), "bfloat16"
+            return _contiguous(t.float().cpu().numpy()), "bfloat16"
         arr = t.cpu().numpy()
     else:
         arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":        # ml_dtypes', by name
-            return np.ascontiguousarray(arr.astype(np.float32)), "bfloat16"
-    return np.ascontiguousarray(arr), str(arr.dtype)
+            return _contiguous(arr.astype(np.float32)), "bfloat16"
+    return _contiguous(arr), str(arr.dtype)
+
+
+def _contiguous(arr: np.ndarray) -> np.ndarray:
+    """A C-contiguous array of ``arr``'s shape: a 0-d leaf (the
+    optimizer's step) stays 0-d, as the reference stores it."""
+    return np.ascontiguousarray(arr).reshape(arr.shape)
 
 
 def _fold(agg: FetchResult, res: FetchResult) -> None:
