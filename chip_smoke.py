@@ -116,21 +116,32 @@ any phase fails:
              blank image's at gates 0 and different at gates 0.5;
              ``launch.serve`` at its defaults on the card, its two lines;
    train   — flash attention's backward kernel against its plain version
-             at qwen2-7b's training shape (B4 S1024 H32 KV4 hd128 bf16,
-             causal) and at float32 hd 16 with a window and with a
-             softcap, each with a control (dO moved by 1e-2 of its scale)
-             that must fail, its lse against the plain version's; kernel,
-             plain and library (autograd through SDPA) times and the
+             at each training path's shape, all on the ``wgmma`` design:
+             qwen2-7b's (B4 S1024 H32 KV4 hd128 bf16, causal), gemma2-2b's
+             (B1 S8192 H16 KV4 hd256, window 4096, softcap 50),
+             phi3-mini-3.8b's (B4 S1024 H32 KV32 hd96) and
+             musicgen-medium's (B4 S1024 H24 KV24 hd64), and on ``simt``
+             at float32 hd 16 with a window and with a softcap, each with
+             a control (dO moved by 1e-2 of its scale) that must fail, its
+             lse against the plain version's; kernel, plain and library
+             (autograd through SDPA; none with the softcap) times and the
              bound (10·hd FLOPs a visible pair); qwen2-7b's smoke model
              trained 10 steps on the card and on the CPU from the same
-             init; qwen2-7b at full width, its first 8 of 28 layers
-             (``depth_cut``; random bf16 weights, float32 moments),
-             ``Trainer.run`` over a ``FederatedDataLoader`` on
-             ``fleet(2, 8)`` for 6 steps of 4 x 1,024 tokens after one
-             step's loss and gradient norm through the kernels against
-             ``attention_ref`` on the card: every loss finite, every
-             flash launch ``wgmma`` (forward and remat) and every backward
-             ``simt``, ms a step and its split, tokens/s, peak memory;
+             init; then at full width, random bf16 weights, float32
+             moments, ``Trainer.run`` over a ``FederatedDataLoader`` on
+             ``fleet(2, 8)``: qwen2-7b's first 8 of 28 layers
+             (``depth_cut``) for 6 steps of 4 x 1,024 tokens, gemma2-2b's
+             first 16 of 26 for 2 steps of 1 x 8,192, phi3-mini-3.8b (all
+             32) and musicgen-medium (all 48) for 2 steps of 4 x 1,024,
+             each after one step through the kernels against the same
+             step with ``attention_ref`` on the card, the attention's
+             projections rescaled to their true fan-in for it (the loss,
+             the gradient norm and every attention projection's gradient,
+             with a control, dK of a sequence's first 128 keys dropped,
+             that must fail): every loss
+             finite, every flash launch ``wgmma`` (forward and remat) and
+             every backward ``wgmma``, ms a step and its split, tokens/s,
+             peak memory;
              ``launch.train`` at the reference's defaults and with
              ``--grad-compression int8_ef --fail-at 20``, its line, the
              restart replaying the uninterrupted run;
@@ -201,7 +212,7 @@ any phase fails:
              equal to the plain version bit for bit, with controls;
 7. report  — one JSON line of kernel numbers, then the device line.
 
-Each serving path, the weight leg, qwen2-7b's training, storm H, sweep I
+Each serving path, the weight leg, each training path, storm H, sweep I
 and the planner's path J runs with
 every launch count set to 0 just before it and read just after.  Every line with a measured
 number names the card and its power limit.
@@ -485,7 +496,8 @@ def phase_build(card: str) -> None:
     _build.build(*libs)
     say(f"build: {', '.join(lib.path.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", card)
-    entries = {"flash_bwd": "backward simt design: ",
+    entries = {"flash_bwd_wgmma": "backward wgmma design: ",
+               "flash_bwd": "backward simt design: ",
                "flash_wgmma": "wgmma design: ",
                "flash_attention_kernel": "simt design: ",
                "ssd_wgmma_kernelILi128E": "wgmma_p128 design: ",
@@ -2059,30 +2071,62 @@ def phase_launcher(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Training: flash attention's backward, qwen2-7b's train steps, the
+# Training: flash attention's backward, the training phases, the
 # launcher with a restart
 # ---------------------------------------------------------------------------
-# (B, S, widths, window, dtype): the training path's shape (qwen2-7b at
-# global batch 4, seq 1024), then the smoke configs' float32 at hd 16 with
-# a window and with a softcap
+# (B, S, widths, window, dtype): the training paths' shapes on the wgmma
+# design (qwen2-7b, phi3-mini-3.8b and musicgen-medium at global batch 4
+# of 1,024 tokens; gemma2-2b at 1 of 8,192, where its local layers' window
+# of 4,096 acts, with its softcap), then the smoke configs' float32 at hd
+# 16 (simt) with a window and with a softcap
 BWD_CASES = [(4, 1024, QWEN2, 0, "bfloat16"),
+             (1, 8192, GEMMA2, 4096, "bfloat16"),
+             (4, 1024, PHI3_MINI, 0, "bfloat16"),
+             (4, 1024, MUSICGEN, 0, "bfloat16"),
              (4, 256, Widths(4, 2, 16, 0.0), 48, "float32"),
              (4, 256, Widths(4, 2, 16, 30.0), 0, "float32")]
-BWD_MAIN_CASE = case_name(QWEN2, 4, 1024, 0, "bfloat16")
+
+
+def bwd_name(b: int, s: int, w: Widths, window: int, dtype: str) -> str:
+    return case_name(w, b, s, window, dtype) + \
+        (f" softcap{w.softcap:g}" if w.softcap else "")
+
+
+BWD_MAIN_CASE = bwd_name(4, 1024, QWEN2, 0, "bfloat16")
 BWD_NUDGE = 1e-2          # the control: dO moved by 1e-2 of its scale
-TRAIN_LAYERS = 8          # of 28: 2.99 B parameters, ~36 GB of state
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
-# one step's loss and gradient norm through the kernels against the same
-# step with attention_ref on the card.  At qwen2-7b's random init (the
-# reference's fan-in of a 3-D weight is its head count) the scores have a
-# std of ~300: rows put their weight on one key, near-ties decide, and the
-# gradient moves with the order of any float32 sum (PR 30: the plain
-# version with its dot products summed in reverse moved the loss by
-# 5.8e-4 and the grad norm by 42%; autograd through SDPA by 7.3e-4 and
-# 28%).  So the loss is held to 2e-3, and the grad norm to 2e-2 or twice
-# the reversed plain step's distance from the plain step, measured in the
-# same run, whichever is larger
+# the training phases at full width: (arch, layers, batch, seq, steps).
+# qwen2-7b's first 8 of 28 layers (2.98 B parameters; all 28 would need 93
+# GB of state before any activation); gemma2-2b at one sequence of 8,192
+# tokens, the only length here at which its local layers' window (4,096)
+# acts, and its first 16 of 26 layers (8 local/global pairs): all 26 ran
+# out of the card's 80 GB in the first step, whose float32 logits of
+# 8,192 x 256,000 take 8.4 GB a tensor; phi3-mini-3.8b and
+# musicgen-medium at all their layers (PERF.md §4 reckons the peaks)
+TRAIN_PHASES = (("qwen2-7b", 8, 4, 1024, 6),
+                ("gemma2-2b", 16, 1, 8192, 2),
+                ("phi3-mini-3.8b", 32, 4, 1024, 2),
+                ("musicgen-medium", 48, 4, 1024, 2))
+# one step through the kernels against the same step with attention_ref on
+# the card.  The random init (the reference's fan-in of a 3-D weight is its
+# head count: wq comes out sqrt(d_model / heads) too large, wk and wv
+# sqrt(d_model / KV heads)) gives scores of std ~200 at qwen2-7b: every row
+# puts its weight on one key, near-ties decide, and the step moves with
+# the order of any float32 sum (qwen2-7b's grad norm moved 42% with the
+# plain version summed in reverse, 28% through SDPA, 91% with the
+# attention in float64; kernel_probe.py train).  So the check step runs
+# with each attention layer's wq, wk, wv and wo rescaled to their true
+# fan-in (``ConditionedAttention``; scores of std ~0.7) and the run itself
+# on the init as drawn.  The loss is held to 2e-3, the grad norm to 2e-2 or
+# twice the reversed plain step's distance from the plain step, measured
+# in the same run, whichever is larger, and each attention projection's
+# gradient (wq, wk, wv, wo of every layer) to ``TRAIN_ATTN_GRAD_TOL`` of
+# its largest element from the plain step's (bf16 gradients: the plain
+# step summed in reverse lands up to 2.9e-2 away); a control, the same
+# step with the backward's dK of each sequence's first 128 keys (one dK/dV
+# block, the keys every causal row sees) dropped, must fall outside it
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
+TRAIN_ATTN_GRAD_TOL = 5e-2
+TRAIN_CONTROL_KEYS = 128
 # the smoke model's 10 float32 steps, card against CPU (TF32 off): the
 # first 3 losses within 1e-5 (float32 sums in other orders); all 10 within
 # 1e-3, since the run itself is that sensitive through Adam's normalised
@@ -2136,8 +2180,7 @@ def phase_flash_backward(card: str) -> dict:
             dout.shape, generator=gen, device="cuda")
         control = BACKWARD(q, k, v, nudge.to(dtype), lse, **kw)
         torch.cuda.synchronize()
-        name = case_name(w, b, s, window, dtype_name) + \
-            (f" softcap{w.softcap:g}" if w.softcap else "")
+        name = bwd_name(b, s, w, window, dtype_name)
         lse_err = (lse - lse_want).abs().max().item()
         ratio = max(ref.err_over_tolerance(g, x) for g, x in zip(got, want))
         control_ratio = max(ref.err_over_tolerance(c, x)
@@ -2212,44 +2255,121 @@ def _train_loader(vocab: int, batch: int, seq: int, device: str):
                                seq_len=seq, site="pod0", worker=0)
 
 
-class _PlainAttention:
-    """Routes the model's attention to ``ref.attention_ref`` on the card
-    while the context is open (its gradient PyTorch's autograd), as
-    ``_Routes`` reroutes the MoE layer's routing; with ``reverse``, each
-    score's dot product is summed in reverse order (q and k flipped along
-    the head dim): the same function, float32 sums in another order."""
+def plain_attention(order=None):
+    """``ref.attention_ref``; with ``order``, the same function with each
+    score's dot product summed in another order: "reverse" (q and k
+    flipped along the head dim), or an int seeding a permutation of the
+    head dim applied to q and k alike."""
+    import torch
 
-    def __init__(self, reverse: bool = False) -> None:
-        self.reverse = reverse
+    from repro_torch.kernels import ref
+    if order is None:
+        return ref.attention_ref
+
+    def reordered(q, k, v, **kw):
+        hd = q.shape[-1]
+        perm = torch.arange(hd - 1, -1, -1) if order == "reverse" else \
+            torch.randperm(hd, generator=torch.Generator().manual_seed(order))
+        perm = perm.to(q.device)
+        return ref.attention_ref(q[..., perm], k[..., perm], v, **kw)
+    return reordered
+
+
+class _PlainAttention:
+    """Routes the model's attention to ``plain_attention(order)`` on the
+    card while the context is open (its gradient PyTorch's autograd), as
+    ``_Routes`` reroutes the MoE layer's routing."""
+
+    def __init__(self, order=None) -> None:
+        self.order = order
 
     def __enter__(self):
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import ops
         self._ops, self._flash = ops, ops.flash_attention
-
-        def reversed_sums(q, k, v, **kw):
-            return ref.attention_ref(q.flip(-1), k.flip(-1), v, **kw)
-        ops.flash_attention = reversed_sums if self.reverse else \
-            ref.attention_ref
+        ops.flash_attention = plain_attention(self.order)
         return self
 
     def __exit__(self, *exc):
         self._ops.flash_attention = self._flash
 
 
-def _loss_and_grad_norm(trainer, batch) -> tuple:
-    """The trainer's loss and global gradient norm on ``batch``, without
-    a step."""
+class _DroppedKeys:
+    """While open, the backward kernel's dK of each sequence's first
+    ``keys`` keys is zeroed after every launch: a backward that drops a
+    dK/dV block, the training check's control."""
+
+    def __init__(self, keys: int) -> None:
+        self.keys = keys
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self._fa, self._backward = fa, fa.BACKWARD
+        keys, backward = self.keys, fa.BACKWARD
+
+        def dropped(*args, **kw):
+            dq, dk, dv = backward(*args, **kw)
+            dk[:, :keys] = 0
+            return dq, dk, dv
+        fa.BACKWARD = dropped
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.BACKWARD = self._backward
+
+
+def attention_projections(params, cfg):
+    """(path, tensor) of every self-attention layer's wq, wk, wv and wo."""
+    from repro_torch.models.model import layer_specs
+    return [(("blocks", i, "mixer", name), block["mixer"][name])
+            for i, (spec, block) in enumerate(zip(layer_specs(cfg),
+                                                  params["blocks"]))
+            if spec.mixer.startswith("attn")
+            for name in ("wq", "wk", "wv", "wo")]
+
+
+class ConditionedAttention:
+    """While open, each self-attention layer's wq, wk and wv are scaled in
+    place to a fan-in of d_model and wo to one of its heads x head_dim
+    inputs (the init takes a 3-D weight's second-to-last axis as its
+    fan-in); on exit the weights are restored bit for bit."""
+
+    def __init__(self, params, cfg) -> None:
+        self.leaves = attention_projections(params, cfg)
+
+    def __enter__(self):
+        import torch
+        self.saved = [t.detach().clone() for _, t in self.leaves]
+        with torch.no_grad():
+            for path, t in self.leaves:
+                fan = t.shape[0] * t.shape[1] if path[-1] == "wo" else \
+                    t.shape[0]
+                t.mul_((t.shape[-2] / fan) ** 0.5)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        with torch.no_grad():
+            for (_, t), saved in zip(self.leaves, self.saved):
+                t.copy_(saved)
+        del self.saved
+
+
+def _loss_and_grads(trainer, batch) -> tuple:
+    """The trainer's loss on ``batch``, its global gradient norm and the
+    gradients of ``attention_projections``, without a step."""
     import torch
 
     from repro_torch.models import lm_loss
     from repro_torch.train.optimizer import global_norm, walk
-    leaves = [t.requires_grad_(True) for _, t in walk(trainer.state["params"])]
-    loss, _ = lm_loss(trainer.state["params"],
-                      torch.as_tensor(batch["tokens"], device="cuda"),
+    params = trainer.state["params"]
+    leaves = [t.requires_grad_(True) for _, t in walk(params)]
+    loss, _ = lm_loss(params, torch.as_tensor(batch["tokens"], device="cuda"),
                       torch.as_tensor(batch["labels"], device="cuda"),
                       trainer.cfg, aux_weight=trainer.aux_weight)
     grads = torch.autograd.grad(loss, leaves)
-    return loss.item(), global_norm(grads).item()
+    at = {id(t): g for t, g in zip(leaves, grads)}
+    attn = [at[id(t)] for _, t in attention_projections(params, trainer.cfg)]
+    return loss.item(), global_norm(grads).item(), attn
 
 
 class _TrainTimes:
@@ -2307,28 +2427,36 @@ class _TrainTimes:
         return sum(a.elapsed_time(b) for a, b in self.events[key]) / steps
 
 
-def phase_train_qwen2(card: str) -> dict:
-    """qwen2-7b at full width, its first ``TRAIN_LAYERS`` layers
-    (``depth_cut``; depth is the only cut), random bf16 weights from seed 0
-    and float32 moments, trained by ``Trainer.run`` on a
-    ``FederatedDataLoader`` over ``fleet(2, 8)``: global batch 4 of 1,024
-    tokens, ``TRAIN_STEPS`` steps, no checkpointer.  First one step's loss
-    and gradient norm through the kernels against the same step with
-    ``attention_ref`` on the card; then the run, every loss finite, every
-    flash launch ``wgmma`` (two a layer a step: forward and remat) and
-    every backward ``simt`` (one a layer a step)."""
+def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
+                steps: int) -> dict:
+    """``arch`` at full width, its first ``layers`` layers (``depth_cut``;
+    depth is the only cut), random bf16 weights from seed 0 and float32
+    moments, trained by ``Trainer.run`` on a ``FederatedDataLoader`` over
+    ``fleet(2, 8)``: global batch ``batch`` of ``seq`` tokens, ``steps``
+    steps, no checkpointer.  First one step through the kernels against
+    the same step with ``attention_ref`` on the card, both under
+    ``ConditionedAttention`` (the loss, the grad norm, with the plain
+    step summed in reverse for its spread, and each attention
+    projection's gradient, with the dropped-keys control that must fail);
+    then the run on the init as drawn, every loss finite, every flash
+    launch ``wgmma`` (two an attention layer a step: forward and remat)
+    and every backward ``wgmma`` (one an attention layer a step)."""
     import math
 
     import torch
 
     from repro_torch.configs import depth_cut, get_config
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import layer_specs
     from repro_torch.train import AdamWConfig, Trainer
     from repro_torch.train.optimizer import walk
 
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = depth_cut(get_config("qwen2-7b"), TRAIN_LAYERS)
-    loader = _train_loader(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    full = get_config(arch)
+    cfg = depth_cut(full, layers) if layers < full.num_layers else full
+    attn_layers = sum(spec.mixer.startswith("attn")
+                      for spec in layer_specs(cfg))
+    loader = _train_loader(cfg.vocab_size, batch, seq, "cuda")
     t0 = time.perf_counter()
     trainer = Trainer(cfg, loader, AdamWConfig(warmup_steps=2,
                                                total_steps=100),
@@ -2337,38 +2465,73 @@ def phase_train_qwen2(card: str) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in walk(trainer.state["params"]))
     state_gb = sum(t.nbytes for _, t in walk(trainer.state)) / 1e9
-    say(f"train qwen2-7b: {cfg.num_layers} of 28 layers (depth only), "
-        f"d={cfg.d_model}, 28 q-heads padded to {cfg.padded_heads} over "
-        f"{cfg.num_kv_heads} KV of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}; {n_params} parameters in {cfg.dtype}, float32 "
-        f"moments: {state_gb:.2f} GB of state; init {init_s:.1f} s", card)
+    heads = cfg.padded_heads or cfg.num_heads
+    say(f"train {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"({'depth only' if layers < full.num_layers else 'no cut'}), "
+        f"d={cfg.d_model}, {cfg.num_heads} q-heads"
+        f"{f' padded to {heads}' if cfg.padded_heads else ''} over "
+        f"{cfg.num_kv_heads} KV of {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window or 0}, softcap {cfg.attn_logit_softcap:g}; "
+        f"{n_params} parameters in {cfg.dtype}, float32 moments: "
+        f"{state_gb:.2f} GB of state; init {init_s:.1f} s", card)
 
-    batch = loader.batch(0)
-    loss_k, gnorm_k = _loss_and_grad_norm(trainer, batch)
-    with _PlainAttention():
-        loss_p, gnorm_p = _loss_and_grad_norm(trainer, batch)
-    with _PlainAttention(reverse=True):
-        loss_r, gnorm_r = _loss_and_grad_norm(trainer, batch)
+    first = loader.batch(0)
+    paths = [p for p, _ in attention_projections(trainer.state["params"],
+                                                 cfg)]
+
+    def off(grads, want):
+        """Each leaf's largest |grads - want| over want's largest."""
+        return [((g.float() - w.float()).abs().max() / w.float().abs().max()
+                 ).item() for g, w in zip(grads, want)]
+    with ConditionedAttention(trainer.state["params"], cfg):
+        with _PlainAttention():
+            loss_p, gnorm_p, attn_p = _loss_and_grads(trainer, first)
+        loss_k, gnorm_k, attn_k = _loss_and_grads(trainer, first)
+        attn_off = off(attn_k, attn_p)
+        del attn_k
+        with _PlainAttention("reverse"):
+            loss_r, gnorm_r, attn_r = _loss_and_grads(trainer, first)
+        reversed_off = off(attn_r, attn_p)
+        del attn_r
+        with _DroppedKeys(TRAIN_CONTROL_KEYS):
+            _, gnorm_c, attn_c = _loss_and_grads(trainer, first)
+        control_off = off(attn_c, attn_p)
+        del attn_c, attn_p
+    check_gb = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     gnorm_rel = abs(gnorm_k - gnorm_p) / gnorm_p
     spread = abs(gnorm_r - gnorm_p) / gnorm_p
     gnorm_tol = max(TRAIN_GNORM_RTOL, 2 * spread)
-    say(f"train qwen2-7b, one step through the kernels vs attention_ref on "
-        f"the card: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, "
-        f"tol {TRAIN_LOSS_RTOL:g}), grad norm {gnorm_k:.1f} vs {gnorm_p:.1f} "
-        f"(rel {gnorm_rel:.2e}, tol {gnorm_tol:.2e}); attention_ref with "
-        f"its dot products summed in reverse: loss {loss_r:.6f} (rel "
-        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}), grad norm "
-        f"{gnorm_r:.1f} (rel {spread:.2e})", card)
-    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= gnorm_tol):
-        raise AssertionError("train qwen2-7b: the kernels' step is off the "
-                             "plain attention's")
+    worst = max(range(len(paths)), key=attn_off.__getitem__)
+    say(f"train {arch}, one step through the kernels vs attention_ref on "
+        f"the card, the attention's projections at their true fan-in: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, tol "
+        f"{TRAIN_LOSS_RTOL:g}), grad norm {gnorm_k:.6e} vs {gnorm_p:.6e} "
+        f"(rel {gnorm_rel:.2e}, tol {gnorm_tol:.2e}; attention_ref summed "
+        f"in reverse: loss rel {abs(loss_r - loss_p) / abs(loss_p):.2e}, "
+        f"grad norm rel {spread:.2e}); the {len(paths)} attention "
+        f"projections' gradients off the plain step's by up to "
+        f"{attn_off[worst]:.3e} of their largest element "
+        f"({'.'.join(map(str, paths[worst]))}; tol {TRAIN_ATTN_GRAD_TOL:g}; "
+        f"summed in reverse {max(reversed_off):.3e}); control, dK of the "
+        f"first {TRAIN_CONTROL_KEYS} keys dropped: {max(control_off):.3e} "
+        f"(grad norm rel {abs(gnorm_c - gnorm_p) / gnorm_p:.2e}); peak "
+        f"{check_gb:.2f} GB", card)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= gnorm_tol and
+            max(attn_off) <= TRAIN_ATTN_GRAD_TOL):
+        raise AssertionError(f"train {arch}: the kernels' step is off the "
+                             f"plain attention's")
+    if not max(control_off) > TRAIN_ATTN_GRAD_TOL:
+        raise AssertionError(f"train {arch}: the dropped-keys control is "
+                             f"within tolerance ({max(control_off)})")
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     _reset_counts()                          # the path starts here
     with _TrainTimes(trainer) as times:
-        report = trainer.run(TRAIN_STEPS)
+        report = trainer.run(steps)
         torch.cuda.synchronize()
     kernels = _kernels()                     # ... and ends here
     fwd, bwd = kernels["flash_attention"], kernels["flash_attention_backward"]
@@ -2378,39 +2541,47 @@ def phase_train_qwen2(card: str) -> dict:
                 "backward_by_design": dict(bwd.launches_by_design)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in report.losses) or \
-            report.steps_run != TRAIN_STEPS:
-        raise AssertionError(f"train qwen2-7b: losses {report.losses}")
-    want_fwd = 2 * TRAIN_LAYERS * TRAIN_STEPS
-    want_bwd = TRAIN_LAYERS * TRAIN_STEPS
+            report.steps_run != steps:
+        raise AssertionError(f"train {arch}: losses {report.losses}")
+    want_fwd = 2 * attn_layers * steps
+    want_bwd = attn_layers * steps
     if launches["forward"] != want_fwd or \
             launches["forward_by_design"]["wgmma"] != want_fwd or \
             launches["backward"] != want_bwd or \
-            launches["backward_by_design"]["simt"] != want_bwd:
-        raise AssertionError(f"train qwen2-7b: launches {launches}; want "
-                             f"{want_fwd} forward on wgmma and {want_bwd} "
-                             f"backward on simt")
+            launches["backward_by_design"]["wgmma"] != want_bwd:
+        raise AssertionError(f"train {arch}: launches {launches}; want "
+                             f"{want_fwd} forward and {want_bwd} backward, "
+                             f"all on wgmma")
     steady = times.step_s[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    split = {key: times.ms(key, TRAIN_STEPS) for key in times.events}
-    out = dict(losses=report.losses, step_ms=step_ms,
+    tokens = batch * seq
+    split = {key: times.ms(key, steps) for key in times.events}
+    out = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq,
+               steps=steps, parameters=n_params, state_gb=state_gb,
+               losses=report.losses, step_ms=step_ms,
                first_step_ms=1e3 * times.step_s[0],
                tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb,
-               launches=launches, flash_forward_ms=split["forward"],
+               check_peak_gb=check_gb, launches=launches,
+               flash_forward_ms=split["forward"],
                flash_backward_ms=split["backward"],
                optimizer_ms=split["optimizer"], loss_rel=loss_rel,
                gnorm_rel=gnorm_rel, gnorm_reversed_rel=spread,
-               hit_rate=report.cache_hit_rate)
-    say(f"train qwen2-7b: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens, losses {[round(x, 4) for x in report.losses]} "
-        f"(ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}); "
-        f"{step_ms:.2f} ms a step after the first ({1e3 * times.step_s[0]:.1f}"
-        f" ms), {out['tokens_per_s']:.0f} tokens/s; a step's flash forward "
-        f"{split['forward']:.2f} ms ({want_fwd // TRAIN_STEPS} launches, "
-        f"wgmma: forward and remat), backward {split['backward']:.2f} ms "
-        f"({want_bwd // TRAIN_STEPS} launches, simt), adamw_update "
+               attn_grad_off=max(attn_off),
+               attn_grad_reversed_off=max(reversed_off),
+               attn_grad_control_off=max(control_off),
+               hit_rate=report.cache_hit_rate,
+               phase_s=time.perf_counter() - t_phase)
+    say(f"train {arch}: {steps} steps of {batch} x {seq} tokens, losses "
+        f"{[round(x, 4) for x in report.losses]} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}); {step_ms:.2f} ms a step after "
+        f"the first ({1e3 * times.step_s[0]:.1f} ms), "
+        f"{out['tokens_per_s']:.0f} tokens/s; a step's flash forward "
+        f"{split['forward']:.2f} ms ({want_fwd // steps} launches, wgmma: "
+        f"forward and remat), backward {split['backward']:.2f} ms "
+        f"({want_bwd // steps} launches, wgmma), adamw_update "
         f"{split['optimizer']:.2f} ms; loader hit rate "
-        f"{report.cache_hit_rate:.2f}; max_memory_allocated {peak_gb:.2f} GB",
+        f"{report.cache_hit_rate:.2f}; max_memory_allocated {peak_gb:.2f} GB;"
+        f" the phase {out['phase_s']:.1f} s",
         card)
     del trainer, loader, times
     return out
@@ -4653,8 +4824,10 @@ def main() -> int:
     backward = phase_flash_backward(card)
     small_train = phase_train_small(card)
     _free()
-    train = phase_train_qwen2(card)
-    _free()
+    trains = {}
+    for arch, layers, batch, seq, steps in TRAIN_PHASES:
+        trains[arch] = phase_train(card, arch, layers, batch, seq, steps)
+        _free()
     launcher_train = phase_launcher_train(card)
     phase_federation_paper(card)
     storm = phase_federation_storm(card)
@@ -4663,38 +4836,51 @@ def main() -> int:
     large = phase_waterfill_large(card)
     large.update(phase_waterfill_links(card))
     say(f"chip_smoke: all phases passed in "
-        f"{time.perf_counter() - t_start:.1f} s", card)
+        f"{time.perf_counter() - t_start:.1f} s (the full-width training "
+        f"phases {sum(t['phase_s'] for t in trains.values()):.1f} s of it)",
+        card)
     # launches: the sum over the paths that run the kernel
-    train_flash = train["launches"]["forward"]
+    train_flash = {f"{arch} training": t["launches"]["forward"]
+                   for arch, t in trains.items()}
+    train_bwd = {f"{arch} training": t["launches"]["backward"]
+                 for arch, t in trains.items()}
     flash_entry = _entry("flash_attention",
                          gemma_flash + mixtral_flash + qwen2_flash
-                         + sum(new_flash.values()) + train_flash,
+                         + sum(new_flash.values())
+                         + sum(train_flash.values()),
                          flash[MAIN_CASE], TOLERANCE["bfloat16"], MAIN_CASE,
                          card)
     flash_entry["launches_by_path"] = {"gemma2-2b": gemma_flash,
                                        "mixtral-8x22b": mixtral_flash,
                                        "qwen2-7b": qwen2_flash, **new_flash,
-                                       "qwen2-7b training": train_flash}
+                                       **train_flash}
     backward_entry = _entry("flash_attention_backward",
-                            train["launches"]["backward"],
+                            sum(train_bwd.values()),
                             backward[BWD_MAIN_CASE], TOLERANCE["bfloat16"],
                             BWD_MAIN_CASE, card)
-    backward_entry["launches_by_path"] = {
-        "qwen2-7b training": train["launches"]["backward"]}
+    backward_entry["launches_by_path"] = train_bwd
+    backward_entry["launches_by_design"] = {
+        design: sum(t["launches"]["backward_by_design"][design]
+                    for t in trains.values())
+        for design in ("wgmma", "simt")}
     backward_entry["cases"] = [_case(case, name)
                                for name, case in backward.items()
                                if name != BWD_MAIN_CASE]
     backward_entry["training"] = {
-        k: train[k] for k in ("step_ms", "first_step_ms", "tokens_per_s",
-                              "peak_gb", "flash_forward_ms",
-                              "flash_backward_ms", "optimizer_ms",
-                              "loss_rel", "gnorm_rel", "gnorm_reversed_rel",
-                              "losses")}
+        arch: {k: t[k] for k in (
+            "layers", "batch", "seq", "steps", "parameters", "state_gb",
+            "step_ms", "first_step_ms", "tokens_per_s", "peak_gb",
+            "check_peak_gb", "flash_forward_ms", "flash_backward_ms",
+            "optimizer_ms", "phase_s", "loss_rel", "gnorm_rel",
+            "gnorm_reversed_rel",
+            "attn_grad_off", "attn_grad_reversed_off",
+            "attn_grad_control_off", "losses")}
+        for arch, t in trains.items()}
     backward_entry["small_train"] = small_train
     backward_entry["launcher_replay_bit_equal"] = launcher_train["bit_equal"]
     flash_entry["backward_case"] = _case(
         backward[BWD_MAIN_CASE], BWD_MAIN_CASE,
-        launches=train["launches"]["backward"])
+        launches=train_bwd["qwen2-7b training"])
     flash_entry["hd128_case"] = _case(flash[MAIN_CASE_128], MAIN_CASE_128,
                                       launches=mixtral_flash)
     flash_entry["hd96_case"] = _case(flash[MAIN_CASE_96], MAIN_CASE_96,

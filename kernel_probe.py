@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time four kernels of the port on synthetic inputs that isolate their
-parts, and two of its paths, on one CUDA card:
+"""Time the port's kernels on synthetic inputs that isolate their parts,
+and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
-                            [paths] [plan] [mix] [fnv] [train]
-                            [--parent DIR]
+                            [paths] [plan] [mix] [fnv] [train] [saturated]
+                            [bwd] [--parent DIR]
 
-(all nine when none is named).
+(all eleven when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -87,20 +87,35 @@ parts, and two of its paths, on one CUDA card:
   table and partial kernels' instructions by mnemonic in their SASS (the
   whole SASS written to ``chiprun_out/fnv1a.sass``).
 
-* ``train``: the conditioning of ``chip_smoke.py``'s qwen2-7b training
-  step (its first 8 of 28 layers at full width, random bf16 weights from
-  seed 0, the loader's first batch of 4 x 1,024).  The step's loss and
+* ``train``: the conditioning of ``chip_smoke.py``'s training steps
+  (``TRAIN_PHASES``: qwen2-7b's first 8 layers, gemma2-2b's first 16,
+  phi3-mini-3.8b and musicgen-medium whole, at full width, random bf16
+  weights from seed 0, the loader's first batch).  Each step's loss and
   gradient norm with the attention through the kernels, through
   ``attention_ref`` (the plain version), through it with each dot
-  product summed in reverse, through it in float64, and through autograd
-  of ``scaled_dot_product_attention``; each gradient's elements whose
-  sign agrees with the plain version's, in all and in the leaf where
-  fewest agree.  Then the first two layers' own q, k, v: the scores'
-  spread, the forward kernel's output and lse against the plain
-  version's (and the plain version's in float32 against float64, SDPA's
-  against the plain version's) by ``ref.err_over_tolerance`` and the
-  count of elements past one bf16 ulp, and the backward kernel's dq, dk,
-  dv against ``attention_bwd_ref`` on a random dO.
+  product summed in reverse and in four permuted orders of the head dim,
+  in float64, and through autograd of ``scaled_dot_product_attention``
+  (without window or softcap); each gradient's elements whose sign
+  agrees with the plain version's, in all and in the leaf where fewest
+  agree.
+* ``saturated``: the backward at the first two layers' own q, k, v of
+  each of those models (the first KV head and its q-heads), as drawn
+  (rows saturated on one key) and with ``chip_smoke.py``'s
+  ``ConditionedAttention`` (the projections at their true fan-in), on
+  a random dO: the kernel's dq, dk, dv, the plain version's, the plain
+  version summed in reverse and the plain version whose row pass and
+  dK/dV pass sum in two orders, each against the float64 backward and
+  the plain float32 one by ``ref.err_over_tolerance``; the scores'
+  spread and the share of rows whose top two scores nearly tie.
+* ``bwd``: flash attention's backward at the four training shapes
+  (qwen2-7b's B4 S1024 H32 KV4 hd 128, gemma2-2b's B1 S8192 H16 KV4 hd
+  256 with window 4096 and softcap 50, phi3-mini's B4 S1024 H32 KV32 hd
+  96, musicgen's B4 S1024 H24 KV24 hd 64), CUDA events around 10 calls,
+  each against the plain version; with ``--parent DIR`` that tree's
+  backward (there the ``simt`` design at hd 128) in turns with this one
+  at qwen2-7b's shape, old, new, new, old; then each ``wgmma`` backward
+  kernel's registers and spills from ptxas and its HGMMA instructions
+  from the SASS.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
@@ -975,20 +990,47 @@ def probe_fnv(card: str, parent: Optional[str] = None) -> None:
             print(f"fnv ptxas: {line.strip()}", flush=True)
 
 
+def _attention_float64(q, k, v, causal=True, window=0, softcap=0.0):
+    """``ref.attention_ref``'s function with every operation in float64
+    (``ref`` itself computes in float32 whatever its inputs' dtype); the
+    output in float64."""
+    s, hd = q.shape[1], q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    k = k.double().repeat_interleave(g, dim=2)
+    v = v.double().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.double(), k) / hd ** 0.5
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window:
+        mask &= i[None, :] > i[:, None] - window
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _bwd_float64(q, k, v, dout, **kw):
+    """dq, dk, dv of ``_attention_float64`` by autograd, in float64."""
+    q64, k64, v64 = (t.detach().double().requires_grad_() for t in (q, k, v))
+    out = _attention_float64(q64, k64, v64, **kw)
+    return torch.autograd.grad(out, (q64, k64, v64), dout.double())
+
+
 def _attention_variants():
     """name → attention function for ``probe_train``: the kernels (the
-    port's own ``ops.flash_attention``) and four computations of the same
-    function outside them."""
+    port's own ``ops.flash_attention``) and computations of the same
+    function outside them: the plain version, with its dot products summed
+    in reverse or in four permuted orders of the head dim, in float64, and
+    SDPA (causal attention without window or softcap only)."""
     import torch.nn.functional as F
 
+    from chip_smoke import plain_attention
     from repro_torch.kernels import ref
 
-    def reverse(q, k, v, **kw):
-        return ref.attention_ref(q.flip(-1), k.flip(-1), v, **kw)
-
     def float64(q, k, v, **kw):
-        return ref.attention_ref(q.double(), k.double(), v.double(),
-                                 **kw).to(q.dtype)
+        return _attention_float64(q, k, v, **kw).to(q.dtype)
 
     def sdpa(q, k, v, causal=True, window=0, softcap=0.0):
         if window or softcap or not causal:
@@ -997,91 +1039,303 @@ def _attention_variants():
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2).contiguous()
     return {"kernels": ops.flash_attention, "plain": ref.attention_ref,
-            "plain, sums reversed": reverse, "plain, float64": float64,
-            "sdpa": sdpa}
+            "plain, sums reversed": plain_attention("reverse"),
+            **{f"plain, sums permuted ({seed})": plain_attention(seed)
+               for seed in (1, 2, 3, 4)},
+            "plain, float64": float64, "sdpa": sdpa}
 
 
 def probe_train(card: str) -> None:
-    from chip_smoke import _train_loader
+    """The conditioning of each of ``chip_smoke.py``'s training steps
+    (``TRAIN_PHASES``: the configs at their phase's depth and batch, random
+    bf16 weights from seed 0, the loader's first batch): the step's loss
+    and gradient norm with the attention through each variant of
+    ``_attention_variants``, each against the plain version's, with the
+    share of gradient signs equal to the plain version's."""
+    from chip_smoke import TRAIN_PHASES, _train_loader
     from repro_torch.configs import depth_cut, get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import BACKWARD, KERNEL
-    from repro_torch.models import forward, init_lm, lm_loss
+    from repro_torch.models import init_lm, lm_loss
     from repro_torch.train.optimizer import global_norm, walk
 
-    cfg = depth_cut(get_config("qwen2-7b"), 8)
-    params = init_lm(cfg, seed=0, device="cuda")
-    batch = _train_loader(cfg.vocab_size, 4, 1024, "cuda").batch(0)
-    tokens = torch.as_tensor(batch["tokens"], device="cuda")
-    labels = torch.as_tensor(batch["labels"], device="cuda")
-    paths = [p for p, _ in walk(params)]
-    leaves = [t.requires_grad_(True) for _, t in walk(params)]
     variants, flash = _attention_variants(), ops.flash_attention
-    plain = None
-    try:
-        for name in ("plain", "kernels", "plain, sums reversed",
-                     "plain, float64", "sdpa"):
-            ops.flash_attention = variants[name]
-            loss, _ = lm_loss(params, tokens, labels, cfg)
-            grads = torch.autograd.grad(loss, leaves)
-            norm = global_norm(grads).item()
-            if plain is None:
-                plain = (loss.item(), norm, [torch.sign(g) for g in grads])
-            agree = [(torch.sign(g) == s).float().mean().item()
-                     for g, s in zip(grads, plain[2])]
-            n = [g.numel() for g in grads]
-            worst = min(range(len(agree)), key=agree.__getitem__)
-            print(f"train step, attention through {name}: loss "
-                  f"{loss.item():.6f} (rel {abs(loss.item() / plain[0] - 1):.2e}"
-                  f"), grad norm {norm:.6e} (rel {abs(norm / plain[1] - 1):.2e}"
-                  f"); gradient signs equal to the plain version's on "
-                  f"{sum(a * m for a, m in zip(agree, n)) / sum(n):.4f} of "
-                  f"the elements, fewest in {paths[worst]} "
-                  f"({agree[worst]:.4f})  [{card}]", flush=True)
-            del grads, loss
-    finally:
-        ops.flash_attention = flash
-    seen = []
+    for arch, layers, b, s, _ in TRAIN_PHASES:
+        full = get_config(arch)
+        cfg = depth_cut(full, layers) if layers < full.num_layers else full
+        params = init_lm(cfg, seed=0, device="cuda")
+        batch = _train_loader(cfg.vocab_size, b, s, "cuda").batch(0)
+        tokens = torch.as_tensor(batch["tokens"], device="cuda")
+        labels = torch.as_tensor(batch["labels"], device="cuda")
+        paths = [p for p, _ in walk(params)]
+        leaves = [t.requires_grad_(True) for _, t in walk(params)]
+        plain = None
+        names = [n for n in variants if n != "plain"]
+        try:
+            for name in ["plain"] + names:
+                if name == "sdpa" and (cfg.attn_logit_softcap or
+                                       cfg.sliding_window):
+                    continue                 # no library call takes them
+                ops.flash_attention = variants[name]
+                try:
+                    loss, _ = lm_loss(params, tokens, labels, cfg)
+                    grads = torch.autograd.grad(loss, leaves)
+                except torch.OutOfMemoryError:
+                    print(f"train {arch}, attention through {name}: out of "
+                          f"memory  [{card}]", flush=True)
+                    torch.cuda.empty_cache()
+                    continue
+                norm = global_norm(grads).item()
+                if plain is None:
+                    plain = (loss.item(), norm, [torch.sign(g) for g in grads])
+                agree = [(torch.sign(g) == sg).float().mean().item()
+                         for g, sg in zip(grads, plain[2])]
+                n = [g.numel() for g in grads]
+                worst = min(range(len(agree)), key=agree.__getitem__)
+                print(f"train {arch} ({cfg.num_layers} layers, {b} x {s}), "
+                      f"attention through {name}: loss {loss.item():.6f} "
+                      f"(rel {abs(loss.item() / plain[0] - 1):.2e}), grad "
+                      f"norm {norm:.6e} (rel {abs(norm / plain[1] - 1):.2e})"
+                      f"; gradient signs equal to the plain version's on "
+                      f"{sum(a * m for a, m in zip(agree, n)) / sum(n):.4f} "
+                      f"of the elements, fewest in {paths[worst]} "
+                      f"({agree[worst]:.4f})  [{card}]", flush=True)
+                del grads, loss
+        finally:
+            ops.flash_attention = flash
+        del params, leaves
+        torch.cuda.empty_cache()
+
+
+def _own_qkv(cfg, full, params, tokens, layers: int = 2):
+    """The q, k, v and options the first ``layers`` layers give flash
+    attention on ``tokens``, cut to the first KV head and its group of
+    q-heads (the group's sums stay whole)."""
+    from repro_torch.configs import depth_cut
+    from repro_torch.models import forward
+    flash, seen = ops.flash_attention, []
 
     def record(q, k, v, **kw):
-        seen.append((q, k, v, kw))
+        g = q.shape[2] // k.shape[2]
+        seen.append((q[:, :, :g].contiguous(), k[:, :, :1].contiguous(),
+                     v[:, :, :1].contiguous(), kw))
         return flash(q, k, v, **kw)
     ops.flash_attention = record
     try:
         with torch.no_grad():
-            forward({**params, "blocks": params["blocks"][:2]}, tokens,
-                    depth_cut(get_config("qwen2-7b"), 2))
+            forward({**params, "blocks": params["blocks"][:layers]}, tokens,
+                    depth_cut(full, layers))
     finally:
         ops.flash_attention = flash
+    return seen
+
+
+def _bwd_two_orders(q, k, v, dout, lse, *, causal=True, window=0,
+                    softcap=0.0):
+    """``attention_bwd_ref``'s dK and dV with the row pass (lse' and D)
+    summed in one order and the dK/dV pass's scores and dP in another (q,
+    k, dO and v flipped along the head dim): what a backward whose passes
+    recompute S and dP in different orders gives."""
+    from repro_torch.kernels import ref
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    flip = torch.arange(hd - 1, -1, -1, device=q.device)
+
+    def p_dp(q_, k_, v_, do_, lse_):
+        scores, t, mask = ref._scores(q_, k_, causal, window, softcap)
+        p = torch.where(mask, torch.exp(scores - lse_[..., None]),
+                        torch.zeros((), device=q.device))
+        dp = torch.einsum("bshd,bthd->bhst", do_.float(),
+                          v_.float().repeat_interleave(g, dim=2))
+        return p, dp, t
+    p, dp, _ = p_dp(q, k, v, dout, lse)
+    total = p.sum(-1)
+    lse2 = lse + torch.log(torch.where(total > 0, total, 1.0))
+    dsum = (p * dp).sum(-1) / torch.where(total > 0, total, 1.0)
+    del p, dp
+    p, dp, t = p_dp(q[..., flip], k[..., flip], v[..., flip],
+                    dout[..., flip], lse2)
+    ds = p * (dp - dsum[..., None])
+    if softcap:
+        ds = ds * (1 - t * t)
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) / hd ** 0.5
+    dv = torch.einsum("bhst,bshd->bthd", p, dout.float())
+    return (dk.view(b, s, kv, g, hd).sum(3).to(k.dtype),
+            dv.view(b, s, kv, g, hd).sum(3).to(v.dtype))
+
+
+def probe_saturated(card: str) -> None:
+    """The backward at the training models' own q, k, v: for each of
+    ``chip_smoke.py``'s ``TRAIN_PHASES`` (random bf16 weights from seed 0,
+    the loader's first batch), the first two layers' q, k, v (the first KV
+    head and its q-heads), as drawn (scores of std ~45-250: rows
+    saturated on one key) and under ``chip_smoke.ConditionedAttention``,
+    and a random dO.  Against the float64 backward (rounded to bf16, by
+    ``ref.err_over_tolerance``: one bf16 ulp + 1e-3 a unit) and against
+    the plain float32 version: the backward kernel's dq, dk, dv, the
+    plain version's, the plain version with its dot products summed in
+    reverse, and the plain version whose row pass and dK/dV pass sum in
+    different orders (``_bwd_two_orders``)."""
+    from chip_smoke import ConditionedAttention, TRAIN_PHASES, _train_loader
+    from repro_torch.configs import depth_cut, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import BACKWARD
+    from repro_torch.models import init_lm
+
+    def flipped(q, k, v, dout, lse, **kw):
+        flip = torch.arange(q.shape[-1] - 1, -1, -1, device=q.device)
+        dq, dk, dv = ref.attention_bwd_ref(q[..., flip], k[..., flip], v,
+                                           dout, lse, **kw)
+        return dq[..., flip], dk[..., flip], dv
+    for arch, layers, b, s, _ in TRAIN_PHASES:
+        full = get_config(arch)
+        cfg = depth_cut(full, 2)
+        params = init_lm(cfg, seed=0, device="cuda")
+        batch = _train_loader(cfg.vocab_size, b, s, "cuda").batch(0)
+        tokens = torch.as_tensor(batch["tokens"], device="cuda")
+        runs = {"as drawn": _own_qkv(cfg, full, params, tokens)}
+        with ConditionedAttention(params, cfg):
+            runs["conditioned"] = _own_qkv(cfg, full, params, tokens)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for init, seen in runs.items():
+            for layer, (q, k, v, kw) in enumerate(seen):
+                hd = q.shape[-1]
+                dout = torch.randn(q.shape, generator=gen,
+                                   device="cuda").to(q.dtype)
+                _, lse = ref.attention_lse_ref(q, k, v, **kw)
+                scores, _, mask = ref._scores(q, k, kw["causal"],
+                                              kw["window"], kw["softcap"])
+                top2 = scores.masked_fill(~mask, float("-inf")).topk(
+                    2, dim=-1).values
+                gap = (top2[..., 0] - top2[..., 1])[:, :, 1:]
+                std = scores[..., mask].std().item()
+                del scores, mask, top2
+                truth = [t.to(q.dtype) for t in _bwd_float64(
+                    q, k, v, dout, **kw)]
+                plain = ref.attention_bwd_ref(q, k, v, dout, lse, **kw)
+                cands = {"kernel": BACKWARD(q, k, v, dout, lse, **kw),
+                         "plain": plain,
+                         "plain reversed": flipped(q, k, v, dout, lse, **kw),
+                         "plain, passes in two orders":
+                             (None,) + _bwd_two_orders(q, k, v, dout, lse,
+                                                       **kw)}
+                parts = []
+                for name, got in cands.items():
+                    errs = []
+                    for n, g, t, p in zip(("dq", "dk", "dv"), got, truth,
+                                          plain):
+                        if g is None:
+                            continue
+                        errs.append(f"{n} {ref.err_over_tolerance(g, t):.2f}"
+                                    f"/{ref.err_over_tolerance(g, p):.2f}")
+                    parts.append(f"{name} {', '.join(errs)}")
+                print(f"saturated {arch} layer {layer}, {init} (q-heads "
+                      f"{q.shape[2]} of one KV head, hd {hd}, window "
+                      f"{kw['window']}, softcap {kw['softcap']:g}): scores' "
+                      f"std {std:.1f}, rows whose top two scores lie within "
+                      f"1 of each other {(gap < 1).float().mean().item():.4f}"
+                      f", within 1e-2 {(gap < 1e-2).float().mean().item():.4f}"
+                      f"; err/tol against float64 / against plain float32: "
+                      f"{'; '.join(parts)}  [{card}]", flush=True)
+                del cands, truth, plain, dout
+                torch.cuda.empty_cache()
+        del params, runs
+        torch.cuda.empty_cache()
+
+
+BWD_SHAPES = (("qwen2-7b", 4, 1024, 32, 4, 128, 0, 0.0),
+              ("gemma2-2b", 1, 8192, 16, 4, 256, 4096, 50.0),
+              ("phi3-mini-3.8b", 4, 1024, 32, 32, 96, 0, 0.0),
+              ("musicgen-medium", 4, 1024, 24, 24, 64, 0, 0.0))
+
+
+def _bwd_inputs(b, s, h, kv, hd, window, softcap):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for layer, (q, k, v, kw) in enumerate(seen):
-        q, k, v = q.detach(), k.detach(), v.detach()
-        g = q.shape[2] // k.shape[2]
-        scores = torch.einsum("bshd,bshd->bsh", q[:, :256].float(),
-                              k[:, :256].repeat_interleave(g, 2).float())
-        o_k, lse_k = KERNEL.with_lse(q, k, v, **kw)
-        o_p, lse_p = ref.attention_lse_ref(q, k, v, **kw)
-        off = lambda got, want: int(  # noqa: E731
-            ((got.float() - want.float()).abs() >
-             2.0 ** -7 * want.float().abs() + 1e-3).sum())
-        rows = {"kernel": o_k, "plain, float64": variants["plain, float64"](
-            q, k, v, **kw), "sdpa": variants["sdpa"](q, k, v, **kw)}
-        parts = [f"{name} err/tol {ref.err_over_tolerance(o, o_p):.3f}, "
-                 f"{off(o, o_p)} elements past one ulp"
-                 for name, o in rows.items()]
-        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        got = BACKWARD(q, k, v, dout, lse_k, **kw)
-        want = ref.attention_bwd_ref(q, k, v, dout, lse_p, **kw)
-        bwd = ", ".join(f"{n} {ref.err_over_tolerance(a, b):.3f}"
-                        for n, a, b in zip(("dq", "dk", "dv"), got, want))
-        print(f"train layer {layer} attention at the model's own q, k, v "
-              f"(|q| up to {q.abs().max().item():.1f}, |k| up to "
-              f"{k.abs().max().item():.1f}; q.k/sqrt(hd) on the diagonal of "
-              f"the first 256 rows: std {scores.std().item() / 128 ** 0.5:.1f}"
-              f"): against the plain version, {'; '.join(parts)} of "
-              f"{o_p.numel()}; lse {(lse_k - lse_p).abs().max().item():.2e} "
-              f"at |lse| up to {lse_p.abs().max().item():.1f}; backward "
-              f"err/tol on a random dO: {bwd}  [{card}]", flush=True)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(torch.bfloat16)
+    q, k, v = rand(b, s, h, hd, scale=2.0), rand(b, s, kv, hd), \
+        rand(b, s, kv, hd)
+    dout = rand(b, s, h, hd)
+    from repro_torch.kernels.flash_attention import KERNEL
+    kw = dict(causal=True, window=window, softcap=softcap)
+    _, lse = KERNEL.with_lse(q, k, v, **kw)
+    return (q, k, v, dout, lse), kw
+
+
+def _ptxas_by_kernel(report: str, pattern: str) -> Dict[str, str]:
+    """The registers and spills ptxas reports for each entry whose name
+    holds ``pattern``, by its demangled template arguments."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if pattern in line else None
+        elif entry and ("spill" in line or "Used" in line):
+            out[entry] = (out.get(entry, "") + " " +
+                          line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def _template_args(mangled: str) -> str:
+    """'hd 128 dkdv softcap 0' for a wgmma backward kernel's symbol."""
+    m = re.search(r"(kv|q)_kernelILi(\d+)E((?:Lb\dE)+)", mangled)
+    kind, hd, flags = m.group(1), m.group(2), re.findall(r"\d", m.group(3))
+    name = "dkdv" if kind == "kv" else ("dq" if flags[1] == "1" else "rows")
+    return f"hd {hd:>3} {name:4} softcap {flags[0]}"
+
+
+def probe_bwd(card: str, parent: Optional[str] = None) -> None:
+    """Flash attention's backward: at qwen2-7b's training shape (B4 S1024
+    H32 KV4 hd 128, causal) the design of ``--parent DIR`` (``simt`` there)
+    and this tree's wgmma in turns, old, new, new, old, each against the
+    plain version; then this tree's design alone at gemma2-2b's,
+    phi3-mini's and musicgen's training shapes; then each wgmma kernel's
+    registers and spills (ptxas) and HGMMA instructions (SASS)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    impls = {"new": fa.BACKWARD}
+    if parent:
+        impls["old"] = _parent_module(parent,
+                                      "kernels.flash_attention").BACKWARD
+    for arch, b, s, h, kv, hd, window, softcap in BWD_SHAPES:
+        if hd != 128 and parent is not None:
+            impls.pop("old", None)
+        args, kw = _bwd_inputs(b, s, h, kv, hd, window, softcap)
+        want = ref.attention_bwd_ref(*args, **kw)
+        order = ["old", "new", "new", "old"] if "old" in impls else ["new"]
+        times = {name: [] for name in impls}
+        for name in order:
+            got = impls[name](*args, **kw)
+            ratio = max(ref.err_over_tolerance(g, w)
+                        for g, w in zip(got, want))
+            ms = time_ms(lambda: impls[name](*args, **kw), 10)
+            times[name].append(ms)
+            print(f"bwd {arch} B{b} S{s} H{h} KV{kv} hd{hd} window {window} "
+                  f"softcap {softcap:g}: {name} "
+                  f"({impls[name].design(torch.bfloat16, hd)}) {ms:.4f} ms, "
+                  f"err/tol against the plain version "
+                  f"{ratio:.3f}  [{card}]", flush=True)
+        if "old" in times:
+            print(f"bwd {arch}: old {_ms(times['old'])} ms, new "
+                  f"{_ms(times['new'])} ms, old/new "
+                  f"{sum(times['old']) / sum(times['new']):.2f}  [{card}]",
+                  flush=True)
+        del args, want, got
+        torch.cuda.empty_cache()
+    regs = _ptxas_by_kernel(fa.LIB.ptxas_report.read_text(),
+                            "flash_bwd_wgmma")
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass",
+                           str(fa.LIB.path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "HGMMA" in line:
+            hgmma[fn] = hgmma.get(fn, 0) + 1
+    for mangled in sorted(regs, key=_template_args):
+        print(f"bwd ptxas/SASS {_template_args(mangled)}: {regs[mangled]}; "
+              f"{hgmma.get(mangled, 0)} HGMMA  [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1102,7 +1356,9 @@ def main() -> int:
               "plan": lambda c: probe_plan(c, parent),
               "mix": lambda c: probe_mix(c, parent),
               "fnv": lambda c: probe_fnv(c, parent),
-              "train": probe_train}
+              "train": probe_train,
+              "saturated": probe_saturated,
+              "bwd": lambda c: probe_bwd(c, parent)}
     for name in args or probes:
         probes[name](card)
     return 0

@@ -846,6 +846,16 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
+// Make the current device's primary context current on the calling
+// thread.  cuTensorMapEncodeTiled fails without one, and a thread that
+// has made no runtime call yet has none: autograd's device thread
+// reaching the backward first, say.
+cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // A (B, S, heads, HD) bf16 tensor as 4-D (HD, heads, S, B), read in
 // boxes of one slab (Shape<HD>::SLAB_COLS columns x 64 rows of one head)
 // with the slab's swizzle; rows past S read as zeros.
@@ -912,13 +922,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// Backward (FlashAttention-2's algorithm), design `simt`: bf16 at head_dim
-// 128 (qwen2-7b's training path) and float32 at head_dim 16 (the smoke
-// configs').  The reference has no backward kernel: it differentiates its
-// plain attention (`jax.value_and_grad` through models/attention.py).
+// Backward (FlashAttention-2's algorithm).  Two designs, chosen explicitly
+// by (dtype, head_dim) in `backward_design_of`:
+//
+//   wgmma  bf16 at head_dim 256 (gemma2-2b, with its softcap and window),
+//          128 (qwen2-7b and the other hd-128 configs), 96 (phi3-mini-3.8b)
+//          and 64 (musicgen-medium): every launch of their training paths.
+//          Tensor cores, TMA and warp specialisation; one template over
+//          the head dim (namespace bwg).
+//   simt   float32 at head_dim 16 (the smoke configs' training).  fp32
+//          FMAs on the CUDA cores (namespace bwd).
+//
+// Any other pair is refused.  The reference has no backward kernel: it
+// differentiates its plain attention (`jax.value_and_grad` through
+// models/attention.py).
 //
 // Given q, k, v, dO and the forward's lse (float32 (B, H, S), m + log l of
-// the scaled, softcapped scores) it writes dQ, dK and dV in q's dtype,
+// the scaled, softcapped scores) both write dQ, dK and dV in q's dtype,
 // every sum in fp32:
 //   P   = exp(s - lse') on the valid (row, key) pairs, else 0
 //   dP  = dO . V^T,  D = rowsum(P * dP)
@@ -938,24 +958,113 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // A saturated row then gets dS ~ 0 for its winner, as autograd's softmax
 // gives it.
 //
-// Three launches, no atomics, so two runs give the same bits:
-//   rows  a block a (q tile of 64 rows, q-head, batch): lse' and D;
-//   dkdv  a block a (KV tile of 64 keys, KV head, batch), heavy tiles
-//         first; it loops over the q-heads of its GQA group and the q tiles
-//         of 64 rows that see its keys, recomputing P and dS tile by tile;
-//         dK and dV stay in registers (a thread 4 keys x hd/16 columns);
-//   dq    a block a (q tile, q-head, batch), latest rows first; it loops
-//         over the key tiles its rows see.
-// Tiles are fp32 in shared memory with odd row strides, as the forward's
-// simt design keeps them: at hd 128, 165,888 B (dkdv) and 149,248 B (rows,
-// dq), one block an SM, 8 warps.
+// Both designs take three launches and no atomics, so two runs give the
+// same bits (and a restarted training run replays an uninterrupted one):
+//   rows  a block a q tile: lse' and D;
+//   dkdv  a block a KV tile, heavy (earliest) tiles first; it loops over
+//         the q-heads of its GQA group and the q tiles that see its keys,
+//         recomputing P and dS tile by tile; dK and dV stay in registers
+//         and sum the group's q-heads there;
+//   dq    a block a q tile, latest rows first; it loops over the key tiles
+//         its rows see.
+// (FlashAttention-3's fused design accumulates dQ across the KV blocks
+// with float atomics, or in a fixed order behind a semaphore; the three
+// launches recompute S and dP instead, which costs tensor-core work and
+// keeps every sum in one fixed order without any cross-block wait.)
 //
-// What bounds it: the products, 18 hd operations a valid pair (S and dP
-// formed in each of the three passes, dV, dK, dQ once), on the CUDA cores'
-// fp32 FMAs (67 TFLOP/s), where the function's own work is 10 hd a pair at
-// the tensor cores' 989 TFLOP/s in bf16.  A first design that is right;
-// the tensor cores (mma/wgmma, with P and dS split hi + lo as the forward
-// splits P) are the next step.
+// The simt design: tiles fp32 in shared memory with odd row strides, as
+// the forward's simt design keeps them; a block of 256 threads, a thread
+// 4 x 4 scores and 4 keys or rows x hd/16 columns of its output.  It ran
+// qwen2-7b's training at hd 128 before the wgmma design (9.89 ms at B4
+// S1024 H32 KV4, 113x its tensor-core bound: 18 hd fp32 FMAs a pair on
+// the CUDA cores).
+//
+// The wgmma design.  What bounds it: the function's products, 10 hd
+// operations a visible pair (S, dP, dV, dK and dQ, 2 hd each), on the
+// tensor cores at 989 TFLOP/s take longer than its bytes (q, k, v, dO and
+// lse read once, dq, dk, dv written once) at 3.35 TB/s at every training
+// shape: 0.087 against 0.045 ms at qwen2-7b's B4 S1024 H32 KV4 hd 128.
+// What the design runs on the tensor cores, a visible pair:
+//   rows  S, dP                        4 hd
+//   dkdv  S, dP, dV and dK hi + lo     12 hd  (14 hd at hd 256, below)
+//   dq    S, dP, dQ hi + lo            8 hd
+// 24 hd in all (26 hd at 256), 2.4x the function's 10 hd.  Second, the
+// special-function unit: 3 exp2 a pair (one a pass) and with the softcap
+// 3 more exp2 and 3 rcp (tanh recomputed a pass).
+//
+// What the wgmma design does about it:
+//   * every product is wgmma (bf16 in, fp32 out) from the forward's TMA
+//     slabs: 64-column slabs with the 128-byte swizzle at hd 256, 128 and
+//     64, 32-column slabs with the 64-byte swizzle at hd 96 (three of them
+//     hold it exactly); `Shape<HD>` and `make_map<HD>` are the forward's;
+//   * dkdv: a block owns 128 keys (64 at hd 256), each consumer warpgroup
+//     64 of them; K and V of the block stay in shared memory; a producer
+//     warp streams the q tiles (64 rows) of every q-head of the group that
+//     see the keys through a ring of Q, dO, lse' and D (TMA for the tiles,
+//     a bulk copy of 256 B for each row vector, from a scratch padded to
+//     64 rows).  S^T = K . Q^T and dP^T = V . dO^T are m64n64k16 with both
+//     operands K-major, as the forward's Q . K^T; P^T and dS^T then sit in
+//     the accumulator layout, which packs straight into wgmma's register A
+//     fragment, so dV += P^T . dO and dK += dS^T . Q are m64n{hd}k16 with
+//     the stage's dO and Q tiles as B, MN-major, as the forward's P . V
+//     reads V.  A warpgroup skips the q tiles outside its keys' band and
+//     masks only the tiles that cross the diagonal, the window's edge or S.
+//     Tried and dropped: blocks of 64 keys whose two warpgroups take
+//     alternate q tiles and add their sums in shared memory at the end
+//     (more, lighter blocks under the causal mask): 0.59 against 0.62 ms
+//     at hd 128, but 0.51 against 0.46 at hd 96 and 0.33 against 0.30 at
+//     hd 64, since each stage of the ring then feeds one warpgroup;
+//   * hd 256: dK and dV of 64 keys x 256 columns are 128 fp32 registers a
+//     thread each, 256 together with nothing else, past setmaxnreg's 240.
+//     So at 256 the block's two warpgroups own the same 64 keys and split
+//     the outputs: warpgroup 0 forms S^T and dV, warpgroup 1 S^T, dP^T,
+//     dS^T and dK (S^T is formed twice: 2 hd a pair more);
+//   * rows and dq: a block a 128-row q tile (two warpgroups of 64 rows,
+//     wgmma's M), Q and dO resident, a ring of K and V tiles as the
+//     forward's; S = Q . K^T and dP = dO . V^T are m64n64k16, and in dq
+//     dS packs into the A fragment of dQ += dS . K (K's tile as B,
+//     MN-major).  The row pass reads the forward's lse for its two rows a
+//     thread, the dq pass lse' and D; the heaviest (latest) q tiles of all
+//     heads start first;
+//   * precision: P for dV and dS for dK and dQ are split hi + lo, both bf16
+//     (hi = x rounded, lo = the rest rounded), and each of those products
+//     runs twice, exact to ~2^-17 as in the forward's P . V: the forward's
+//     one-ulp check failed by 2.5-3.5x with P rounded once, and dS has the
+//     same 2^-9 rounding against sums that cancel (every row of dS sums to
+//     0).  S and dP take bf16 inputs whose products are exact in fp32;
+//   * exp2 in the log2 domain (the scale and log2 e folded into one
+//     constant, the softcap's tanh as 1 - 2 / (2^(2x log2 e) + 1) with
+//     ex2.approx and rcp.approx, as the forward's); lse' and D are kept in
+//     the scratch in the log2 domain and padded to a multiple of 64 rows
+//     (lse' = +inf and D = 0 past S, so a padded row has P = 0);
+//   * shared memory, rings of 512/hd stages where they fit below 227 KB:
+//     dkdv 2, 4, 5 and 8 stages at hd 256, 128, 96, 64 (194-199 KB at 256
+//     and 128); rows and dq 1, 4, 5 and 8 (193 KB at 256, where Q and dO
+//     of 128 rows take 128 KB); one block an SM, 384 threads, setmaxnreg
+//     240 for the consumers, 24 for the producer.
+//
+// What ptxas and the SASS say (nvcc for sm_90a, kernel_probe.py bwd):
+// every kernel at every head dim reports 168 registers (the launch
+// bound's share; setmaxnreg then moves 240 to each consumer thread) and
+// no spill, but for dkdv at hd 128, whose two accumulators (64 + 64) meet
+// S^T, dP^T and their packed halves: 20 B of spill stores (48 B with the
+// softcap).  HGMMA instructions a kernel (rows, dkdv, dq): 32, 64, 40 at
+// hd 256; 16, 32, 24 at 128; 12, 28, 20 at 96; 8, 24, 16 at 64.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py's
+// phase_flash_backward, against the plain version with the one-bf16-ulp
+// tolerance): qwen2-7b's shape 0.62 ms, err/tol 0.96 (the simt design it
+// replaces 9.89 ms); gemma2-2b's (B1 S8192 H16 KV4, window 4096, softcap
+// 50) 5.04 ms, 0.94; phi3-mini's (B4 S1024 H32 KV32 hd 96) 0.46 ms,
+// 0.93; musicgen's (B4 S1024 H24 KV24 hd 64) 0.30 ms, 0.91.  At the
+// models' own q, k, v at random init (qwen2-7b's scores of std ~200, rows
+// saturated on one key) float32 sums in any order move P on near-tied
+// rows: against the float64 backward (kernel_probe.py saturated) this
+// design's dk is 2.2-2.5 bf16 ulps off at qwen2-7b's first two layers and
+// dq 1.4-2.3, the plain float32 version's dk 3.5-8.8 and dq 1.1-2.0; both
+// within one ulp at the other models' layers and at a fan-in-scaled init.
+
+// The simt design.
 namespace bwd {
 
 using simt::BK;
@@ -1064,8 +1173,8 @@ __global__ void __launch_bounds__(NT)
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           float* __restrict__ lse_out,
-                          float* __restrict__ dsum, int S, int H, int KV,
-                          float scale, int causal, int window,
+                          float* __restrict__ dsum, int S, int S_pad, int H,
+                          int KV, float scale, int causal, int window,
                           float softcap) {
   constexpr int RS = HD + 1;
   extern __shared__ float smem[];
@@ -1113,9 +1222,9 @@ __global__ void __launch_bounds__(NT)
     const int r = row0 + ty + 16 * a;
     if (tx == 0 && r < S) {
       const bool empty = !(l[a] > 0.f);
-      lse_out[head_off + r] = empty ? sL[ty + 16 * a]
-                                    : sL[ty + 16 * a] + logf(l[a]);
-      dsum[head_off + r] = empty ? 0.f : d[a] / l[a];
+      const size_t at = (size_t(b) * H + h) * S_pad + r;
+      lse_out[at] = empty ? sL[ty + 16 * a] : sL[ty + 16 * a] + logf(l[a]);
+      dsum[at] = empty ? 0.f : d[a] / l[a];
     }
   }
 }
@@ -1127,7 +1236,7 @@ __global__ void __launch_bounds__(NT)
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ dsum, T* __restrict__ dk,
-                          T* __restrict__ dv, int S, int H, int KV,
+                          T* __restrict__ dv, int S, int S_pad, int H, int KV,
                           float scale, int causal, int window,
                           float softcap) {
   constexpr int RS = HD + 1, PS = BK + 1, NJ = HD / 16;
@@ -1165,7 +1274,7 @@ __global__ void __launch_bounds__(NT)
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
     const size_t q_off = (size_t(b) * S * H + h) * HD;
-    const size_t head_off = (size_t(b) * H + h) * S;
+    const size_t head_off = (size_t(b) * H + h) * S_pad;
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
       const int row0 = qt * BQ;
       __syncthreads();  // the last tile's products are done with sQ .. sD
@@ -1227,8 +1336,8 @@ __global__ void __launch_bounds__(NT)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ dsum, T* __restrict__ dq,
-                        int S, int H, int KV, float scale, int causal,
-                        int window, float softcap) {
+                        int S, int S_pad, int H, int KV, float scale,
+                        int causal, int window, float softcap) {
   constexpr int RS = HD + 1, PS = BK + 1, NJ = HD / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -1248,7 +1357,7 @@ __global__ void __launch_bounds__(NT)
   const size_t kv_off = (size_t(b) * S * KV + kvh) * HD;
   load_tile<T, HD, BQ>(sQ, RS, q + q_off, q_stride, row0, S);
   load_tile<T, HD, BQ>(sdO, RS, dout + q_off, q_stride, row0, S);
-  load_rows(sL, sD, lse, dsum, (size_t(b) * H + h) * S, row0, S);
+  load_rows(sL, sD, lse, dsum, (size_t(b) * H + h) * S_pad, row0, S);
   int t_lo, t_hi;
   key_band(row0, S, causal, window, t_lo, t_hi);
 
@@ -1309,13 +1418,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
           *v_ = static_cast<const T*>(v), *do_ = static_cast<const T*>(dout);
   constexpr size_t smem_q = dq_smem_bytes<HD>();
   const dim3 row_grid((S + BQ - 1) / BQ, H, B);
+  const int S_pad = (S + 63) / 64 * 64;
   auto rows_kernel = flash_bwd_rows_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q));
   if (err != cudaSuccess) return err;
   rows_kernel<<<row_grid, NT, smem_q, stream>>>(
-      q_, k_, v_, do_, lse, lse_rows, dsum, S, H, KV, scale, causal, window,
-      softcap);
+      q_, k_, v_, do_, lse, lse_rows, dsum, S, S_pad, H, KV, scale, causal,
+      window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1326,7 +1436,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   kv_kernel<<<dim3((S + BK - 1) / BK, KV, B), NT, smem_kv, stream>>>(
       q_, k_, v_, do_, lse_rows, dsum, static_cast<T*>(dk),
-      static_cast<T*>(dv), S, H, KV, scale, causal, window, softcap);
+      static_cast<T*>(dv), S, S_pad, H, KV, scale, causal, window, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1335,12 +1445,668 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q));
   if (err != cudaSuccess) return err;
   q_kernel<<<row_grid, NT, smem_q, stream>>>(
-      q_, k_, v_, do_, lse_rows, dsum, static_cast<T*>(dq), S, H, KV, scale,
-      causal, window, softcap);
+      q_, k_, v_, do_, lse_rows, dsum, static_cast<T*>(dq), S, S_pad, H, KV,
+      scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward, design wgmma (bf16, head_dim 256, 128, 96 and 64)
+// ---------------------------------------------------------------------------
+namespace bwg {
+
+using wg::CONSUMERS;
+using wg::THREADS;
+using wg::Shape;
+using wg::ex2;
+using wg::fence_regs;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::mma_pv;
+using wg::mma_qk;
+using wg::rcp;
+using wg::slab_desc;
+using wg::smem_u32;
+using wg::split_bf16;
+using wg::tma_load;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_wait_all;
+
+constexpr int SMEM_LIMIT = 232448;  // 227 KB, the most a block may take
+constexpr int ROWS = 64;            // rows of a q tile, keys of a key tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// What the head dim sets for the two kernels (see the notes above).  A
+// tile of 64 rows is Shape<HD>::TILE_BYTES of slabs, as the forward's.
+template <int HD>
+struct Plan {
+  static constexpr int TILE = Shape<HD>::TILE_BYTES;
+  // dkdv: at hd 256 the two warpgroups share 64 keys and split dK and dV
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int KEYS = SPLIT ? 64 : 128;            // keys a block
+  static constexpr int KV_TILES = KEYS / ROWS;
+  static constexpr int KV_RESIDENT = 2 * KV_TILES * TILE;  // K and V
+  static constexpr int KV_STAGE = 2 * TILE + 2 * ROWS * 4; // Q, dO, lse', D
+  static constexpr int KV_STAGES = cmin(
+      512 / HD, (SMEM_LIMIT - 1024 - KV_RESIDENT - 256) / KV_STAGE);
+  static constexpr size_t KV_SMEM = 1024 + KV_RESIDENT +
+                                    size_t(KV_STAGES) * KV_STAGE +
+                                    8 * (1 + 3 * KV_STAGES);
+  // rows and dq: Q and dO of 128 rows resident, a ring of K and V tiles
+  static constexpr int Q_RESIDENT = 4 * TILE;
+  static constexpr int Q_STAGES = cmin(
+      512 / HD, (SMEM_LIMIT - 1024 - Q_RESIDENT - 256) / (2 * TILE));
+  static constexpr size_t Q_SMEM = 1024 + Q_RESIDENT +
+                                   size_t(Q_STAGES) * 2 * TILE +
+                                   8 * (1 + 3 * Q_STAGES);
+  static_assert(KV_STAGES >= 1 && Q_STAGES >= 1, "a ring needs a stage");
+  static_assert(KV_SMEM <= SMEM_LIMIT && Q_SMEM <= SMEM_LIMIT,
+                "a block's shared memory");
+};
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, counted on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A score in the log2 domain and the softcap's chain factor: z = acc * pre
+// (dt 1) without a softcap; with one, t = tanh(acc * scale / cap) as the
+// forward forms it, z = post * t and dt = 1 - t^2.
+template <bool SOFTCAP>
+__device__ __forceinline__ float log2_score(float acc, float pre, float post,
+                                            float& dt) {
+  if (SOFTCAP) {
+    const float t = fmaf(-2.f, rcp(ex2(acc * pre) + 1.f), 1.f);
+    dt = fmaf(-t, t, 1.f);
+    return post * t;
+  }
+  dt = 1.f;
+  return acc * pre;
+}
+
+// acc (64 x 64) = A (64 rows at `a`) . B (64 rows at `b`)^T over HD, both
+// K-major slabs: S = Q.K^T, S^T = K.Q^T, dP = dO.V^T, dP^T = V.dO^T.
+template <int HD>
+__device__ __forceinline__ void mma_rows(float (&acc)[32], uint32_t a,
+                                         uint32_t b) {
+  using Sh = Shape<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off =
+        (kk / Sh::KSTEPS) * Sh::SLAB_BYTES + (kk % Sh::KSTEPS) * 32;
+    mma_qk(acc, slab_desc<Sh::SPAN>(a + off, 16, 8 * Sh::SPAN),
+           slab_desc<Sh::SPAN>(b + off, 16, 8 * Sh::SPAN), kk > 0);
+  }
+}
+
+// acc (64 x HD) += X (64 x 64, its A fragments hi + lo) . the tile at
+// `tile` (64 rows x HD, read MN-major): dV += P^T.dO, dK += dS^T.Q,
+// dQ += dS.K.
+template <int HD>
+__device__ __forceinline__ void mma_cols(float (&acc)[HD / 2],
+                                         const uint32_t (&hi)[16],
+                                         const uint32_t (&lo)[16],
+                                         uint32_t tile) {
+  using Sh = Shape<HD>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = slab_desc<Sh::SPAN>(tile + kk * 16 * Sh::SPAN,
+                                            Sh::SLAB_BYTES, 8 * Sh::SPAN);
+    mma_pv(acc, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3],
+           db);
+    mma_pv(acc, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3],
+           db);
+  }
+}
+
+// 32 accumulator values (pairs along a row) as 16 bf16x2 hi + lo.
+__device__ __forceinline__ void pack(const float (&x)[32], uint32_t (&hi)[16],
+                                     uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    split_bf16(x[2 * j], x[2 * j + 1], hi[j], lo[j]);
+}
+
+// One consumer warpgroup of the dK/dV kernel: keys kw0 .. kw0 + 63 of KV
+// head kvh, over the `n_iter` q tiles the producer streams (q-head kvh *
+// group + i / nq, tile qt_lo + i % nq).  With WANT_DV it forms S^T, P^T
+// and dV; with WANT_DK S^T, dP^T, dS^T and dK.
+template <int HD, bool SOFTCAP, bool WANT_DV, bool WANT_DK>
+__device__ __forceinline__ void dkdv_consumer(
+    uint32_t sKw, uint32_t sVw, uint32_t sQ, uint32_t sO,
+    const float* lring, const float* dring, uint32_t kv_full,
+    uint32_t bars, int kw0, int kvh, int b, int qt_lo, int nq, int n_iter,
+    int S, int KV, int causal, int window, float pre, float post,
+    float scale, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv) {
+  using P = Plan<HD>;
+  constexpr int TILE = P::TILE, STAGES = P::KV_STAGES, ACC = HD / 2;
+  auto q_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto o_full = [&](int st) { return bars + 8u * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * STAGES + st); };
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int key_a = kw0 + 16 * warp + lane / 4;  // keys key_a, key_a + 8
+  const int col_t = 2 * (lane % 4);
+  const bool active = kw0 < S;
+  const int kw_last = min(kw0 + ROWS - 1, S - 1);
+  // the q tiles whose rows see one of this warpgroup's keys
+  const int w_lo = (causal ? kw0 : 0) / ROWS;
+  const int w_hi =
+      ((window ? min(S, kw_last + window) : S) + ROWS - 1) / ROWS;
+
+  float acc_v[WANT_DV ? ACC : 1], acc_k[WANT_DK ? ACC : 1];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) {
+    if constexpr (WANT_DV) acc_v[e] = 0.f;
+    if constexpr (WANT_DK) acc_k[e] = 0.f;
+  }
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int qt = qt_lo + i % nq;
+    const int r0 = qt * ROWS;
+    const int st = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+    const uint32_t qst = sQ + st * TILE, ost = sO + st * TILE;
+    mbar_wait(q_full(st), parity);
+    if (active && qt >= w_lo && qt < w_hi) {
+      float s[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+      mma_rows<HD>(s, sKw, qst);  // S^T = K . Q^T
+      wgmma_commit();
+      mbar_wait(o_full(st), parity);
+      if constexpr (WANT_DK) {
+        fence_regs(dp);
+        wgmma_fence();
+        mma_rows<HD>(dp, sVw, ost);  // dP^T = V . dO^T
+        wgmma_commit();
+      }
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // s[e], dp[e]: key key_a + 8 ((e >> 1) & 1), row r0 + cc with cc =
+      // 8 (e >> 2) + col_t + (e & 1)
+      const float* L = lring + st * ROWS;
+      const float* D = dring + st * ROWS;
+      const bool edge = r0 + ROWS > S || kw0 + ROWS > S ||
+                        (causal && kw0 + ROWS - 1 > r0) ||
+                        (window && kw0 <= r0 + ROWS - 1 - window);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int cc = 8 * (e >> 2) + col_t + (e & 1);
+        float dt;
+        const float z = log2_score<SOFTCAP>(s[e], pre, post, dt);
+        float p = ex2(z - L[cc]);
+        if (edge) {
+          const int key = key_a + 8 * ((e >> 1) & 1), r = r0 + cc;
+          if (!(r < S && key < S && (!causal || key <= r) &&
+                (!window || key > r - window)))
+            p = 0.f;
+        }
+        s[e] = p;
+        if constexpr (WANT_DK) dp[e] = p * (dp[e] - D[cc]) * dt;
+      }
+      uint32_t ph[16], pl[16], dh[16], dl[16];
+      if constexpr (WANT_DV) {
+        pack(s, ph, pl);
+        fence_regs(acc_v);
+        fence_regs(ph);
+        fence_regs(pl);
+      }
+      if constexpr (WANT_DK) {
+        pack(dp, dh, dl);
+        fence_regs(acc_k);
+        fence_regs(dh);
+        fence_regs(dl);
+      }
+      wgmma_fence();
+      if constexpr (WANT_DV) mma_cols<HD>(acc_v, ph, pl, ost);  // dV += P^T.dO
+      if constexpr (WANT_DK) mma_cols<HD>(acc_k, dh, dl, qst);  // dK += dS^T.Q
+      wgmma_commit();
+      wgmma_wait_all();
+      if constexpr (WANT_DV) fence_regs(acc_v);
+      if constexpr (WANT_DK) fence_regs(acc_k);
+    } else {
+      mbar_wait(o_full(st), parity);
+    }
+    mbar_arrive(empty(st));
+  }
+
+  // acc[e]: key key_a + 8 ((e >> 1) & 1), column 8 (e >> 2) + col_t +
+  // (e & 1)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    if (key >= S) continue;
+    const size_t at = ((size_t(b) * S + key) * KV + kvh) * HD + col_t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if constexpr (WANT_DK)
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+            __floats2bfloat162_rn(acc_k[4 * j + 2 * r] * scale,
+                                  acc_k[4 * j + 2 * r + 1] * scale);
+      if constexpr (WANT_DV)
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(acc_v[4 * j + 2 * r],
+                                  acc_v[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// dK and dV.  q, dO: (B, S, H, HD); k, v, dk, dv: (B, S, KV, HD); bf16;
+// lse2, dsum: the row pass's lse' (log2 domain) and D, float32 (B, H,
+// S_pad).  grid: (ceil(S / KEYS) * KV, B), the earliest keys (which the
+// most rows see under the causal mask) first.
+template <int HD, bool SOFTCAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_wgmma_kv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_o,
+                              const float* __restrict__ lse2,
+                              const float* __restrict__ dsum,
+                              __nv_bfloat16* __restrict__ dk,
+                              __nv_bfloat16* __restrict__ dv, int S,
+                              int S_pad, int H, int KV, int causal,
+                              int window, float pre, float post,
+                              float scale) {
+  using Sh = Shape<HD>;
+  using P = Plan<HD>;
+  constexpr int TILE = P::TILE, STAGES = P::KV_STAGES, SLABS = Sh::SLABS,
+                SLAB_COLS = Sh::SLAB_COLS, SLAB_BYTES = Sh::SLAB_BYTES,
+                KT = P::KV_TILES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = (base + 1023u) & ~1023u;  // KT tiles
+  const uint32_t sV = sK + KT * TILE;           // KT tiles
+  const uint32_t sQ = sV + KT * TILE;           // STAGES tiles
+  const uint32_t sO = sQ + STAGES * TILE;       // STAGES tiles
+  const uint32_t sL = sO + STAGES * TILE;       // STAGES x 64 floats
+  const uint32_t sD = sL + STAGES * ROWS * 4;   // STAGES x 64 floats
+  const uint32_t bars = sD + STAGES * ROWS * 4;
+  const uint32_t kv_full = bars;
+  auto q_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto o_full = [&](int st) { return bars + 8u * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * STAGES + st); };
+
+  const int k0 = int(blockIdx.x) / KV * P::KEYS;
+  const int kvh = int(blockIdx.x) % KV;
+  const int b = blockIdx.y;
+  const int group = H / KV;
+  // the q tiles whose rows see a key of the block
+  const int key_last = min(k0 + P::KEYS, S) - 1;
+  const int qt_lo = (causal ? k0 : 0) / ROWS;
+  const int qt_hi =
+      ((window ? min(S, key_last + window) : S) + ROWS - 1) / ROWS;
+  const int nq = qt_hi - qt_lo;
+  const int n_iter = group * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(o_full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(kv_full, 2 * KT * TILE);
+      for (int kt = 0; kt < KT; ++kt)
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load(sK + kt * TILE + sl * SLAB_BYTES, &tm_k, kv_full,
+                   sl * SLAB_COLS, kvh, k0 + ROWS * kt, b);
+          tma_load(sV + kt * TILE + sl * SLAB_BYTES, &tm_v, kv_full,
+                   sl * SLAB_COLS, kvh, k0 + ROWS * kt, b);
+        }
+      for (int i = 0; i < n_iter; ++i) {
+        const int h = kvh * group + i / nq;
+        const int row0 = (qt_lo + i % nq) * ROWS;
+        const int st = i % STAGES;
+        const size_t roff = (size_t(b) * H + h) * S_pad + row0;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);  // 1st pass: free
+        mbar_expect_tx(q_full(st), TILE + ROWS * 4);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sQ + st * TILE + sl * SLAB_BYTES, &tm_q, q_full(st),
+                   sl * SLAB_COLS, h, row0, b);
+        bulk_load(sL + st * ROWS * 4, lse2 + roff, ROWS * 4, q_full(st));
+        mbar_expect_tx(o_full(st), TILE + ROWS * 4);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sO + st * TILE + sl * SLAB_BYTES, &tm_o, o_full(st),
+                   sl * SLAB_COLS, h, row0, b);
+        bulk_load(sD + st * ROWS * 4, dsum + roff, ROWS * 4, o_full(st));
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const float* lring =
+        reinterpret_cast<const float*>(smem_raw + (sL - base));
+    const float* dring =
+        reinterpret_cast<const float*>(smem_raw + (sD - base));
+    if constexpr (P::SPLIT) {
+      if (wgi == 0)
+        dkdv_consumer<HD, SOFTCAP, true, false>(
+            sK, sV, sQ, sO, lring, dring, kv_full, bars, k0, kvh, b, qt_lo,
+            nq, n_iter, S, KV, causal, window, pre, post, scale, dk, dv);
+      else
+        dkdv_consumer<HD, SOFTCAP, false, true>(
+            sK, sV, sQ, sO, lring, dring, kv_full, bars, k0, kvh, b, qt_lo,
+            nq, n_iter, S, KV, causal, window, pre, post, scale, dk, dv);
+    } else {
+      dkdv_consumer<HD, SOFTCAP, true, true>(
+          sK + wgi * TILE, sV + wgi * TILE, sQ, sO, lring, dring, kv_full,
+          bars, k0 + ROWS * wgi, kvh, b, qt_lo, nq, n_iter, S, KV, causal,
+          window, pre, post, scale, dk, dv);
+    }
+  }
+}
+
+// The row pass (DQ false: lse' and D from the forward's lse) and the dQ
+// pass (DQ true: dQ from lse' and D).  q, dO, dq: (B, S, H, HD); k, v:
+// (B, S, KV, HD); bf16.  lse: the forward's, float32 (B, H, S); lse2 and
+// dsum float32 (B, H, S_pad), written by the row pass (rows S .. S_pad - 1
+// as lse' = +inf, D = 0) and read by the dQ pass.  grid: (ceil(S / 128) *
+// H, B), the latest q tiles of every head first.
+template <int HD, bool SOFTCAP, bool DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_wgmma_q_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_o,
+                             const float* __restrict__ lse,
+                             float* __restrict__ lse2,
+                             float* __restrict__ dsum,
+                             __nv_bfloat16* __restrict__ dq, int S,
+                             int S_pad, int H, int KV, int causal,
+                             int window, float pre, float post,
+                             float scale) {
+  using Sh = Shape<HD>;
+  using P = Plan<HD>;
+  constexpr int TILE = P::TILE, STAGES = P::Q_STAGES, SLABS = Sh::SLABS,
+                SLAB_COLS = Sh::SLAB_COLS, SLAB_BYTES = Sh::SLAB_BYTES,
+                ACC = HD / 2, BM = 2 * ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // 2 tiles
+  const uint32_t sO = sQ + 2 * TILE;                           // 2 tiles
+  const uint32_t sK = sO + 2 * TILE;                           // STAGES
+  const uint32_t sV = sK + STAGES * TILE;                      // STAGES
+  const uint32_t bars = sV + STAGES * TILE;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * STAGES + st); };
+
+  const int q0 = (int(gridDim.x) / H - 1 - int(blockIdx.x) / H) * BM;
+  const int h = int(blockIdx.x) % H;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int q_last = min(q0 + BM, S) - 1;
+  const int t_lo = (window ? max(0, q0 - window + 1) : 0) / ROWS;
+  const int t_hi = ((causal ? q_last + 1 : S) + ROWS - 1) / ROWS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, 4 * TILE);
+      for (int half = 0; half < 2; ++half)
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load(sQ + half * TILE + sl * SLAB_BYTES, &tm_q, q_full,
+                   sl * SLAB_COLS, h, q0 + ROWS * half, b);
+          tma_load(sO + half * TILE + sl * SLAB_BYTES, &tm_o, q_full,
+                   sl * SLAB_COLS, h, q0 + ROWS * half, b);
+        }
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo;
+        const int st = i % STAGES;
+        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), TILE);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sK + st * TILE + sl * SLAB_BYTES, &tm_k, k_full(st),
+                   sl * SLAB_COLS, kvh, t * ROWS, b);
+        mbar_expect_tx(v_full(st), TILE);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(sV + st * TILE + sl * SLAB_BYTES, &tm_v, v_full(st),
+                   sl * SLAB_COLS, kvh, t * ROWS, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 rows a warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + ROWS * wgi;
+    const int row_a = r0 + 16 * warp + lane / 4;  // rows row_a, row_a + 8
+    const int col_t = 2 * (lane % 4);
+    const bool active = r0 < S;
+    const int w_last = min(r0 + ROWS - 1, S - 1);
+    const int w_lo = (window ? max(0, r0 - window + 1) : 0) / ROWS;
+    const int w_hi = ((causal ? w_last + 1 : S) + ROWS - 1) / ROWS;
+    const uint32_t sQw = sQ + wgi * TILE, sOw = sO + wgi * TILE;
+    const size_t head = size_t(b) * H + h;
+
+    // each row's lse in the log2 domain (the forward's, or lse'), and D
+    float L[2], D[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (DQ) {
+        L[r] = row < S ? lse2[head * S_pad + row] : 0.f;
+        D[r] = row < S ? dsum[head * S_pad + row] : 0.f;
+      } else {
+        L[r] = row < S ? lse[head * S + row] * LOG2E : 0.f;
+        D[r] = 0.f;
+      }
+    }
+    float acc[DQ ? ACC : 1];
+#pragma unroll
+    for (int e = 0; e < (DQ ? ACC : 1); ++e) acc[e] = 0.f;
+    float l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo;
+      const int st = i % STAGES;
+      const uint32_t parity = (i / STAGES) & 1;
+      const uint32_t kst = sK + st * TILE;
+      mbar_wait(k_full(st), parity);
+      if (active && t >= w_lo && t < w_hi) {
+        float s[32], dp[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+        mma_rows<HD>(s, sQw, kst);  // S = Q . K^T
+        wgmma_commit();
+        mbar_wait(v_full(st), parity);
+        fence_regs(dp);
+        wgmma_fence();
+        mma_rows<HD>(dp, sOw, sV + st * TILE);  // dP = dO . V^T
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // s[e]: row row_a + 8 ((e >> 1) & 1), key c0 + 8 (e >> 2) + col_t
+        // + (e & 1)
+        const int c0 = t * ROWS;
+        const bool edge = c0 + ROWS > S || (causal && c0 + ROWS - 1 > r0) ||
+                          (window && c0 <= r0 + ROWS - 1 - window);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int r = (e >> 1) & 1;
+          float dt;
+          const float z = log2_score<SOFTCAP>(s[e], pre, post, dt);
+          bool valid = true;
+          if (edge) {
+            const int row = row_a + 8 * r;
+            const int c = c0 + 8 * (e >> 2) + col_t + (e & 1);
+            valid = c < S && (!causal || c <= row) &&
+                    (!window || c > row - window);
+          }
+          const float p = valid ? ex2(z - L[r]) : 0.f;
+          if (DQ) {
+            s[e] = p * (dp[e] - D[r]) * dt;
+          } else {
+            l[r] += p;
+            d[r] = fmaf(p, dp[e], d[r]);
+          }
+        }
+        if constexpr (DQ) {
+          uint32_t dh[16], dl[16];
+          pack(s, dh, dl);
+          fence_regs(acc);
+          fence_regs(dh);
+          fence_regs(dl);
+          wgmma_fence();
+          mma_cols<HD>(acc, dh, dl, kst);  // dQ += dS . K
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(acc);
+        }
+      } else {
+        mbar_wait(v_full(st), parity);
+      }
+      mbar_arrive(empty(st));
+    }
+
+    if constexpr (DQ) {
+      // acc[e]: row row_a + 8 ((e >> 1) & 1), column 8 (e >> 2) + col_t +
+      // (e & 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        if (row >= S) continue;
+        __nv_bfloat16* orow =
+            dq + ((size_t(b) * S + row) * H + h) * HD + col_t;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                    acc[4 * j + 2 * r + 1] * scale);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
+        d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
+        const int row = row_a + 8 * r;
+        if (lane % 4 == 0 && row < S_pad) {
+          // padded rows and rows with no valid key: P = 0 downstream
+          const bool none = !(row < S && l[r] > 0.f);
+          lse2[head * S_pad + row] = none ? INFINITY : L[r] + log2f(l[r]);
+          dsum[head * S_pad + row] = none ? 0.f : d[r] / l[r];
+        }
+      }
+    }
+  }
+}
+
+template <int HD, bool SOFTCAP>
+cudaError_t launch_softcap(const CUtensorMap& tq, const CUtensorMap& tk,
+                           const CUtensorMap& tv, const CUtensorMap& to,
+                           const float* lse, float* lse2, float* dsum,
+                           void* dq, void* dk, void* dv, int B, int S,
+                           int H, int KV, int causal, int window, float pre,
+                           float post, float scale, cudaStream_t stream) {
+  using P = Plan<HD>;
+  const int S_pad = (S + ROWS - 1) / ROWS * ROWS;
+  const dim3 q_grid((S + 2 * ROWS - 1) / (2 * ROWS) * H, B);
+  auto rows = flash_bwd_wgmma_q_kernel<HD, SOFTCAP, false>;
+  auto kv = flash_bwd_wgmma_kv_kernel<HD, SOFTCAP>;
+  auto dqk = flash_bwd_wgmma_q_kernel<HD, SOFTCAP, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, int(P::Q_SMEM));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(P::Q_SMEM));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(P::KV_SMEM));
+  if (err != cudaSuccess) return err;
+  rows<<<q_grid, THREADS, P::Q_SMEM, stream>>>(
+      tq, tk, tv, to, lse, lse2, dsum, nullptr, S, S_pad, H, KV, causal,
+      window, pre, post, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kv<<<dim3((S + P::KEYS - 1) / P::KEYS * KV, B), THREADS, P::KV_SMEM,
+       stream>>>(tq, tk, tv, to, lse2, dsum,
+                 static_cast<__nv_bfloat16*>(dk),
+                 static_cast<__nv_bfloat16*>(dv), S, S_pad, H, KV, causal,
+                 window, pre, post, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dqk<<<q_grid, THREADS, P::Q_SMEM, stream>>>(
+      tq, tk, tv, to, lse, lse2, dsum, static_cast<__nv_bfloat16*>(dq), S,
+      S_pad, H, KV, causal, window, pre, post, scale);
+  return cudaGetLastError();
+}
+
+// lse2 and dsum: float32 scratch of (B, H, S_pad), S_pad = S rounded up
+// to 64.
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, float* lse2,
+                   float* dsum, void* dq, void* dk, void* dv, int B, int S,
+                   int H, int KV, float scale, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err = wg::bind_context();
+  if (err == cudaSuccess) err = wg::make_map<HD>(&tq, q, B, S, H);
+  if (err == cudaSuccess) err = wg::make_map<HD>(&tk, k, B, S, KV);
+  if (err == cudaSuccess) err = wg::make_map<HD>(&tv, v, B, S, KV);
+  if (err == cudaSuccess) err = wg::make_map<HD>(&to, dout, B, S, H);
+  if (err != cudaSuccess) return err;
+  if (softcap > 0.f)
+    return launch_softcap<HD, true>(tq, tk, tv, to, lse, lse2, dsum, dq, dk,
+                                    dv, B, S, H, KV, causal, window,
+                                    2.f * LOG2E * scale / softcap,
+                                    softcap * LOG2E, scale, stream);
+  return launch_softcap<HD, false>(tq, tk, tv, to, lse, lse2, dsum, dq, dk,
+                                   dv, B, S, H, KV, causal, window,
+                                   scale * LOG2E, 0.f, scale, stream);
+}
+
+}  // namespace bwg
 
 enum Design { NONE = -1, SIMT = 0, WGMMA = 1 };
 
@@ -1354,9 +2120,12 @@ Design design_of(int dtype, int HD) {
   return NONE;
 }
 
-// The backward's designs: bf16 at 128 and float32 at 16, both simt.
+// The backward's designs: bf16 at 256, 128, 96 and 64 on wgmma, float32
+// at 16 on simt.
 Design backward_design_of(int dtype, int HD) {
-  if ((dtype == 1 && HD == 128) || (dtype == 0 && HD == 16)) return SIMT;
+  if (dtype == 1 && (HD == 64 || HD == 96 || HD == 128 || HD == 256))
+    return WGMMA;
+  if (dtype == 0 && HD == 16) return SIMT;
   return NONE;
 }
 
@@ -1427,7 +2196,8 @@ int flash_attention_smem_bytes(int dtype, int HD) {
   }
 }
 
-// The backward's design for (dtype, head_dim): 0 = simt, -1 = none.
+// The backward's design for (dtype, head_dim): 1 = wgmma, 0 = simt, -1 =
+// none.
 int flash_attention_backward_design(int dtype, int HD) {
   return backward_design_of(dtype, HD);
 }
@@ -1435,17 +2205,29 @@ int flash_attention_backward_design(int dtype, int HD) {
 // Dynamic shared memory of the dK/dV kernel's block (`which` 0) or the
 // row pass's and the dQ kernel's (1) for (dtype, head_dim), or -1.
 int flash_attention_backward_smem_bytes(int dtype, int HD, int which) {
-  if (backward_design_of(dtype, HD) == NONE) return -1;
-  if (HD == 128)
-    return int(which ? bwd::dq_smem_bytes<128>() : bwd::dkdv_smem_bytes<128>());
-  return int(which ? bwd::dq_smem_bytes<16>() : bwd::dkdv_smem_bytes<16>());
+  switch (backward_design_of(dtype, HD)) {
+    case WGMMA:
+      switch (HD) {
+        case 64: return int(which ? bwg::Plan<64>::Q_SMEM
+                                  : bwg::Plan<64>::KV_SMEM);
+        case 96: return int(which ? bwg::Plan<96>::Q_SMEM
+                                  : bwg::Plan<96>::KV_SMEM);
+        case 128: return int(which ? bwg::Plan<128>::Q_SMEM
+                                   : bwg::Plan<128>::KV_SMEM);
+        default: return int(which ? bwg::Plan<256>::Q_SMEM
+                                  : bwg::Plan<256>::KV_SMEM);
+      }
+    case SIMT:
+      return int(which ? bwd::dq_smem_bytes<16>() : bwd::dkdv_smem_bytes<16>());
+    default: return -1;
+  }
 }
 
 // dQ, dK, dV (q's dtype, q's and k's shapes) of the attention the forward
 // computed, from q, k, v, dO and the forward's lse (float32 (B, H, S));
-// `lse_rows` and `dsum` are float32 (B, H, S) scratch for the row pass's
-// lse' and D.  Three launches on `stream`; returns a cudaError_t (0 =
-// success).
+// `lse_rows` and `dsum` are float32 scratch for the row pass's lse' and D,
+// (B, H, S rounded up to 64) for both designs.  Three launches on `stream`;
+// returns a cudaError_t (0 = success).
 int flash_attention_backward(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const void* lse,
                              void* lse_rows, void* dsum, void* dq, void* dk,
@@ -1456,13 +2238,29 @@ int flash_attention_backward(int dtype, const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* lr = static_cast<float*>(lse_rows);
   float* d = static_cast<float*>(dsum);
-  if (backward_design_of(dtype, HD) == NONE) return cudaErrorInvalidValue;
-  if (dtype == 1)
-    return bwd::launch<__nv_bfloat16, 128>(q, k, v, dout, l, lr, d, dq, dk,
-                                           dv, B, S, H, KV, scale, causal,
-                                           window, softcap, st);
-  return bwd::launch<float, 16>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S, H,
-                                KV, scale, causal, window, softcap, st);
+  switch (backward_design_of(dtype, HD)) {
+    case WGMMA:
+      switch (HD) {
+        case 64:
+          return bwg::launch<64>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S, H,
+                                 KV, scale, causal, window, softcap, st);
+        case 96:
+          return bwg::launch<96>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S, H,
+                                 KV, scale, causal, window, softcap, st);
+        case 128:
+          return bwg::launch<128>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S,
+                                  H, KV, scale, causal, window, softcap, st);
+        default:
+          return bwg::launch<256>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S,
+                                  H, KV, scale, causal, window, softcap, st);
+      }
+    case SIMT:
+      return bwd::launch<float, 16>(q, k, v, dout, l, lr, d, dq, dk, dv, B, S,
+                                    H, KV, scale, causal, window, softcap,
+                                    st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

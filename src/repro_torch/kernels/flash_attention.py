@@ -11,9 +11,10 @@ other pair.
 
 Training goes through ``FlashAttentionFunction``: its forward is the same
 kernel writing each row's log-sum-exp, its backward the hand-written
-backward (FlashAttention-2's algorithm, design ``simt``) for bf16 at
-head_dim 128 and float32 at 16 (``BACKWARD_DESIGNS``).  The reference has
-no backward kernel: it differentiates its plain attention.
+backward (FlashAttention-2's algorithm in three launches, no atomics):
+design ``wgmma`` (tensor cores, TMA) for bf16 at head_dim 256, 128, 96
+and 64, ``simt`` for float32 at 16 (``BACKWARD_DESIGNS``).  The reference
+has no backward kernel: it differentiates its plain attention.
 """
 from __future__ import annotations
 
@@ -34,9 +35,15 @@ DESIGNS = {(torch.bfloat16, 256): "wgmma", (torch.bfloat16, 128): "wgmma",
            (torch.float32, 256): "simt", (torch.float32, 128): "simt",
            (torch.float32, 16): "simt", (torch.bfloat16, 16): "simt"}
 # the backward's (dtype, head_dim) → design, as the C entry point's
-# ``backward_design_of`` routes them: qwen2-7b's training path (bf16 at
-# 128) and the smoke configs' float32 at 16
-BACKWARD_DESIGNS = {(torch.bfloat16, 128): "simt", (torch.float32, 16): "simt"}
+# ``backward_design_of`` routes them: the training paths of gemma2-2b
+# (bf16 at 256), qwen2-7b (128), phi3-mini-3.8b (96) and musicgen-medium
+# (64) on the tensor cores, the smoke configs' float32 at 16 on the CUDA
+# cores
+BACKWARD_DESIGNS = {(torch.bfloat16, 256): "wgmma",
+                    (torch.bfloat16, 128): "wgmma",
+                    (torch.bfloat16, 96): "wgmma",
+                    (torch.bfloat16, 64): "wgmma",
+                    (torch.float32, 16): "simt"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGN_CODES = {0: "simt", 1: "wgmma"}
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -161,7 +168,11 @@ class FlashAttentionBackward:
             raise ValueError("flash attention backward: lse must be "
                              "contiguous float32 (B, H, S) on q's device")
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        lse_rows, dsum = torch.empty_like(lse), torch.empty_like(lse)
+        # lse' and D, S rounded up to 64 rows a head (the wgmma design's
+        # dK/dV kernel copies a tile's 256 bytes of each in one piece)
+        lse_rows, dsum = (torch.empty((b, h, -(-s // 64) * 64),
+                                      dtype=torch.float32, device=q.device)
+                          for _ in range(2))
         lib = LIB.load()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -79,6 +79,28 @@ def test_plain_backward_matches_jax_grad(jx, causal, window, softcap):
         _close(g, w)
 
 
+@pytest.mark.parametrize("hd,h,kv,window,softcap", [
+    (256, 8, 2, 7, 50.0), (256, 4, 2, 0, 3.0), (96, 4, 4, 0, 0.0),
+    (96, 4, 4, 6, 0.0), (64, 4, 4, 0, 0.0), (64, 6, 2, 5, 0.0)])
+def test_plain_backward_matches_jax_grad_at_model_head_dims(
+        jx, hd, h, kv, window, softcap):
+    """The head dims the ``wgmma`` design serves: gemma2-2b's 256 with its
+    softcap (50, and 3 where it bends the scores) and a window, phi3-mini's
+    96 and musicgen's 64 (MHA, and GQA at 64), causal, at a ragged S of
+    21: the plain backward against jax.grad of the reference's oracle."""
+    arrays = _arrays(1, 21, h, kv, hd, seed=hd + window)
+    kw = dict(causal=True, window=window, softcap=softcap)
+
+    def loss(q, k, v):
+        out = jx.ref.attention_ref(q, k, v, **kw)
+        return jx.jnp.sum(out * jx.jnp.asarray(arrays[3]))
+    want = jx.jax.grad(loss, argnums=(0, 1, 2))(
+        *(jx.jnp.asarray(a) for a in arrays[:3]))
+    got = _plain_grads(*(torch.from_numpy(a) for a in arrays), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("causal,window,softcap", CASES)
 def test_plain_backward_matches_torch_autograd(causal, window, softcap):
     arrays = _arrays(2, 19, 4, 4, 16, seed=1)
@@ -155,12 +177,13 @@ def test_cpu_gradient_goes_through_plain_autograd():
 
 
 @pytest.mark.parametrize("dtype,hd", [
-    (torch.bfloat16, 256), (torch.bfloat16, 96), (torch.bfloat16, 64),
+    (torch.bfloat16, 32), (torch.bfloat16, 80), (torch.float32, 64),
     (torch.bfloat16, 16), (torch.float32, 128), (torch.float32, 256),
     (torch.float16, 128)])
 def test_backward_refuses_unsupported_pairs(dtype, hd):
-    """Only (bf16, 128) and (float32, 16) have a backward design; every
-    other pair raises before any launch, naming the pairs it takes."""
+    """Only bf16 at 256, 128, 96 and 64 and float32 at 16 have a backward
+    design; every other pair raises before any launch, naming the pairs
+    it takes."""
     assert (dtype, hd) not in fa.BACKWARD_DESIGNS
     with pytest.raises(ValueError, match="no design") as err:
         fa.backward_design_for(dtype, hd)
@@ -169,13 +192,19 @@ def test_backward_refuses_unsupported_pairs(dtype, hd):
 
 def test_backward_designs_mirror_the_c_router():
     """``BACKWARD_DESIGNS`` is what ``backward_design_of`` in the source
-    routes to ``SIMT``, read from the source."""
+    routes to ``WGMMA`` and ``SIMT``, read from the source, and nothing
+    else is routed."""
     src = (fa.LIB.source).read_text()
     body = src.split("Design backward_design_of(int dtype, int HD) {")[1]
     body = body.split("}")[0]
-    assert "(dtype == 1 && HD == 128) || (dtype == 0 && HD == 16)" in body
-    assert fa.BACKWARD_DESIGNS == {(torch.bfloat16, 128): "simt",
-                                   (torch.float32, 16): "simt"}
+    assert ("if (dtype == 1 && (HD == 64 || HD == 96 || HD == 128 || "
+            "HD == 256))\n    return WGMMA;") in body
+    assert "if (dtype == 0 && HD == 16) return SIMT;" in body
+    assert body.count("return") == 3 and "return NONE;" in body
+    assert fa.BACKWARD_DESIGNS == {
+        (torch.bfloat16, 256): "wgmma", (torch.bfloat16, 128): "wgmma",
+        (torch.bfloat16, 96): "wgmma", (torch.bfloat16, 64): "wgmma",
+        (torch.float32, 16): "simt"}
 
 
 def test_ssd_intra_refuses_a_gradient_on_cuda(monkeypatch):
@@ -254,6 +283,31 @@ def test_backward_bf16_hd128_on_card(b, s, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,h,kv,softcap", [
+    (256, 16, 4, 50.0), (256, 16, 4, 0.0), (96, 32, 32, 0.0),
+    (64, 24, 24, 0.0)])
+@pytest.mark.parametrize("b,s,window", [
+    (1, 1, 0), (1, 63, 0), (1, 64, 0), (1, 65, 0), (2, 200, 0),
+    (1, 300, 100), (1, 129, 37)])
+def test_backward_bf16_model_head_dims_on_card(hd, h, kv, softcap, b, s,
+                                               window):
+    """The wgmma design at gemma2-2b's widths (16 q-heads over 4, hd 256,
+    with and without its softcap of 50), phi3-mini's (32 over 32, hd 96)
+    and musicgen's (24 over 24, hd 64): tile edges of 64, windows off the
+    tile grid."""
+    _on_card(b, s, h, kv, hd, torch.bfloat16, window=window,
+             softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,window", [(128, 0), (64, 9), (256, 40)])
+def test_backward_bf16_not_causal_on_card(hd, window):
+    """The wgmma design without the causal mask (every key, or a window
+    that looks back only)."""
+    _on_card(2, 150, 8, 2, hd, torch.bfloat16, causal=False, window=window)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s,window,softcap,causal", [
     (64, 0, 0.0, True), (100, 0, 0.0, True), (100, 17, 0.0, True),
     (100, 0, 2.0, True), (130, 40, 3.0, True), (70, 0, 0.0, False),
@@ -267,22 +321,27 @@ def test_backward_f32_hd16_on_card(s, window, softcap, causal):
 
 @pytest.mark.gpu
 def test_backward_is_deterministic_and_routed_on_card():
-    """Two backward launches give the same bits (no atomics); the library
-    routes the pairs as ``BACKWARD_DESIGNS`` names them and refuses
-    others; an unsupported pair under a gradient raises before a launch."""
+    """Two backward launches give the same bits (no atomics) at every
+    head dim of the wgmma design; the library routes the pairs as
+    ``BACKWARD_DESIGNS`` names them and refuses others; an unsupported
+    pair under a gradient raises before a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     for (dtype, hd), design in fa.BACKWARD_DESIGNS.items():
         assert fa.BACKWARD.design(dtype, hd) == design
-    assert fa.BACKWARD.design(torch.bfloat16, 256) is None
-    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
-                   for a in _arrays(2, 333, 32, 4, 128))
-    _, lse = fa.KERNEL.with_lse(q, k, v)
-    first = fa.BACKWARD(q, k, v, do, lse)
-    second = fa.BACKWARD(q, k, v, do, lse)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
-    q = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16, device="cuda",
+    assert fa.BACKWARD.design(torch.bfloat16, 32) is None
+    assert fa.BACKWARD.design(torch.float32, 128) is None
+    for hd, softcap in ((128, 0.0), (256, 50.0), (96, 0.0), (64, 0.0)):
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                       for a in _arrays(2, 333, 32, 4, hd))
+        kw = dict(window=100 if hd == 256 else 0, softcap=softcap)
+        _, lse = fa.KERNEL.with_lse(q, k, v, **kw)
+        first = fa.BACKWARD(q, k, v, do, lse, **kw)
+        second = fa.BACKWARD(q, k, v, do, lse, **kw)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    # float32 at 128: the forward serves it, the backward does not
+    q = torch.zeros(1, 8, 2, 128, dtype=torch.float32, device="cuda",
                     requires_grad=True)
     before = fa.KERNEL.launches
     with pytest.raises(ValueError, match="no design"):
