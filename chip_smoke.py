@@ -12,9 +12,10 @@ any phase fails:
              (one ``nvcc`` each, all started together); print what
              ``nvcc -Xptxas -v`` reports for them (registers, spills and
              warnings of both flash designs at every head_dim (the
-             ``wgmma`` template at 256, 128, 96 and 64) and the three
+             ``wgmma`` template at 256, 128, 96 and 64), the three
              ssd_intra designs, ``wgmma`` (P 64), ``wgmma_p128`` (P 128)
-             and ``simt``), each design's
+             and ``simt``, and its backward's three launches at each
+             (P, N)), each design's
              shared memory (the waterfill's at H's and I's buckets, the
              FIFO replay's two designs, the planner's solve at 2, 28 and
              252 caches), and the count of HGMMA
@@ -125,23 +126,41 @@ any phase fails:
              a control (dO moved by 1e-2 of its scale) that must fail, its
              lse against the plain version's; kernel, plain and library
              (autograd through SDPA; none with the softcap) times and the
-             bound (10·hd FLOPs a visible pair); qwen2-7b's smoke model
-             trained 10 steps on the card and on the CPU from the same
-             init; then at full width, random bf16 weights, float32
-             moments, ``Trainer.run`` over a ``FederatedDataLoader`` on
-             ``fleet(2, 8)``: qwen2-7b's first 8 of 28 layers
-             (``depth_cut``) for 6 steps of 4 x 1,024 tokens, gemma2-2b's
-             first 16 of 26 for 2 steps of 1 x 8,192, phi3-mini-3.8b (all
-             32) and musicgen-medium (all 48) for 2 steps of 4 x 1,024,
-             each after one step through the kernels against the same
-             step with ``attention_ref`` on the card, the attention's
-             projections rescaled to their true fan-in for it (the loss,
-             the gradient norm and every attention projection's gradient,
-             with a control, dK of a sequence's first 128 keys dropped,
-             that must fail): every loss
-             finite, every flash launch ``wgmma`` (forward and remat) and
-             every backward ``wgmma``, ms a step and its split, tokens/s,
-             peak memory;
+             bound (10·hd FLOPs a visible pair); ssd_intra's backward
+             kernel (``simt_p64``, ``simt_p128``, ``simt``) against its
+             plain version in float64 on the card at every ssd_intra
+             shape above and at the training shapes of mamba2-780m (B4
+             NC4 Q256 H48 P64 N128) and jamba-1.5-large (H128 P128 N128),
+             within 1e-5 of each output's largest magnitude beside the
+             float32 plain version's own distance, with two controls
+             that must fail (dcum without its −j term, dy moved by 1e-2
+             of its scale) and two launches bit-equal; kernel, plain and
+             bound times (Q(Q+1)/2·(6N + 4HP) operations a chunk);
+             qwen2-7b's and mamba2-780m's smoke models trained 10 steps
+             on the card and on the CPU from the same init; then at full
+             width, random bf16 weights, float32 moments, ``Trainer.run``
+             over a ``FederatedDataLoader`` on ``fleet(2, 8)``: qwen2-7b's
+             first 8 of 28 layers (``depth_cut``) for 6 steps of 4 x
+             1,024 tokens, gemma2-2b's first 16 of 26 for 2 steps of 1 x
+             8,192, phi3-mini-3.8b (all 32), musicgen-medium (all 48),
+             mamba2-780m (all 48), jamba-1.5-large's first 1 of 72 (an SSM
+             layer at H 128, P 128, N 128 with a dense FFN) and
+             mixtral-8x22b's first 1 of 56 (attention and the MoE layer)
+             for 2 steps of 4 x 1,024, each after one step through the
+             kernels against the same step with the plain versions on
+             the card (``attention_ref`` with the attention's projections
+             rescaled to their true fan-in, ``ssd_intra_ref``; every MoE
+             layer's routing held to the plain step's): the loss, the
+             gradient norm, every attention projection's gradient with a
+             control (dK of a sequence's first 128 keys dropped) and every
+             SSM layer's in_x, in_b, in_c, in_dt and a_log gradients with a
+             control (dcum without its −j term), each control required to
+             fail; every loss finite, every flash launch ``wgmma``
+             (forward and remat) and every flash backward ``wgmma``, every
+             ssd_intra launch on the widths' design (forward and remat)
+             and every ssd_intra backward on its backward design, ms a
+             step and its split (flash, ssd_intra forward and backward,
+             ``adamw_update``, the rest), tokens/s, peak memory;
              ``launch.train`` at the reference's defaults and with
              ``--grad-compression int8_ef --fail-at 20``, its line, the
              restart replaying the uninterrupted run;
@@ -288,6 +307,10 @@ KERNEL_FILES = {
         "src/repro/kernels/flash_attention.py:27"),
     "ssd_intra": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan.py:24"),
+    # the gradient of that kernel's function: the reference trains by
+    # jax.grad of its plain jnp and has no backward kernel
+    "ssd_intra_backward": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan.py:24"),
     "chunk_checksum": ("src/repro_torch/kernels/csrc/chunk_checksum.cu",
                        "src/repro/kernels/chunk_checksum.py:40"),
     "stack_distance": ("src/repro_torch/kernels/csrc/stack_distance.cu",
@@ -467,6 +490,7 @@ def _kernels():
             "flash_attention_backward": flash_attention.BACKWARD,
             "fnv1a64_chunks": fnv1a.KERNEL,
             "ssd_intra": ssd_scan.KERNEL,
+            "ssd_intra_backward": ssd_scan.BACKWARD,
             "chunk_checksum": chunk_checksum.KERNEL,
             "stack_distance": sd.DISTANCES, "cache_sim": sd.CACHE_SIM,
             "fifo_replay": sd.FIFO_REPLAY, "maxmin": maxmin.WATERFILL,
@@ -502,7 +526,10 @@ def phase_build(card: str) -> None:
                "flash_attention_kernel": "simt design: ",
                "ssd_wgmma_kernelILi128E": "wgmma_p128 design: ",
                "ssd_wgmma_kernelILi64E": "wgmma design: ",
-               "ssd_simt_kernel": "simt design: "}
+               "ssd_simt_kernel": "simt design: ",
+               "ssd_bwd_scores": "backward scores launch: ",
+               "ssd_bwd_heads": "backward heads launch: ",
+               "ssd_bwd_reduce": "backward reduce launch: "}
     for lib in libs:
         design = ""
         for line in lib.ptxas_report.read_text().splitlines():
@@ -2101,11 +2128,22 @@ BWD_NUDGE = 1e-2          # the control: dO moved by 1e-2 of its scale
 # acts, and its first 16 of 26 layers (8 local/global pairs): all 26 ran
 # out of the card's 80 GB in the first step, whose float32 logits of
 # 8,192 x 256,000 take 8.4 GB a tensor; phi3-mini-3.8b and
-# musicgen-medium at all their layers (PERF.md §4 reckons the peaks)
+# musicgen-medium at all their layers (PERF.md §4 reckons the peaks);
+# mamba2-780m at all 48 layers (0.78 B parameters, ~9.4 GB of state);
+# jamba-1.5-large's first 1 of 72 layers, an SSM mixer at its real widths
+# (H 128, P 128, N 128) with a dense FFN (2.08 B parameters, ~25 GB of
+# state): its second layer adds a 16-expert MoE layer and 12.2 B
+# parameters, which do not fit, and the cut exists to run the (128, 128)
+# backward in training; mixtral-8x22b's first 1 of 56 layers (~2.9 B
+# parameters, ~35 GB of state), so that the MoE layer's scatter, expert
+# products and combine run under autograd on the card
 TRAIN_PHASES = (("qwen2-7b", 8, 4, 1024, 6),
                 ("gemma2-2b", 16, 1, 8192, 2),
                 ("phi3-mini-3.8b", 32, 4, 1024, 2),
-                ("musicgen-medium", 48, 4, 1024, 2))
+                ("musicgen-medium", 48, 4, 1024, 2),
+                ("mamba2-780m", 48, 4, 1024, 2),
+                ("jamba-1.5-large-398b", 1, 4, 1024, 2),
+                ("mixtral-8x22b", 1, 4, 1024, 2))
 # one step through the kernels against the same step with attention_ref on
 # the card.  The random init (the reference's fan-in of a 3-D weight is its
 # head count: wq comes out sqrt(d_model / heads) too large, wk and wv
@@ -2127,6 +2165,24 @@ TRAIN_PHASES = (("qwen2-7b", 8, 4, 1024, 6),
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
 TRAIN_ATTN_GRAD_TOL = 5e-2
 TRAIN_CONTROL_KEYS = 128
+# an SSM layer's check: the step through the kernels against the same step
+# with ``ssd_intra_ref`` on the card (``_PlainSSD``), each SSM layer's
+# in_x, in_b, in_c, in_dt and a_log gradient within TRAIN_SSM_GRAD_TOL of
+# its largest element; the control, the backward's dcum without its −j
+# term (``_DroppedDecayEnd``), must fall outside it.  The check step runs
+# on a float32 copy of the bf16 init: in bf16 the B and C leaves'
+# gradients (sums over the tokens that mostly cancel, of dB and dC rounded
+# to bf16 where the SSM casts its inputs up) move with any float32
+# reordering of the SSD, by 2.7 of their largest element at mamba2-780m's
+# 48 layers on 4 x 1,024 tokens (the plain step summed in reverse, or
+# with the intra term in float64, as much as the kernels'), 1.8e-2–2.0e-2
+# at its first 4 layers on 256 tokens; in float32 by 2.0e-5–3.4e-5 there
+# and 3.5e-4–6.4e-4 at all 48 (``kernel_probe.py ssm``, H100 80GB HBM3,
+# 700 W).  The tolerance is about three times the float32 spread at 48
+# layers; a backward that lost one head's share of dS (1/48) is ten times
+# past it
+TRAIN_SSM_GRAD_TOL = 2e-3
+SSM_LEAVES = ("in_x", "in_b", "in_c", "in_dt", "a_log")
 # the smoke model's 10 float32 steps, card against CPU (TF32 off): the
 # first 3 losses within 1e-5 (float32 sums in other orders); all 10 within
 # 1e-3, since the run itself is that sensitive through Adam's normalised
@@ -2240,6 +2296,124 @@ def phase_flash_backward(card: str) -> dict:
     return results
 
 
+# ssd_intra's backward: every shape of ``ssd_cases()`` and the training
+# shapes of mamba2-780m and jamba-1.5-large (4 x 1,024 tokens: 4 chunks of
+# 256).  Each output is held to the plain version in float64 on the card
+# within SSD_BWD_TOL of its largest magnitude: the plain version in
+# float32 lies 3.0e-7–6.8e-7 from float64 there on an H100 (the phase
+# measures and prints it at every case), and the kernel sums the same
+# float32 products in other orders
+SSD_BWD_TOL = 1e-5
+SSD_BWD_TRAIN_CASES = [(4, 4, 256, 48, 64, 128), (4, 4, 256, 128, 128, 128)]
+SSD_BWD_MAIN_CASE = "B4 NC4 Q256 H48 P64 N128"      # mamba2-780m training
+SSD_BWD_P128_CASE = "B4 NC4 Q256 H128 P128 N128"    # jamba's SSM training
+SSD_BWD_NAMES = ("dx", "ddt", "dcum", "db", "dc")
+
+
+def _off(got, want) -> float:
+    """|got − want|'s largest element over want's largest magnitude."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+def phase_ssd_backward(card: str) -> dict:
+    """The backward kernel against ``ssd_intra_bwd_ref`` in float64 on the
+    card, at every shape of ``ssd_cases()`` and the training shapes, on
+    ``phase_ssd_kernel``'s inputs (dt and the per-row log-decay softplus
+    of a normal: exp overflows above the diagonal) and a normal dy: every
+    output finite and within ``SSD_BWD_TOL`` of its largest magnitude,
+    beside the float32 plain version's own distance; two controls that
+    must fall outside it (dcum without its −j term, which is dt·ddt; dy
+    moved by 1e-2 of its scale); a second launch bit-equal.  Kernel ms
+    (CUDA events), the float32 plain version's, and the bound: Q(Q+1)/2 ·
+    (6N + 4HP) operations a (batch, chunk) on the fp32 CUDA cores, or the
+    bytes of x, dt, cum, B, C, dy in and dx, ddt, dcum, dB, dC out.  No
+    PyTorch call computes this function: library_ms is none."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import BACKWARD
+
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, nc, q, h, p, n in dict.fromkeys(ssd_cases() +
+                                           SSD_BWD_TRAIN_CASES):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x, b_in, c_in = rand(b, nc, q, h, p), rand(b, nc, q, n), \
+            rand(b, nc, q, n)
+        dt = F.softplus(rand(b, nc, q, h))
+        cum = torch.cumsum(-F.softplus(rand(b, nc, q, h)), dim=2)
+        dy = rand(b, nc, q, h, p)
+        args = (x, dt, cum, b_in, c_in, dy)
+        name = ssd_name(b, nc, q, h, p, n)
+        design = BACKWARD.design(p, n)
+        by_design = BACKWARD.launches_by_design[design]
+        got = BACKWARD(*args)
+        again = BACKWARD(*args)
+        if BACKWARD.launches_by_design[design] != by_design + 2:
+            raise AssertionError(f"ssd_intra backward {name}: the launches "
+                                 f"were not counted under {design}")
+        want = ref.ssd_intra_bwd_ref(*(t.double() for t in args))
+        plain = ref.ssd_intra_bwd_ref(*args)
+        nudge = dy + BWD_NUDGE * dy.std() * torch.randn(
+            dy.shape, generator=gen, device="cuda")
+        nudged = BACKWARD(x, dt, cum, b_in, c_in, nudge)
+        torch.cuda.synchronize()
+        if not all(g.shape == w.shape and bool(torch.isfinite(g).all())
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"ssd_intra backward {name}: non-finite or "
+                                 f"misshapen outputs")
+        offs = [_off(g, w) for g, w in zip(got, want)]
+        plain_offs = [_off(g, w) for g, w in zip(plain, want)]
+        dropped = _off(got[2] + dt * got[1], want[2])
+        nudged_off = max(_off(g, w) for g, w in zip(nudged, want))
+        equal = all(torch.equal(a, g) for a, g in zip(again, got))
+        err = max((g.double() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        if not (max(offs) <= SSD_BWD_TOL and equal):
+            raise AssertionError(
+                f"ssd_intra backward {name}: off float64 by "
+                f"{dict(zip(SSD_BWD_NAMES, offs))} (tol {SSD_BWD_TOL:g} of "
+                f"each output's largest magnitude); two launches equal: "
+                f"{equal}")
+        if not (dropped > SSD_BWD_TOL and nudged_off > SSD_BWD_TOL):
+            raise AssertionError(f"ssd_intra backward {name}: a control is "
+                                 f"within tolerance (dcum without −j "
+                                 f"{dropped}, nudged dy {nudged_off})")
+        iters = max(5, min(100, int(4e9 // (b * nc * q * q * h * p))))
+        kernel_ms = time_ms(lambda: BACKWARD(*args), iters)
+        plain_ms = time_ms(lambda: ref.ssd_intra_bwd_ref(*args),
+                           max(2, iters // 10))
+        flops = b * nc * q * (q + 1) // 2 * (6 * n + 4 * h * p)
+        nbytes = sum(t.nbytes for t in args) + sum(t.nbytes for t in got)
+        bound_ms, bound_by = _bound(flops, PEAK_FLOPS["float32"], nbytes)
+        tflops = flops / kernel_ms / 1e9
+        results[name] = dict(max_abs_err=err, err_over_tol=max(offs)
+                             / SSD_BWD_TOL, offs=dict(zip(SSD_BWD_NAMES,
+                                                          offs)),
+                             plain_f32_off=max(plain_offs),
+                             control_dcum_off=dropped,
+                             control_nudged_off=nudged_off, bit_equal=equal,
+                             ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms,
+                             bound_by=bound_by, tflops=tflops, design=design)
+        say(f"kernel ssd_intra backward {name} float32 ({design} design): "
+            f"off float64 by {max(offs):.2e} of an output's largest "
+            f"magnitude (tol {SSD_BWD_TOL:g}; the float32 plain version "
+            f"{max(plain_offs):.2e}), max_abs_err={err:.3e}; controls: "
+            f"dcum without its −j term {dropped:.2e}, dy moved by "
+            f"{BWD_NUDGE:g} of its scale {nudged_off:.2e}; two launches "
+            f"bit-equal; kernel_ms={kernel_ms:.4f} ({tflops:.1f} TFLOP/s at "
+            f"Q(Q+1)/2·(6N+4HP)) plain_ms={plain_ms:.4f} library_ms=none "
+            f"bound_ms={bound_ms:.4f} ({bound_by}, fp32 CUDA cores)", card)
+        del x, dt, cum, b_in, c_in, dy, args, got, again, want, plain
+        del nudge, nudged
+        torch.cuda.empty_cache()
+    return results
+
+
 def _train_loader(vocab: int, batch: int, seq: int, device: str):
     """The launcher's data path: a two-pod fleet of 8 hosts each
     (``fleet(2, 8)``), 16 synthetic shards of 65,536 tokens at the origin,
@@ -2317,6 +2491,104 @@ class _DroppedKeys:
         self._fa.BACKWARD = self._backward
 
 
+def plain_ssd(order=None):
+    """``ref.ssd_intra_ref``; with ``order="reverse"`` the same function
+    with the scores' dot products summed in reverse (B and C flipped along
+    the state dim)."""
+    from repro_torch.kernels import ref
+    if order is None:
+        return ref.ssd_intra_ref
+
+    def reordered(x, dt, cum, b_in, c_in):
+        return ref.ssd_intra_ref(x, dt, cum, b_in.flip(-1), c_in.flip(-1))
+    return reordered
+
+
+class _PlainSSD:
+    """Routes the SSM layers' ``ops.ssd_intra`` to ``plain_ssd(order)`` on
+    the card while the context is open (its gradient PyTorch's autograd
+    through the masked plain version)."""
+
+    def __init__(self, order=None) -> None:
+        self.order = order
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, self._ssd = ops, ops.ssd_intra
+        ops.ssd_intra = plain_ssd(self.order)
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.ssd_intra = self._ssd
+
+
+class _DroppedDecayEnd:
+    """While open, the ssd_intra backward kernel's dcum loses its −j term
+    (Σ_i T_ij, which is dt_j·ddt_j): a backward that forgets the decay's
+    start, the SSM check's control."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan
+        self._ssd, self._backward = ssd_scan, ssd_scan.BACKWARD
+        backward = ssd_scan.BACKWARD
+
+        def dropped(x, dt, cum, b_in, c_in, dy):
+            dx, ddt, dcum, db, dc = backward(x, dt, cum, b_in, c_in, dy)
+            return dx, ddt, dcum + dt * ddt, db, dc
+        ssd_scan.BACKWARD = dropped
+        return self
+
+    def __exit__(self, *exc):
+        self._ssd.BACKWARD = self._backward
+
+
+class _HeldRoutes:
+    """Holds every MoE layer's routing fixed across the check step's runs:
+    the first run the context is opened for records each ``moe.route``
+    call's (expert, slot, kept); later runs replay them in call order, with
+    the gates recomputed from the current router's probabilities (so the
+    router's gradient flows), and count the (token, choice) pairs whose own
+    routing would have differed.  In bf16, top-2 near-ties otherwise route
+    tokens apart between the plain and the kernel step."""
+
+    def __init__(self) -> None:
+        self.recorded, self.flipped = None, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+        record = self.recorded is None
+        if record:
+            self.recorded = []
+        calls = iter(range(len(self.recorded)))
+
+        def held(p, x, cfg):
+            r = self._route(p, x, cfg)
+            if record:
+                self.recorded.append((r.expert, r.slot, r.kept))
+                return r
+            expert, slot, kept = self.recorded[next(calls)]
+            self.flipped += int((r.expert != expert).sum())
+            gates = r.probs.gather(-1, expert)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return r._replace(gates=gates, expert=expert, slot=slot,
+                              kept=kept)
+        moe.route = held
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def ssm_leaves(params, cfg):
+    """(path, tensor) of every SSM layer's ``SSM_LEAVES``."""
+    from repro_torch.models.model import layer_specs
+    return [(("blocks", i, "mixer", name), block["mixer"][name])
+            for i, (spec, block) in enumerate(zip(layer_specs(cfg),
+                                                  params["blocks"]))
+            if spec.mixer == "ssm" for name in SSM_LEAVES]
+
+
 def attention_projections(params, cfg):
     """(path, tensor) of every self-attention layer's wq, wk, wv and wo."""
     from repro_torch.models.model import layer_specs
@@ -2354,33 +2626,37 @@ class ConditionedAttention:
         del self.saved
 
 
-def _loss_and_grads(trainer, batch) -> tuple:
-    """The trainer's loss on ``batch``, its global gradient norm and the
-    gradients of ``attention_projections``, without a step."""
+def _loss_and_grads(params, cfg, aux_weight: float, batch) -> tuple:
+    """The loss of ``params`` on ``batch`` as the trainer takes it, its
+    global gradient norm and the gradients of ``attention_projections``
+    and of ``ssm_leaves``, without a step."""
     import torch
 
     from repro_torch.models import lm_loss
     from repro_torch.train.optimizer import global_norm, walk
-    params = trainer.state["params"]
     leaves = [t.requires_grad_(True) for _, t in walk(params)]
     loss, _ = lm_loss(params, torch.as_tensor(batch["tokens"], device="cuda"),
                       torch.as_tensor(batch["labels"], device="cuda"),
-                      trainer.cfg, aux_weight=trainer.aux_weight)
+                      cfg, aux_weight=aux_weight)
     grads = torch.autograd.grad(loss, leaves)
     at = {id(t): g for t, g in zip(leaves, grads)}
-    attn = [at[id(t)] for _, t in attention_projections(params, trainer.cfg)]
-    return loss.item(), global_norm(grads).item(), attn
+    attn = [at[id(t)] for _, t in attention_projections(params, cfg)]
+    ssd = [at[id(t)] for _, t in ssm_leaves(params, cfg)]
+    return loss.item(), global_norm(grads).item(), attn, ssd
 
 
 class _TrainTimes:
     """Times, while open, each train step on the host clock around
     synchronised work, and with CUDA events every flash forward launch,
-    every backward launch and every ``adamw_update``."""
+    every flash backward launch, every ssd_intra forward and backward
+    launch and every ``adamw_update``."""
 
     def __init__(self, trainer) -> None:
         self.trainer = trainer
-        self.step_s, self.events = [], {"forward": [], "backward": [],
-                                        "optimizer": []}
+        self.step_s = []
+        self.events = {key: [] for key in ("forward", "backward",
+                                           "ssd_forward", "ssd_backward",
+                                           "optimizer")}
 
     def _timed(self, fn, key):
         def call(*args, **kw):
@@ -2398,11 +2674,16 @@ class _TrainTimes:
         import torch
 
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan
         from repro_torch.train import trainer as trainer_mod
-        self._fa, self._tm = fa, trainer_mod
+        self._fa, self._ssd, self._tm = fa, ssd_scan, trainer_mod
         self._backward, self._adamw = fa.BACKWARD, trainer_mod.adamw_update
+        self._ssd_backward = ssd_scan.BACKWARD
         fa.KERNEL._launch = self._timed(fa.KERNEL._launch, "forward")
         fa.BACKWARD = self._timed(self._backward, "backward")
+        ssd_scan.KERNEL._launch = self._timed(ssd_scan.KERNEL._launch,
+                                              "ssd_forward")
+        ssd_scan.BACKWARD = self._timed(self._ssd_backward, "ssd_backward")
         trainer_mod.adamw_update = self._timed(self._adamw, "optimizer")
         step = self.trainer.train_step
 
@@ -2419,6 +2700,8 @@ class _TrainTimes:
     def __exit__(self, *exc):
         del self._fa.KERNEL._launch
         self._fa.BACKWARD = self._backward
+        del self._ssd.KERNEL._launch
+        self._ssd.BACKWARD = self._ssd_backward
         self._tm.adamw_update = self._adamw
         del self.trainer.train_step
 
@@ -2434,18 +2717,25 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
     moments, trained by ``Trainer.run`` on a ``FederatedDataLoader`` over
     ``fleet(2, 8)``: global batch ``batch`` of ``seq`` tokens, ``steps``
     steps, no checkpointer.  First one step through the kernels against
-    the same step with ``attention_ref`` on the card, both under
-    ``ConditionedAttention`` (the loss, the grad norm, with the plain
-    step summed in reverse for its spread, and each attention
-    projection's gradient, with the dropped-keys control that must fail);
-    then the run on the init as drawn, every loss finite, every flash
-    launch ``wgmma`` (two an attention layer a step: forward and remat)
-    and every backward ``wgmma`` (one an attention layer a step)."""
+    the same step with the plain versions on the card (``attention_ref``
+    under ``ConditionedAttention``, ``ssd_intra_ref``), every MoE layer's
+    routing held to the plain step's (``_HeldRoutes``): the loss, the grad
+    norm, with the plain step summed in reverse for its spread, each
+    attention projection's gradient with the dropped-keys control and each
+    SSM layer's ``SSM_LEAVES`` gradients with the dropped-decay-end
+    control, each control required to fail; then the run on the init as
+    drawn, every loss finite, every flash launch ``wgmma`` (two an
+    attention layer a step: forward and remat) and every flash backward
+    ``wgmma`` (one an attention layer a step), every ssd_intra launch on
+    the (P, N)'s design (two an SSM layer a step) and every ssd_intra
+    backward on its backward design (one an SSM layer a step)."""
+    import contextlib
     import math
 
     import torch
 
     from repro_torch.configs import depth_cut, get_config
+    from repro_torch.kernels import ssd_scan
     from repro_torch.models.model import layer_specs
     from repro_torch.train import AdamWConfig, Trainer
     from repro_torch.train.optimizer import walk
@@ -2454,8 +2744,10 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
     torch.cuda.reset_peak_memory_stats()
     full = get_config(arch)
     cfg = depth_cut(full, layers) if layers < full.num_layers else full
-    attn_layers = sum(spec.mixer.startswith("attn")
-                      for spec in layer_specs(cfg))
+    specs = layer_specs(cfg)
+    attn_layers = sum(spec.mixer.startswith("attn") for spec in specs)
+    ssm_layers = sum(spec.mixer == "ssm" for spec in specs)
+    moe_layers = sum(spec.ffn == "moe" for spec in specs)
     loader = _train_loader(cfg.vocab_size, batch, seq, "cuda")
     t0 = time.perf_counter()
     trainer = Trainer(cfg, loader, AdamWConfig(warmup_steps=2,
@@ -2466,65 +2758,116 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
     n_params = sum(t.numel() for _, t in walk(trainer.state["params"]))
     state_gb = sum(t.nbytes for _, t in walk(trainer.state)) / 1e9
     heads = cfg.padded_heads or cfg.num_heads
+    kinds = ", ".join(f"{n} {kind}" for n, kind in (
+        (attn_layers, "attention"), (ssm_layers, "SSM"), (moe_layers, "MoE"))
+        if n)
+    ssm_widths = (f", SSM H {cfg.ssm_heads} P {cfg.ssm_headdim} N "
+                  f"{cfg.ssm_state} chunk {cfg.ssm_chunk}"
+                  if ssm_layers else "")
+    moe_widths = (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
+                  if moe_layers else "")
     say(f"train {arch}: {cfg.num_layers} of {full.num_layers} layers "
-        f"({'depth only' if layers < full.num_layers else 'no cut'}), "
-        f"d={cfg.d_model}, {cfg.num_heads} q-heads"
+        f"({'depth only' if layers < full.num_layers else 'no cut'}; "
+        f"{kinds}), d={cfg.d_model}, {cfg.num_heads} q-heads"
         f"{f' padded to {heads}' if cfg.padded_heads else ''} over "
         f"{cfg.num_kv_heads} KV of {cfg.resolved_head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window "
-        f"{cfg.sliding_window or 0}, softcap {cfg.attn_logit_softcap:g}; "
-        f"{n_params} parameters in {cfg.dtype}, float32 moments: "
-        f"{state_gb:.2f} GB of state; init {init_s:.1f} s", card)
+        f"{cfg.sliding_window or 0}, softcap {cfg.attn_logit_softcap:g}"
+        f"{ssm_widths}{moe_widths}; {n_params} parameters in {cfg.dtype}, "
+        f"float32 moments: {state_gb:.2f} GB of state; init {init_s:.1f} s",
+        card)
 
     first = loader.batch(0)
-    paths = [p for p, _ in attention_projections(trainer.state["params"],
-                                                 cfg)]
+    params, check_cfg = trainer.state["params"], cfg
+    if ssm_layers:           # the check step on a float32 copy of the init
+        if attn_layers:
+            raise ValueError(f"train {arch}: the float32 check step has no "
+                             f"flash backward at hd {cfg.resolved_head_dim}")
+        check_cfg = dataclasses.replace(cfg, dtype="float32")
+        params = _tree_map(lambda t: t.detach().to(torch.float32, copy=True),
+                           params)
+    attn_paths = [p for p, _ in attention_projections(params, cfg)]
+    ssm_paths = [p for p, _ in ssm_leaves(params, cfg)]
+
+    def step():
+        return _loss_and_grads(params, check_cfg, trainer.aux_weight, first)
 
     def off(grads, want):
-        """Each leaf's largest |grads - want| over want's largest."""
-        return [((g.float() - w.float()).abs().max() / w.float().abs().max()
-                 ).item() for g, w in zip(grads, want)]
-    with ConditionedAttention(trainer.state["params"], cfg):
-        with _PlainAttention():
-            loss_p, gnorm_p, attn_p = _loss_and_grads(trainer, first)
-        loss_k, gnorm_k, attn_k = _loss_and_grads(trainer, first)
-        attn_off = off(attn_k, attn_p)
-        del attn_k
-        with _PlainAttention("reverse"):
-            loss_r, gnorm_r, attn_r = _loss_and_grads(trainer, first)
-        reversed_off = off(attn_r, attn_p)
-        del attn_r
-        with _DroppedKeys(TRAIN_CONTROL_KEYS):
-            _, gnorm_c, attn_c = _loss_and_grads(trainer, first)
-        control_off = off(attn_c, attn_p)
-        del attn_c, attn_p
+        return [_off(g, w) for g, w in zip(grads, want)]
+
+    def plain(order=None):
+        stack = contextlib.ExitStack()
+        stack.enter_context(_PlainAttention(order))
+        stack.enter_context(_PlainSSD(order))
+        return stack
+    routes = _HeldRoutes()
+    with ConditionedAttention(params, check_cfg):
+        with plain(), routes:
+            loss_p, gnorm_p, attn_p, ssm_p = step()
+        with routes:
+            loss_k, gnorm_k, attn_k, ssm_k = step()
+        attn_off, ssm_off = off(attn_k, attn_p), off(ssm_k, ssm_p)
+        del attn_k, ssm_k
+        with plain("reverse"), routes:
+            loss_r, gnorm_r, attn_r, ssm_r = step()
+        attn_rev, ssm_rev = off(attn_r, attn_p), off(ssm_r, ssm_p)
+        del attn_r, ssm_r
+        attn_ctl = ssm_ctl = []
+        if attn_layers:
+            with _DroppedKeys(TRAIN_CONTROL_KEYS), routes:
+                attn_ctl = off(step()[2], attn_p)
+        if ssm_layers:
+            with _DroppedDecayEnd(), routes:
+                ssm_ctl = off(step()[3], ssm_p)
+        del attn_p, ssm_p
+    del params
     check_gb = torch.cuda.max_memory_allocated() / 1e9
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     gnorm_rel = abs(gnorm_k - gnorm_p) / gnorm_p
     spread = abs(gnorm_r - gnorm_p) / gnorm_p
     gnorm_tol = max(TRAIN_GNORM_RTOL, 2 * spread)
-    worst = max(range(len(paths)), key=attn_off.__getitem__)
-    say(f"train {arch}, one step through the kernels vs attention_ref on "
-        f"the card, the attention's projections at their true fan-in: "
+
+    def worst(offs, paths):
+        if not offs:
+            return "none"
+        i = max(range(len(offs)), key=offs.__getitem__)
+        return f"{offs[i]:.3e} ({'.'.join(map(str, paths[i]))})"
+    leaf_lines = []
+    if attn_layers:
+        leaf_lines.append(
+            f"the {len(attn_paths)} attention projections' gradients off by "
+            f"up to {worst(attn_off, attn_paths)} of their largest element "
+            f"(tol {TRAIN_ATTN_GRAD_TOL:g}; summed in reverse "
+            f"{max(attn_rev):.3e}; control, dK of the first "
+            f"{TRAIN_CONTROL_KEYS} keys dropped: {max(attn_ctl):.3e})")
+    if ssm_layers:
+        leaf_lines.append(
+            f"the {len(ssm_paths)} SSM leaves' gradients "
+            f"({', '.join(SSM_LEAVES)}) off by up to "
+            f"{worst(ssm_off, ssm_paths)} (tol {TRAIN_SSM_GRAD_TOL:g}; "
+            f"the scores summed in reverse {max(ssm_rev):.3e}; control, "
+            f"dcum without its −j term: {max(ssm_ctl):.3e})")
+    say(f"train {arch}, one step through the kernels vs the plain versions "
+        f"on the card{', the attention projections at their true fan-in' if attn_layers else ''}"
+        f"{', in float32 (a copy of the init)' if ssm_layers else ''}"
+        f"{f', routing held ({routes.flipped} (token, choice) pairs would have routed elsewhere)' if moe_layers else ''}: "
         f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}, tol "
         f"{TRAIN_LOSS_RTOL:g}), grad norm {gnorm_k:.6e} vs {gnorm_p:.6e} "
-        f"(rel {gnorm_rel:.2e}, tol {gnorm_tol:.2e}; attention_ref summed "
-        f"in reverse: loss rel {abs(loss_r - loss_p) / abs(loss_p):.2e}, "
-        f"grad norm rel {spread:.2e}); the {len(paths)} attention "
-        f"projections' gradients off the plain step's by up to "
-        f"{attn_off[worst]:.3e} of their largest element "
-        f"({'.'.join(map(str, paths[worst]))}; tol {TRAIN_ATTN_GRAD_TOL:g}; "
-        f"summed in reverse {max(reversed_off):.3e}); control, dK of the "
-        f"first {TRAIN_CONTROL_KEYS} keys dropped: {max(control_off):.3e} "
-        f"(grad norm rel {abs(gnorm_c - gnorm_p) / gnorm_p:.2e}); peak "
+        f"(rel {gnorm_rel:.2e}, tol {gnorm_tol:.2e}; plain summed in "
+        f"reverse: loss rel {abs(loss_r - loss_p) / abs(loss_p):.2e}, grad "
+        f"norm rel {spread:.2e}); {'; '.join(leaf_lines)}; peak "
         f"{check_gb:.2f} GB", card)
     if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= gnorm_tol and
-            max(attn_off) <= TRAIN_ATTN_GRAD_TOL):
+            max(attn_off, default=0) <= TRAIN_ATTN_GRAD_TOL and
+            max(ssm_off, default=0) <= TRAIN_SSM_GRAD_TOL):
         raise AssertionError(f"train {arch}: the kernels' step is off the "
-                             f"plain attention's")
-    if not max(control_off) > TRAIN_ATTN_GRAD_TOL:
+                             f"plain versions'")
+    if attn_layers and not max(attn_ctl) > TRAIN_ATTN_GRAD_TOL:
         raise AssertionError(f"train {arch}: the dropped-keys control is "
-                             f"within tolerance ({max(control_off)})")
+                             f"within tolerance ({max(attn_ctl)})")
+    if ssm_layers and not max(ssm_ctl) > TRAIN_SSM_GRAD_TOL:
+        raise AssertionError(f"train {arch}: the dropped-decay-end control "
+                             f"is within tolerance ({max(ssm_ctl)})")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2535,27 +2878,44 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
         torch.cuda.synchronize()
     kernels = _kernels()                     # ... and ends here
     fwd, bwd = kernels["flash_attention"], kernels["flash_attention_backward"]
+    sfwd, sbwd = kernels["ssd_intra"], kernels["ssd_intra_backward"]
     launches = {"forward": fwd.launches,
                 "forward_by_design": dict(fwd.launches_by_design),
                 "backward": bwd.launches,
-                "backward_by_design": dict(bwd.launches_by_design)}
+                "backward_by_design": dict(bwd.launches_by_design),
+                "ssd_forward": sfwd.launches,
+                "ssd_forward_by_design": dict(sfwd.launches_by_design),
+                "ssd_backward": sbwd.launches,
+                "ssd_backward_by_design": dict(sbwd.launches_by_design)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in report.losses) or \
             report.steps_run != steps:
         raise AssertionError(f"train {arch}: losses {report.losses}")
-    want_fwd = 2 * attn_layers * steps
-    want_bwd = attn_layers * steps
+    want_fwd, want_bwd = 2 * attn_layers * steps, attn_layers * steps
+    want_sfwd, want_sbwd = 2 * ssm_layers * steps, ssm_layers * steps
+    widths = (cfg.ssm_headdim, cfg.ssm_state)
+    sdesign = ssd_scan.DESIGNS.get(widths)
+    sbdesign = ssd_scan.BACKWARD_DESIGNS.get(widths)
     if launches["forward"] != want_fwd or \
             launches["forward_by_design"]["wgmma"] != want_fwd or \
             launches["backward"] != want_bwd or \
-            launches["backward_by_design"]["wgmma"] != want_bwd:
-        raise AssertionError(f"train {arch}: launches {launches}; want "
-                             f"{want_fwd} forward and {want_bwd} backward, "
-                             f"all on wgmma")
+            launches["backward_by_design"]["wgmma"] != want_bwd or \
+            launches["ssd_forward"] != want_sfwd or \
+            launches["ssd_backward"] != want_sbwd or \
+            (ssm_layers and (
+                launches["ssd_forward_by_design"][sdesign] != want_sfwd or
+                launches["ssd_backward_by_design"][sbdesign] != want_sbwd)):
+        raise AssertionError(
+            f"train {arch}: launches {launches}; want {want_fwd} flash "
+            f"forward and {want_bwd} backward, all on wgmma, {want_sfwd} "
+            f"ssd_intra forward on {sdesign} and {want_sbwd} backward on "
+            f"{sbdesign}")
     steady = times.step_s[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
     tokens = batch * seq
     split = {key: times.ms(key, steps) for key in times.events}
+    # the events are a step's average over every step, the first included
+    rest_ms = 1e3 * sum(times.step_s) / steps - sum(split.values())
     out = dict(arch=arch, layers=cfg.num_layers, batch=batch, seq=seq,
                steps=steps, parameters=n_params, state_gb=state_gb,
                losses=report.losses, step_ms=step_ms,
@@ -2564,11 +2924,18 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
                check_peak_gb=check_gb, launches=launches,
                flash_forward_ms=split["forward"],
                flash_backward_ms=split["backward"],
-               optimizer_ms=split["optimizer"], loss_rel=loss_rel,
-               gnorm_rel=gnorm_rel, gnorm_reversed_rel=spread,
-               attn_grad_off=max(attn_off),
-               attn_grad_reversed_off=max(reversed_off),
-               attn_grad_control_off=max(control_off),
+               ssd_forward_ms=split["ssd_forward"],
+               ssd_backward_ms=split["ssd_backward"],
+               optimizer_ms=split["optimizer"], rest_ms=rest_ms,
+               loss_rel=loss_rel, gnorm_rel=gnorm_rel,
+               gnorm_reversed_rel=spread,
+               attn_grad_off=max(attn_off, default=None),
+               attn_grad_reversed_off=max(attn_rev, default=None),
+               attn_grad_control_off=max(attn_ctl, default=None),
+               ssm_grad_off=max(ssm_off, default=None),
+               ssm_grad_reversed_off=max(ssm_rev, default=None),
+               ssm_grad_control_off=max(ssm_ctl, default=None),
+               routes_flipped=routes.flipped,
                hit_rate=report.cache_hit_rate,
                phase_s=time.perf_counter() - t_phase)
     say(f"train {arch}: {steps} steps of {batch} x {seq} tokens, losses "
@@ -2577,12 +2944,15 @@ def phase_train(card: str, arch: str, layers: int, batch: int, seq: int,
         f"the first ({1e3 * times.step_s[0]:.1f} ms), "
         f"{out['tokens_per_s']:.0f} tokens/s; a step's flash forward "
         f"{split['forward']:.2f} ms ({want_fwd // steps} launches, wgmma: "
-        f"forward and remat), backward {split['backward']:.2f} ms "
-        f"({want_bwd // steps} launches, wgmma), adamw_update "
-        f"{split['optimizer']:.2f} ms; loader hit rate "
-        f"{report.cache_hit_rate:.2f}; max_memory_allocated {peak_gb:.2f} GB;"
-        f" the phase {out['phase_s']:.1f} s",
-        card)
+        f"forward and remat), flash backward {split['backward']:.2f} ms "
+        f"({want_bwd // steps} launches, wgmma), ssd_intra forward "
+        f"{split['ssd_forward']:.2f} ms ({want_sfwd // steps} launches, "
+        f"{sdesign}), ssd_intra backward {split['ssd_backward']:.2f} ms "
+        f"({want_sbwd // steps} launches, {sbdesign}), adamw_update "
+        f"{split['optimizer']:.2f} ms, the rest {rest_ms:.2f} ms (the split "
+        f"a step's average over all {steps}); loader hit "
+        f"rate {report.cache_hit_rate:.2f}; max_memory_allocated "
+        f"{peak_gb:.2f} GB; the phase {out['phase_s']:.1f} s", card)
     del trainer, loader, times
     return out
 
@@ -2595,20 +2965,26 @@ def _to_device(tree, device):
     return tree.detach().to(device).clone()
 
 
-def phase_train_small(card: str) -> dict:
-    """qwen2-7b's smoke model (its block kind, 2 layers, d 64, hd 16) in
-    float32, 10 ``Trainer`` steps on the card (flash ``simt`` at hd 16 and
-    its backward) and on the CPU (the plain path) from the same init and
-    the same batches: the losses within ``SMALL_TRAIN_TOL``; beside them
-    the CPU run's own drift when one leaf is moved by 1e-7 of itself."""
+# the small training runs, card against CPU: (smoke config, a leaf of
+# layer 0's mixer the drift probe moves, the kernel whose backward runs)
+SMALL_TRAINS = (("qwen2-7b", "wq", "flash_attention_backward"),
+                ("mamba2-780m", "in_x", "ssd_intra_backward"))
+
+
+def phase_train_small(card: str, arch: str, leaf: str, kernel: str) -> dict:
+    """``arch``'s smoke model in float32, 10 ``Trainer`` steps on the card
+    (the backward ``kernel`` on its ``simt`` design: flash at hd 16, or
+    ssd_intra at (P, N) = (16, 16) and Q 8) and on the CPU (the plain path)
+    from the same init and the same batches: the losses within
+    ``SMALL_TRAIN_TOL``; beside them the CPU run's own drift when one leaf
+    is moved by 1e-7 of itself."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.train import AdamWConfig, Trainer
     from repro_torch.train.optimizer import walk
 
-    cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     trainers = {device: Trainer(cfg, _train_loader(cfg.vocab_size, 4, 64,
                                                    device),
                                 AdamWConfig(lr=1e-3, warmup_steps=2,
@@ -2622,8 +2998,8 @@ def phase_train_small(card: str) -> dict:
                      AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
                      device="cpu")
     nudged.state = _to_device(init, "cpu")
-    nudged.state["params"]["blocks"][0]["mixer"]["wq"].mul_(1 + 1e-7)
-    bwd = _kernels()["flash_attention_backward"]
+    nudged.state["params"]["blocks"][0]["mixer"][leaf].mul_(1 + 1e-7)
+    bwd = _kernels()[kernel]
     before = bwd.launches_by_design["simt"]
     losses = {d: t.run(10).losses for d, t in trainers.items()}
     drift = abs(nudged.run(10).losses[-1] - losses["cpu"][-1])
@@ -2634,19 +3010,20 @@ def phase_train_small(card: str) -> dict:
                      params["cpu"][p].detach()).abs().max().item()
                     for p in params["cpu"])
     launched = bwd.launches_by_design["simt"] - before
-    say(f"train small (qwen2-7b smoke, f32, 10 steps): card vs CPU losses "
+    say(f"train small ({arch} smoke, f32, 10 steps): card vs CPU losses "
         f"max_abs_err {early:.3e} over the first 3 steps (tol "
         f"{SMALL_TRAIN_TOL[0]:g}), {err:.3e} over all 10 (tol "
         f"{SMALL_TRAIN_TOL[1]:g}), per step {[f'{e:.1e}' for e in errs]}; "
-        f"parameters {param_err:.3e}; on the CPU alone, wq of layer 0 moved "
-        f"by 1e-7 of itself moves step 10's loss by {drift:.3e}; "
-        f"{launched} backward launches on simt at hd 16", card)
+        f"parameters {param_err:.3e}; on the CPU alone, {leaf} of layer 0 "
+        f"moved by 1e-7 of itself moves step 10's loss by {drift:.3e}; "
+        f"{launched} {kernel} launches on simt", card)
     if not (early <= SMALL_TRAIN_TOL[0] and err <= SMALL_TRAIN_TOL[1]) or \
-            launched != 2 * 10:
-        raise AssertionError(f"train small: card vs CPU losses {losses}, "
-                             f"{launched} backward launches")
+            launched != cfg.num_layers * 10:
+        raise AssertionError(f"train small {arch}: card vs CPU losses "
+                             f"{losses}, {launched} {kernel} launches")
     return {"loss_err_first3": early, "loss_err": err,
-            "param_err": param_err, "cpu_nudge_drift": drift}
+            "param_err": param_err, "cpu_nudge_drift": drift,
+            "launches": launched}
 
 
 def phase_launcher_train(card: str) -> dict:
@@ -4822,7 +5199,10 @@ def main() -> int:
         "llama-3.2-vision-90b cross-attention": llama["then"]["launches"]})
     phase_launcher(card)
     backward = phase_flash_backward(card)
-    small_train = phase_train_small(card)
+    ssd_backward = phase_ssd_backward(card)
+    _free()
+    small_trains = {arch: phase_train_small(card, arch, leaf, kernel)
+                    for arch, leaf, kernel in SMALL_TRAINS}
     _free()
     trains = {}
     for arch, layers, batch, seq, steps in TRAIN_PHASES:
@@ -4841,9 +5221,14 @@ def main() -> int:
         card)
     # launches: the sum over the paths that run the kernel
     train_flash = {f"{arch} training": t["launches"]["forward"]
-                   for arch, t in trains.items()}
+                   for arch, t in trains.items() if t["launches"]["forward"]}
     train_bwd = {f"{arch} training": t["launches"]["backward"]
-                 for arch, t in trains.items()}
+                 for arch, t in trains.items() if t["launches"]["backward"]}
+    train_ssd = {f"{arch} training": t["launches"]["ssd_forward"]
+                 for arch, t in trains.items() if t["launches"]["ssd_forward"]}
+    train_ssd_bwd = {f"{arch} training": t["launches"]["ssd_backward"]
+                     for arch, t in trains.items()
+                     if t["launches"]["ssd_backward"]}
     flash_entry = _entry("flash_attention",
                          gemma_flash + mixtral_flash + qwen2_flash
                          + sum(new_flash.values())
@@ -4866,17 +5251,20 @@ def main() -> int:
     backward_entry["cases"] = [_case(case, name)
                                for name, case in backward.items()
                                if name != BWD_MAIN_CASE]
-    backward_entry["training"] = {
+    training = {
         arch: {k: t[k] for k in (
             "layers", "batch", "seq", "steps", "parameters", "state_gb",
             "step_ms", "first_step_ms", "tokens_per_s", "peak_gb",
             "check_peak_gb", "flash_forward_ms", "flash_backward_ms",
-            "optimizer_ms", "phase_s", "loss_rel", "gnorm_rel",
-            "gnorm_reversed_rel",
+            "ssd_forward_ms", "ssd_backward_ms", "optimizer_ms", "rest_ms",
+            "phase_s", "loss_rel", "gnorm_rel", "gnorm_reversed_rel",
             "attn_grad_off", "attn_grad_reversed_off",
-            "attn_grad_control_off", "losses")}
+            "attn_grad_control_off", "ssm_grad_off",
+            "ssm_grad_reversed_off", "ssm_grad_control_off",
+            "routes_flipped", "losses")}
         for arch, t in trains.items()}
-    backward_entry["small_train"] = small_train
+    backward_entry["training"] = training
+    backward_entry["small_train"] = small_trains["qwen2-7b"]
     backward_entry["launcher_replay_bit_equal"] = launcher_train["bit_equal"]
     flash_entry["backward_case"] = _case(
         backward[BWD_MAIN_CASE], BWD_MAIN_CASE,
@@ -4899,19 +5287,40 @@ def main() -> int:
         f"{mixtral_checksum['nbytes']} bytes as uint8, block 1024",
         launches=mixtral_sums)
     ssd_entry = _entry("ssd_intra", ssd_launches + leg["ssd_launches"]
-                       + jamba["ssd_intra"], ssd[SSD_MAIN_CASE],
-                       SSD_TOLERANCE, f"{SSD_MAIN_CASE} float32", card)
+                       + jamba["ssd_intra"] + sum(train_ssd.values()),
+                       ssd[SSD_MAIN_CASE], SSD_TOLERANCE,
+                       f"{SSD_MAIN_CASE} float32", card)
     ssd_entry["launches_by_path"] = {"mamba2-780m": ssd_launches,
                                      "weight leg": leg["ssd_launches"],
                                      "jamba-1.5-large-398b":
-                                         jamba["ssd_intra"]}
+                                         jamba["ssd_intra"], **train_ssd}
     ssd_entry["p128_case"] = _case(ssd[SSD_P128_CASE],
                                    f"{SSD_P128_CASE} float32",
                                    launches=jamba["ssd_intra"])
+    ssd_backward_entry = _entry(
+        "ssd_intra_backward", sum(train_ssd_bwd.values()),
+        ssd_backward[SSD_BWD_MAIN_CASE],
+        f"{SSD_BWD_TOL:g} of each output's largest magnitude, against the "
+        f"plain version in float64", f"{SSD_BWD_MAIN_CASE} float32", card)
+    ssd_backward_entry["launches_by_path"] = train_ssd_bwd
+    ssd_backward_entry["launches_by_design"] = {
+        design: sum(t["launches"]["ssd_backward_by_design"][design]
+                    for t in trains.values())
+        for design in ("simt_p64", "simt_p128", "simt")}
+    ssd_backward_entry["cases"] = [
+        _case(case, name, plain_f32_off=case["plain_f32_off"],
+              control_dcum_off=case["control_dcum_off"],
+              control_nudged_off=case["control_nudged_off"])
+        for name, case in ssd_backward.items() if name != SSD_BWD_MAIN_CASE]
+    ssd_backward_entry["training"] = {
+        arch: training[arch] for arch, t in trains.items()
+        if t["launches"]["ssd_backward"]}
+    ssd_backward_entry["small_train"] = small_trains["mamba2-780m"]
     print(json.dumps({"kernels": [
         flash_entry,
         backward_entry,
         ssd_entry,
+        ssd_backward_entry,
         checksum_entry,
         _maxmin_entry(storm, card),
         *[_scan_entry(name, sweep[name], card) for name in SCANS],

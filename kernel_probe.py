@@ -4,9 +4,9 @@ and two of its paths, on one CUDA card:
 
     python3 kernel_probe.py [cache_sim] [fifo] [waterfill] [distances]
                             [paths] [plan] [mix] [fnv] [train] [saturated]
-                            [bwd] [--parent DIR]
+                            [bwd] [ssm] [--parent DIR]
 
-(all eleven when none is named).
+(all twelve when none is named).
 
 * ``sd_cache_sim`` over 8 problems of 32,768 steps (Kp 16,384, the
   ``smem`` design), LRU and FIFO: a stream that admits nothing, one that
@@ -116,6 +116,15 @@ and two of its paths, on one CUDA card:
   at qwen2-7b's shape, old, new, new, old; then each ``wgmma`` backward
   kernel's registers and spills from ptxas and its HGMMA instructions
   from the SASS.
+* ``ssm``: the conditioning of an SSM training step's gradients:
+  mamba2-780m (48 layers at 4 x 1,024 tokens, and its first 4 at 1 x
+  256) at random weights from seed 0, in bf16 and copied to float32, with
+  ``ssd_intra`` through the kernels, the plain version, the plain version
+  with the scores summed in reverse and the intra-chunk term in float64:
+  each SSM layer's in_x, in_b, in_c, in_dt and a_log gradient against the
+  plain version's, the loss and the grad norm; then one mamba2-780m
+  training step (forward and backward) under ``torch.profiler``: its
+  wall, the device's busy time and the operations with most device time.
 
 Prints one line a case with the card's name and power limit.  Imports
 nothing of JAX.
@@ -1105,6 +1114,144 @@ def probe_train(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _ssd_float64(x, dt, cum, b_in, c_in):
+    """The intra-chunk term in float64, cast back to float32."""
+    from repro_torch.kernels import ref
+    s = torch.einsum("bcqn,bckn->bcqk", c_in.double(), b_in.double())
+    m = s[..., None] * ref._masked_decay(cum.double()) \
+        * dt.double()[:, :, None]
+    return torch.einsum("bcqkh,bckhp->bcqhp", m, x.double()).float()
+
+
+def probe_ssm(card: str) -> None:
+    """The conditioning of an SSM training step's gradients: mamba2-780m
+    (all 48 layers at 4 x 1,024 tokens, and its first 4 at 1 x 256),
+    random weights from seed 0 in bf16 and the same init copied to
+    float32, the loader's first batch.  ``ssd_intra`` goes through the
+    kernels, the plain version, the plain version with the scores summed
+    in reverse and the intra-chunk term in float64; each SSM layer's
+    in_x, in_b, in_c, in_dt and a_log gradient is compared with the plain
+    version's (|difference|'s largest element over the plain gradient's
+    largest), the worst leaf named, and the loss and grad norm beside."""
+    import dataclasses
+
+    from chip_smoke import (_train_loader, _tree_map, plain_ssd,
+                            ssm_leaves)
+    from repro_torch.configs import depth_cut, get_config
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.train.optimizer import global_norm, walk
+
+    variants = {"plain": plain_ssd(), "kernels": ops.ssd_intra,
+                "plain, sums reversed": plain_ssd("reverse"),
+                "intra term in float64": _ssd_float64}
+    saved = ops.ssd_intra
+    full = get_config("mamba2-780m")
+    for layers, b, s in ((48, 4, 1024), (4, 1, 256)):
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(depth_cut(full, layers), dtype=dtype) \
+                if layers < full.num_layers else \
+                dataclasses.replace(full, dtype=dtype)
+            params = init_lm(depth_cut(full, layers) if layers <
+                             full.num_layers else full, seed=0,
+                             device="cuda")
+            if dtype == "float32":
+                params = _tree_map(lambda t: t.float(), params)
+            batch = _train_loader(cfg.vocab_size, b, s, "cuda").batch(0)
+            tokens = torch.as_tensor(batch["tokens"], device="cuda")
+            labels = torch.as_tensor(batch["labels"], device="cuda")
+            leaves = [t.requires_grad_(True) for _, t in walk(params)]
+            at = {id(t): i for i, t in enumerate(leaves)}
+            named = ssm_leaves(params, cfg)
+            plain = None
+            try:
+                for name, fn in variants.items():
+                    ops.ssd_intra = fn
+                    loss, _ = lm_loss(params, tokens, labels, cfg)
+                    grads = torch.autograd.grad(loss, leaves)
+                    norm = global_norm(grads).item()
+                    chosen = [grads[at[id(t)]].float() for _, t in named]
+                    if plain is None:
+                        plain = (loss.item(), norm, chosen)
+                    offs = [((g - w).abs().max() / w.abs().max()).item()
+                            for g, w in zip(chosen, plain[2])]
+                    worst = max(range(len(offs)), key=offs.__getitem__)
+                    print(f"ssm mamba2-780m ({layers} layers, {b} x {s}, "
+                          f"{dtype}), ssd_intra through {name}: loss "
+                          f"{loss.item():.6f} (rel "
+                          f"{abs(loss.item() / plain[0] - 1):.2e}), grad norm "
+                          f"{norm:.6e} (rel {abs(norm / plain[1] - 1):.2e}); "
+                          f"the {len(offs)} SSM leaves off the plain "
+                          f"version's by up to {offs[worst]:.3e} of their "
+                          f"largest element "
+                          f"({'.'.join(map(str, named[worst][0]))})  "
+                          f"[{card}]", flush=True)
+                    del grads, loss, chosen
+            finally:
+                ops.ssd_intra = saved
+            del params, leaves, plain
+            torch.cuda.empty_cache()
+    _ssm_step_profile(card)
+
+
+def _ssm_step_profile(card: str) -> None:
+    """Where mamba2-780m's training step spends the card's time: one
+    ``lm_loss`` forward and backward (48 layers, 4 x 1,024 tokens, bf16,
+    remat, ``ssd_intra`` through the kernels) under ``torch.profiler``,
+    after one warm-up: the step's wall (host clock around synchronised
+    work), the device's busy time, and the operations with the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _train_loader
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.train.optimizer import walk
+
+    cfg = get_config("mamba2-780m")
+    params = init_lm(cfg, seed=0, device="cuda")
+    batch = _train_loader(cfg.vocab_size, 4, 1024, "cuda").batch(0)
+    tokens = torch.as_tensor(batch["tokens"], device="cuda")
+    labels = torch.as_tensor(batch["labels"], device="cuda")
+    leaves = [t.requires_grad_(True) for _, t in walk(params)]
+
+    def step():
+        loss, _ = lm_loss(params, tokens, labels, cfg)
+        torch.autograd.grad(loss, leaves)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def device_us(event) -> float:
+        return getattr(event, "self_device_time_total",
+                       getattr(event, "self_cuda_time_total", 0.0))
+    # the kernels' own rows (device events) sum to the busy time; the
+    # operators' rows (host events) attribute the same time to the
+    # operator that launched each kernel
+    rows = sorted(prof.key_averages(), key=device_us, reverse=True)
+    on_device = [e for e in rows if e.device_type == DeviceType.CUDA]
+    operators = [e for e in rows if e.device_type != DeviceType.CUDA and
+                 device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in on_device) / 1e3
+    print(f"ssm mamba2-780m step profile (48 layers, 4 x 1024, bf16, "
+          f"forward and backward with remat): wall {wall_ms:.2f} ms, device "
+          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%; idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%) in "
+          f"{sum(e.count for e in on_device)} kernels  [{card}]", flush=True)
+    for what, events in (("operator", operators), ("kernel", on_device)):
+        for e in events[:10]:
+            print(f"ssm step profile, {what} {e.key[:60]}: "
+                  f"{device_us(e) / 1e3:.2f} ms device in {e.count} calls  "
+                  f"[{card}]", flush=True)
+    del params, leaves
+    torch.cuda.empty_cache()
+
+
 def _own_qkv(cfg, full, params, tokens, layers: int = 2):
     """The q, k, v and options the first ``layers`` layers give flash
     attention on ``tokens``, cut to the first KV head and its group of
@@ -1357,6 +1504,7 @@ def main() -> int:
               "mix": lambda c: probe_mix(c, parent),
               "fnv": lambda c: probe_fnv(c, parent),
               "train": probe_train,
+              "ssm": probe_ssm,
               "saturated": probe_saturated,
               "bwd": lambda c: probe_bwd(c, parent)}
     for name in args or probes:

@@ -1,4 +1,5 @@
-// Mamba-2 SSD intra-chunk term for Hopper (sm_90a), float32:
+// Mamba-2 SSD intra-chunk term and its gradient for Hopper (sm_90a),
+// float32:
 //
 //   Y[i] = sum_{j <= i} (C_i . B_j) * exp(cum_i - cum_j) * dt_j * x_j
 //
@@ -116,6 +117,46 @@
 // and 256 threads each owning 4 x 4 scores and 4 x (P/16) outputs per
 // head; tiles in shared memory as fp32 with an odd row stride; the score
 // tile formed once per key tile for the block's 4 heads.
+//
+// The backward (namespace bwd): the gradient of this function, which the
+// reference takes by jax.grad of its plain jnp (it has no backward
+// kernel).  With S = C . B^T, E_ij = exp(cum_i - cum_j) and M = S E dt_j
+// masked to j <= i, G_ij = dY_i . X_j (per head), T = G M:
+//
+//   dX_j = sum_i M_ij dY_i          ddt_j = sum_i G_ij S_ij E_ij
+//   dS_ij = sum_h G_ij E_ij dt_j    dC = dS . B,  dB = dS^T . C
+//   dcum_k = sum_j T_kj - sum_i T_ik   (the decay's two ends)
+//
+// with dS summed over the heads (B and C are shared).  One design, a
+// template over (P, N), at the three (P, N) the forward serves (simt_p64,
+// simt_p128, simt); Q up to 768 at each; anything else refused.
+//
+// What bounds it on this card: per (batch, chunk) it needs Q(Q+1)/2 (6N +
+// 4HP) operations (the scores again, dC and dB; G and dX per head), about
+// 6.9 GFLOP at mamba2-780m's training shape (B 4, NC 4, Q 256, H 48, P 64,
+// N 128), 0.10 ms on the CUDA cores at 67 TFLOP/s, against x, dy and dx of
+// 50 MB each (0.05 ms for all bytes at 3.35 TB/s): operations bound it.
+//
+// What the design does about it: it is a straightforward one on the fp32
+// CUDA cores (tensor cores at 3xTF32 come next), deterministic without
+// atomics, in three launches:
+//   1. the scores of every tile on or below the diagonal into a workspace
+//      (4 MB at the training shape), once rather than once a head group;
+//   2. a block a (64-key tile, group of 8 heads, batch x chunk), walking
+//      each head and, inside, every query tile from the diagonal down: G
+//      and dX_j in 4 x 4 and 4 x P/16 register tiles over odd-stride
+//      shared memory, E formed only below the diagonal (above it exp
+//      overflows over a 256-row chunk: the gradient of the masked
+//      function is what is wanted, and 0 * inf would be NaN).  dX_j, ddt_j
+//      and T's column sums (= dt_j ddt_j) are the block's own; T's row
+//      sums go to the key tile's slot and G E dt_j, summed over the
+//      group's heads by each thread on its own elements, to the group's
+//      slot of a partial dS;
+//   3. a block a (tile, role, batch x chunk): the partials of dS summed
+//      in group order, then dC of a query tile (and dcum's row sums over
+//      the key tiles, in order) or dB of a key tile.
+// Every sum has a fixed order, so two launches give the same bits (the
+// training launcher's restart replay depends on it).
 //
 // Plain C interface, loaded with ctypes; it returns the cudaError_t of
 // the launch and never synchronises.
@@ -742,6 +783,348 @@ cudaError_t launch(const void* x, const void* dt, const void* cum,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// backward (every (P, N) the forward serves): fp32 CUDA cores
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int BT = 64;        // rows (queries or keys) a tile
+constexpr int NT = 256;       // threads: 16 x 16, each 4 x 4 of a tile
+constexpr int HG = 8;         // heads a block of the head pass
+constexpr int MAX_Q = 768;    // the forward's wgmma bound, for every design
+constexpr int MS = BT + 1;    // odd row stride of a 64 x 64 tile
+
+// The workspace, in floats: the scores S (BC, Qp, Qp), the head groups'
+// partial dS (G, BC, Qp, Qp) and each key tile's row sums of T (nt, BC,
+// Qp, H), Qp = 64 nt.  Only tiles on or below the diagonal are written
+// and read.
+struct Work {
+  size_t s, ds, row, total;
+  __host__ __device__ Work(int BC, int Q, int H) {
+    const size_t nt = (Q + BT - 1) / BT, qp = nt * BT;
+    const size_t groups = (H + HG - 1) / HG;
+    s = 0;
+    ds = size_t(BC) * qp * qp;
+    row = ds + groups * BC * qp * qp;
+    total = row + nt * BC * qp * H;
+  }
+};
+
+template <int N>
+constexpr size_t scores_smem() { return sizeof(float) * 2 * BT * (N + 1); }
+template <int P>
+constexpr size_t heads_smem() {
+  return sizeof(float) * (2 * BT * (P + 1) + BT * MS + 3 * BT + 16 * BT);
+}
+template <int N>
+constexpr size_t reduce_smem() { return sizeof(float) * (BT * MS + BT * (N + 1)); }
+
+// Launch 1: S = C . B^T of every tile (it, jt) with jt <= it.  grid:
+// (nt * nt, BC); the tiles above the diagonal return at once.
+template <int N>
+__global__ void __launch_bounds__(NT)
+    ssd_bwd_scores(const float* __restrict__ bm, const float* __restrict__ cm,
+                   float* __restrict__ work, int Q) {
+  constexpr int RS = N + 1;
+  const int nt = (Q + BT - 1) / BT, qp = nt * BT;
+  const int it = blockIdx.x / nt, jt = blockIdx.x % nt;
+  if (jt > it) return;
+  extern __shared__ float smem[];
+  float* sC = smem;
+  float* sB = sC + BT * RS;
+  const size_t bc = blockIdx.y;
+  simt::load_rows<N>(sC, RS, cm + bc * Q * N, N, it * BT, Q);
+  simt::load_rows<N>(sB, RS, bm + bc * Q * N, N, jt * BT, Q);
+  __syncthreads();
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4] = {};
+#pragma unroll 8
+  for (int d = 0; d < N; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = sC[(ty + 16 * i) * RS + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = sB[(tx + 16 * j) * RS + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+  float* out = work + bc * qp * qp;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[size_t(it * BT + ty + 16 * i) * qp + jt * BT + tx + 16 * j] =
+          s[i][j];
+}
+
+// Launch 2: per key tile jt and head h of a group, over every query tile
+// it >= jt: G = dY_i . X_j^T, then (masked, exp formed only below the
+// diagonal) E, M = S E dt_j, T = G M; dX_j += M^T dY_i, ddt_j += column
+// sums of G S E, T's row sums into the key tile's slot of the workspace,
+// and G E dt_j summed over the group's heads into its partial dS (each
+// thread reads, adds and writes back its own 16 elements: no other thread
+// touches them).  T's column sums are dt_j ddt_j, so dcum_j starts at
+// -dt_j ddt_j; launch 3 adds the row sums.  grid: nt * BC * G blocks, the
+// key tiles with the most query tiles first.
+template <int P>
+__global__ void __launch_bounds__(NT)
+    ssd_bwd_heads(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ cum,
+                  const float* __restrict__ dy, float* __restrict__ work,
+                  float* __restrict__ dx, float* __restrict__ ddt,
+                  float* __restrict__ dcum, int Q, int H, int BC) {
+  constexpr int RS = P + 1;
+  constexpr int NJ = P / 16;
+  const int nt = (Q + BT - 1) / BT, qp = nt * BT;
+  const int groups = (H + HG - 1) / HG;
+  const int g = blockIdx.x % groups;
+  const size_t bc = blockIdx.x / groups % BC;
+  const int jt = blockIdx.x / groups / BC;
+  const int h0 = g * HG, h1 = min(H, h0 + HG);
+  const int k0 = jt * BT;
+  const Work w(BC, Q, H);
+  const float* S = work + w.s + bc * qp * qp;
+  float* DS = work + w.ds + (size_t(g) * BC + bc) * qp * qp;
+  float* ROW = work + w.row + (size_t(jt) * BC + bc) * qp * H;
+
+  extern __shared__ float smem[];
+  float* sX = smem;               // BT x RS: X_j of head h
+  float* sDy = sX + BT * RS;      // BT x RS: dY_i of head h
+  float* sM = sDy + BT * RS;      // BT x MS: M (query rows, key columns)
+  float* sCumK = sM + BT * MS;    // BT
+  float* sDt = sCumK + BT;        // BT
+  float* sCumQ = sDt + BT;        // BT
+  float* sRed = sCumQ + BT;       // 16 x BT: column sums, one row a ty
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t xs = size_t(H) * P;
+  const float* xb = x + bc * Q * xs;
+  const float* dyb = dy + bc * Q * xs;
+  const float* dtb = dt + bc * Q * H;
+  const float* cumb = cum + bc * Q * H;
+
+  for (int h = h0; h < h1; ++h) {
+    __syncthreads();  // the last head is done with sX, sCumK, sDt, sRed
+    simt::load_rows<P>(sX, RS, xb + size_t(h) * P, xs, k0, Q);
+    for (int i = threadIdx.x; i < BT; i += NT) {
+      const int r = k0 + i;
+      sCumK[i] = r < Q ? cumb[size_t(r) * H + h] : 0.f;
+      sDt[i] = r < Q ? dtb[size_t(r) * H + h] : 0.f;
+    }
+    float acc[4][NJ] = {};
+    float col[4] = {};
+    for (int it = jt; it < nt; ++it) {
+      const int q0 = it * BT;
+      __syncthreads();  // the last query tile is done with sDy, sM, sCumQ
+      simt::load_rows<P>(sDy, RS, dyb + size_t(h) * P, xs, q0, Q);
+      for (int i = threadIdx.x; i < BT; i += NT) {
+        const int r = q0 + i;
+        sCumQ[i] = r < Q ? cumb[size_t(r) * H + h] : 0.f;
+      }
+      __syncthreads();
+      float gm[4][4] = {};
+#pragma unroll 8
+      for (int p = 0; p < P; ++p) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = sDy[(ty + 16 * i) * RS + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = sX[(tx + 16 * j) * RS + p];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gm[i][j] = fmaf(a[i], b[j], gm[i][j]);
+      }
+      float row[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + ty + 16 * i;
+        row[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = k0 + tx + 16 * j;
+          float m = 0.f, ed = 0.f;
+          if (c <= r && r < Q) {  // the mask, tested before exp is formed
+            const float e = expf(sCumQ[ty + 16 * i] - sCumK[tx + 16 * j]);
+            const float se = S[size_t(r) * qp + c] * e;
+            ed = e * sDt[tx + 16 * j];
+            m = se * sDt[tx + 16 * j];
+            col[j] = fmaf(gm[i][j], se, col[j]);
+          }
+          row[i] = fmaf(gm[i][j], m, row[i]);
+          float* ds = DS + size_t(r) * qp + c;
+          *ds = h == h0 ? gm[i][j] * ed : fmaf(gm[i][j], ed, *ds);
+          sM[(ty + 16 * i) * MS + tx + 16 * j] = m;
+        }
+      }
+      // T's row sums over the 16 threads of a half-warp (one ty), in a
+      // fixed order
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          row[i] += __shfl_xor_sync(0xffffffffu, row[i], o);
+        if (tx == 0) ROW[size_t(q0 + ty + 16 * i) * H + h] = row[i];
+      }
+      __syncthreads();  // sM complete
+      // dX_j[key][p] += sum_r M[r][key] dY_i[r][p]: keys ty + 16 i,
+      // columns tx + 16 j
+#pragma unroll 4
+      for (int r = 0; r < BT; ++r) {
+        float m[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i] = sM[r * MS + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float v = sDy[r * RS + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(m[i], v, acc[i][j]);
+        }
+      }
+    }
+    // ddt_j: the column sums over the 16 row groups, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sRed[ty * BT + tx + 16 * j] = col[j];
+    __syncthreads();
+    if (threadIdx.x < BT) {
+      const int c = k0 + threadIdx.x;
+      float s = 0.f;
+      for (int t = 0; t < 16; ++t) s += sRed[t * BT + threadIdx.x];
+      if (c < Q) {
+        ddt[(bc * Q + c) * H + h] = s;
+        dcum[(bc * Q + c) * H + h] = -sDt[threadIdx.x] * s;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = k0 + ty + 16 * i;
+      if (c >= Q) continue;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        dx[(bc * Q + c) * xs + size_t(h) * P + tx + 16 * j] = acc[i][j];
+    }
+  }
+}
+
+// Launch 3: dS = the head groups' partials summed in group order; blocks
+// (t, 0) form dC_i = sum_{j <= i} dS_ij B_j for query tile t and add T's
+// row sums of every key tile jt <= t into dcum_i; blocks (t, 1) form dB_j
+// = sum_{i >= j} dS_ij C_i for key tile t.  grid: (nt, 2, BC).
+template <int N>
+__global__ void __launch_bounds__(NT)
+    ssd_bwd_reduce(const float* __restrict__ bm, const float* __restrict__ cm,
+                   const float* __restrict__ work, float* __restrict__ db,
+                   float* __restrict__ dc, float* __restrict__ dcum, int Q,
+                   int H, int BC) {
+  constexpr int RS = N + 1;
+  constexpr int NJ = N / 16;
+  const int nt = (Q + BT - 1) / BT, qp = nt * BT;
+  const int groups = (H + HG - 1) / HG;
+  const int t = blockIdx.x;
+  const bool rows = blockIdx.y == 0;  // dC (and dcum) of query tile t
+  const size_t bc = blockIdx.z;
+  const Work w(BC, Q, H);
+  const float* DS = work + w.ds + bc * qp * qp;
+  const size_t ds_group = size_t(BC) * qp * qp;
+  extern __shared__ float smem[];
+  float* sDS = smem;            // BT x MS: (query rows, key columns)
+  float* sOp = sDS + BT * MS;   // BT x RS: B of the key tile, or C
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* op = (rows ? bm : cm) + bc * Q * N;
+  float acc[4][NJ] = {};
+  const int first = rows ? 0 : t, last = rows ? t : nt - 1;
+  for (int u = first; u <= last; ++u) {
+    const int it = rows ? t : u, jt = rows ? u : t;
+    __syncthreads();  // the last tile is done with sDS, sOp
+    for (int e = threadIdx.x; e < BT * BT; e += NT) {
+      const int r = e / BT, c = e % BT;
+      const float* p = DS + size_t(it * BT + r) * qp + jt * BT + c;
+      float s = 0.f;
+      for (int gi = 0; gi < groups; ++gi) s += p[gi * ds_group];
+      sDS[r * MS + c] = s;
+    }
+    simt::load_rows<N>(sOp, RS, op, N, (rows ? jt : it) * BT, Q);
+    __syncthreads();
+#pragma unroll 4
+    for (int k = 0; k < BT; ++k) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = rows ? sDS[(ty + 16 * i) * MS + k] : sDS[k * MS + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float v = sOp[k * RS + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], v, acc[i][j]);
+      }
+    }
+  }
+  float* out = rows ? dc : db;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = t * BT + ty + 16 * i;
+    if (r >= Q) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      out[(bc * Q + r) * N + tx + 16 * j] = acc[i][j];
+  }
+  if (!rows) return;
+  const float* row = work + w.row;
+  const size_t row_tile = size_t(BC) * qp * H;
+  for (int e = threadIdx.x; e < BT * H; e += NT) {
+    const int r = t * BT + e / H, h = e % H;
+    if (r >= Q) continue;
+    float s = dcum[(bc * Q + r) * H + h];
+    for (int jt = 0; jt <= t; ++jt)
+      s += row[jt * row_tile + (bc * qp + r) * H + h];
+    dcum[(bc * Q + r) * H + h] = s;
+  }
+}
+
+template <int P, int N>
+cudaError_t launch(const void* x, const void* dt, const void* cum,
+                   const void* b, const void* c, const void* dy, void* dx,
+                   void* ddt, void* dcum, void* db, void* dc, void* work,
+                   int B, int NC, int Q, int H, cudaStream_t stream) {
+  if (Q > MAX_Q) return cudaErrorInvalidValue;
+  const int nt = (Q + BT - 1) / BT, BC = B * NC;
+  const int groups = (H + HG - 1) / HG;
+  auto k1 = ssd_bwd_scores<N>;
+  auto k2 = ssd_bwd_heads<P>;
+  auto k3 = ssd_bwd_reduce<N>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(scores_smem<N>()))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(heads_smem<P>()))) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  int(reduce_smem<N>()))) != cudaSuccess)
+    return err;
+  const float* fx = static_cast<const float*>(x);
+  const float* fdt = static_cast<const float*>(dt);
+  const float* fcum = static_cast<const float*>(cum);
+  const float* fb = static_cast<const float*>(b);
+  const float* fc = static_cast<const float*>(c);
+  float* fw = static_cast<float*>(work);
+  k1<<<dim3(nt * nt, BC), NT, scores_smem<N>(), stream>>>(fb, fc, fw, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long blocks = (long long)nt * BC * groups;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  k2<<<unsigned(blocks), NT, heads_smem<P>(), stream>>>(
+      fx, fdt, fcum, static_cast<const float*>(dy), fw,
+      static_cast<float*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dcum), Q, H, BC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  k3<<<dim3(nt, 2, BC), NT, reduce_smem<N>(), stream>>>(
+      fb, fc, fw, static_cast<float*>(db), static_cast<float*>(dc),
+      static_cast<float*>(dcum), Q, H, BC);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 enum Design { NONE = -1, SIMT = 0, WGMMA = 1, WGMMA_P128 = 2 };
 
 Design design_of(int P, int N) {
@@ -749,6 +1132,20 @@ Design design_of(int P, int N) {
   if (P == 128 && N == 128) return WGMMA_P128;
   if (P == 16 && N == 16) return SIMT;
   return NONE;
+}
+
+// The backward's designs: one fp32 CUDA-core design, a template over
+// (P, N), instanced at each (P, N) the forward serves, and only there.
+enum BackwardDesign { BWD_NONE = -1, BWD_SIMT = 0, BWD_SIMT_P64 = 1,
+                      BWD_SIMT_P128 = 2 };
+
+BackwardDesign backward_design_of(int P, int N) {
+  switch (design_of(P, N)) {
+    case WGMMA: return BWD_SIMT_P64;
+    case WGMMA_P128: return BWD_SIMT_P128;
+    case SIMT: return BWD_SIMT;
+    default: return BWD_NONE;
+  }
 }
 
 }  // namespace
@@ -771,6 +1168,38 @@ int ssd_scan_intra(const void* x, const void* dt, const void* cum,
       return wg::launch<128>(x, dt, cum, b, c, y, B, NC, Q, H, st);
     case SIMT:
       return simt::launch<16, 16>(x, dt, cum, b, c, y, B, NC, Q, H, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The backward's design for (P, N): 2 = simt_p128, 1 = simt_p64, 0 = simt,
+// -1 = none.
+int ssd_scan_bwd_design(int P, int N) { return backward_design_of(P, N); }
+
+// Bytes of the workspace the backward takes at (B, NC, Q, H).
+long long ssd_scan_bwd_work_bytes(int B, int NC, int Q, int H) {
+  return (long long)(sizeof(float) * bwd::Work(B * NC, Q, H).total);
+}
+
+// dx, ddt, dcum, db, dc of the intra-chunk term given dy, in three
+// launches over `work` (ssd_scan_bwd_work_bytes).  Returns a cudaError_t.
+int ssd_scan_intra_bwd(const void* x, const void* dt, const void* cum,
+                       const void* b, const void* c, const void* dy, void* dx,
+                       void* ddt, void* dcum, void* db, void* dc, void* work,
+                       int B, int NC, int Q, int H, int P, int N,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (backward_design_of(P, N)) {
+    case BWD_SIMT_P64:
+      return bwd::launch<64, 128>(x, dt, cum, b, c, dy, dx, ddt, dcum, db, dc,
+                                  work, B, NC, Q, H, st);
+    case BWD_SIMT_P128:
+      return bwd::launch<128, 128>(x, dt, cum, b, c, dy, dx, ddt, dcum, db,
+                                   dc, work, B, NC, Q, H, st);
+    case BWD_SIMT:
+      return bwd::launch<16, 16>(x, dt, cum, b, c, dy, dx, ddt, dcum, db, dc,
+                                 work, B, NC, Q, H, st);
     default:
       return cudaErrorInvalidValue;
   }

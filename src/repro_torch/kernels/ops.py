@@ -12,9 +12,9 @@ plain version is the reference's host loop.
 
 Under a gradient (``torch.is_grad_enabled()`` and an input that requires
 grad) a CUDA tensor goes to the kernel with its hand-written backward
-(``flash_attention.FlashAttentionFunction``); a CPU tensor to the plain
-version, whose gradient is PyTorch's autograd.  ``ssd_intra`` has no
-backward kernel yet and raises on CUDA tensors under a gradient.
+(``flash_attention.FlashAttentionFunction``,
+``ssd_scan.SSDIntraFunction``); a CPU tensor to the plain version, whose
+gradient is PyTorch's autograd.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from .fnv1a import KERNEL as _fnv1a_kernel
 from .flash_attention import KERNEL as _flash_kernel
 from .flash_attention import FlashAttentionFunction as _FlashFunction
 from .ssd_scan import KERNEL as _ssd_kernel
+from .ssd_scan import SSDIntraFunction as _SSDFunction
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,10 +57,7 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_intra_ref(x, dt, cum, b_in, c_in)
     if _wants_grad(x, dt, cum, b_in, c_in):
-        raise NotImplementedError(
-            "ssd_intra on the card has no backward kernel yet (ROADMAP "
-            "queue 2, ssd_intra's backward): an SSM config cannot train on "
-            "the card until it is written")
+        return _SSDFunction.apply(x, dt, cum, b_in, c_in)
     return _ssd_kernel(x, dt, cum, b_in, c_in)
 
 

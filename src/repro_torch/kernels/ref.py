@@ -109,16 +109,52 @@ def ssd_intra_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     """Intra-chunk SSD: Y[i] = Σ_{j≤i} (C_i·B_j) exp(cum_i − cum_j) Δ_j x_j.
 
     x: (B,NC,Q,H,P); dt/cum: (B,NC,Q,H); b_in/c_in: (B,NC,Q,N).  The mask
-    is applied before the product with Δ_j, so the overflowing
-    exp(cum_i − cum_j) of j > i never reaches the output."""
-    q = x.shape[2]
+    is applied to the exponent, before exp is formed: above the diagonal
+    exp(cum_i − cum_j) overflows over a long chunk, and although a mask
+    after exp keeps that inf out of the output, autograd's 0·inf would put
+    NaN into the gradients of dt, cum, B and C (the reference's own
+    float32 gradient is NaN there)."""
     scores = torch.einsum("bcqn,bckn->bcqk", c_in.float(), b_in.float())
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
-    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    m = torch.where(mask[None, None, :, :, None], scores[..., None] * decay,
-                    torch.zeros((), device=x.device))
+    m = scores[..., None] * _masked_decay(cum)
     m = m * dt[:, :, None, :, :]
     return torch.einsum("bcqkh,bckhp->bcqhp", m, x.float()).to(x.dtype)
+
+
+def _masked_decay(cum: torch.Tensor) -> torch.Tensor:
+    """E (B, NC, Q, Q, H): exp(cum_i − cum_j) for j ≤ i, 0 above the
+    diagonal, its exponent masked to −inf before exp is formed."""
+    q = cum.shape[2]
+    mask = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    return torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                 torch.full((), -torch.inf, dtype=diff.dtype,
+                                            device=cum.device)))
+
+
+def ssd_intra_bwd_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                      b_in: torch.Tensor, c_in: torch.Tensor,
+                      dy: torch.Tensor):
+    """The backward kernel's formulas written out: dy (B, NC, Q, H, P), the
+    gradient of ``ssd_intra_ref``'s output → (dx, ddt, dcum, db, dc), in
+    the inputs' dtype (float64 inputs give the float64 yardstick).  With S
+    = C·Bᵀ, E the masked decay, M_ijh = S_ij·E_ijh·dt_jh and G_ijh =
+    Σ_p dy_ihp·x_jhp: dx_j = Σ_{i≥j} M_ij·dy_i, ddt_j = Σ_i G_ij·S_ij·E_ij,
+    dS_ij = Σ_h G_ijh·E_ijh·dt_jh (B and C are shared by the heads), dC =
+    dS·B, dB = dSᵀ·C, and with T = G·M, dcum_k = Σ_j T_kj − Σ_i T_ik: the
+    decay's two ends."""
+    s = torch.einsum("bcqn,bckn->bcqk", c_in, b_in)
+    e = _masked_decay(cum)
+    g = torch.einsum("bcihp,bcjhp->bcijh", dy, x)
+    se = s[..., None] * e
+    m = se * dt[:, :, None, :, :]
+    dx = torch.einsum("bcijh,bcihp->bcjhp", m, dy)
+    ddt = (g * se).sum(2)
+    ds = (g * e * dt[:, :, None, :, :]).sum(-1)
+    dc = torch.einsum("bcij,bcjn->bcin", ds, b_in)
+    db = torch.einsum("bcij,bcin->bcjn", ds, c_in)
+    t = g * m
+    dcum = t.sum(3) - t.sum(2)
+    return dx, ddt, dcum, db, dc
 
 
 def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:

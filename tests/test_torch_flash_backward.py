@@ -208,10 +208,11 @@ def test_backward_designs_mirror_the_c_router():
 
 
 def test_ssd_intra_refuses_a_gradient_on_cuda(monkeypatch):
-    """On a CUDA tensor under a gradient ``ops.ssd_intra`` raises, naming
-    the missing backward; it never runs the plain version there.  The
-    CUDA tensors are stood in for (``device.type`` 'cuda'), so the check
-    runs without a card."""
+    """On a CUDA tensor ``ops.ssd_intra`` no longer refuses a gradient: it
+    goes to ``SSDIntraFunction`` (the forward kernel, then the backward
+    kernel), under ``no_grad`` to the forward kernel alone, and never to
+    the plain version.  The CUDA tensors are stood in for (``device.type``
+    'cuda'), so the check runs without a card."""
     x = torch.zeros(1, 1, 4, 2, 16, requires_grad=True)
 
     class OnCard:
@@ -222,14 +223,15 @@ def test_ssd_intra_refuses_a_gradient_on_cuda(monkeypatch):
     called = []
     monkeypatch.setattr(ops, "_ssd_kernel",
                         lambda *a: called.append("kernel"))
+    monkeypatch.setattr(ops, "_SSDFunction", types.SimpleNamespace(
+        apply=lambda *a: called.append("function")))
     monkeypatch.setattr(ref, "ssd_intra_ref",
                         lambda *a: called.append("plain"))
     args = [OnCard(x)] + [OnCard(torch.zeros(1)) for _ in range(4)]
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ops.ssd_intra(*args)
+    ops.ssd_intra(*args)
     with torch.no_grad():
         ops.ssd_intra(*args)
-    assert called == ["kernel"]
+    assert called == ["function", "kernel"]
 
 
 # ---------------------------------------------------------------------------
